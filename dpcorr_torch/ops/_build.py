@@ -50,11 +50,17 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
+def log_path(name: str) -> Path:
+    """The compiler's report (``-Xptxas=-v``: registers, shared memory,
+    spills) for the library at :func:`library_path`, under the same
+    digest, so it always describes that build."""
+    return library_path(name).with_suffix(".log")
+
+
 def build_all(names=None) -> dict[str, Path]:
     """Compile the named sources (default: every ``csrc/*.cu``) whose
-    library is missing; returns ``{name: library path}``. The compiler's
-    report (``-Xptxas=-v``: registers, shared memory, spills) is kept
-    beside each library as ``<name>.log``."""
+    library is missing; returns ``{name: library path}``. Each build's
+    report is kept at :func:`log_path`."""
     if names is None:
         names = sorted(p.stem for p in CSRC.glob("*.cu"))
     targets = {name: library_path(name) for name in names}
@@ -72,7 +78,7 @@ def build_all(names=None) -> dict[str, Path]:
         failed = []
         for name, (tmp, proc) in procs.items():
             log, _ = proc.communicate()
-            (BUILD_DIR / f"{name}.log").write_text(log)
+            pending[name].with_suffix(".log").write_text(log)
             if proc.returncode != 0:
                 failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n"
                               f"{log}")

@@ -16,7 +16,8 @@ generator) or raises. There is no fallback from one to the other.
 
 Applicability is the JAX package's: m ≤ 128 and k ≥ 2
 (:func:`use_fused_ni`). On the card the replication's x and y planes live
-in shared memory, which bounds n at about 25,000 (``_Consts.smem``).
+in shared memory, which bounds n at about 28,600 at m = 8 (25,600 with
+INT; ``_Consts.plane_bytes``).
 """
 
 from __future__ import annotations
@@ -34,8 +35,9 @@ from dpcorr_torch.utils.device import f32_on, resolve_device
 LANES = 128
 _TWO_PI = float(np.float32(2.0 * math.pi))
 #: dynamic shared memory one block may use on an H100 (227 KB), less a
-#: margin for the kernel's static reduction scratch
-_SMEM_LIMIT = 232448 - 1024
+#: margin for the kernel's static scratch (reductions, quotient table);
+#: ``kSmemLimit`` in csrc/fused_ni.cu
+_SMEM_LIMIT = 232448 - 2048
 _GAUSS = ("boxmuller", "ndtri")
 
 #: launches of each kernel, counted where the wrapper launches it
@@ -80,6 +82,36 @@ def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     result is masked, so bits with the sign bit set do not sign-extend."""
     b23 = (bits.to(torch.int64) >> 9) & 0x7FFFFF
     return (b23.to(torch.float32) + 0.5) * (2.0**-23)
+
+
+_M32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(a: int, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(high, low) 32-bit words of the constant ``a`` times ``b`` (int64
+    holding uint32), in int64 without overflow: ``b`` is split into 16-bit
+    halves."""
+    hi_part = a * (b >> 16)                         # < 2^48
+    t = ((hi_part & 0xFFFF) << 16) + a * (b & 0xFFFF)
+    return (hi_part >> 16) + (t >> 32), t & _M32
+
+
+def philox4x32(counter: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+    """Philox4x32-10 (Random123), the kernel's in-kernel generator, in
+    int64 tensor ops. ``counter``: (..., 4) and ``key``: (..., 2) uint32
+    words held in int64, broadcast against each other. Returns the
+    (..., 4) output words."""
+    c = [counter[..., i] & _M32 for i in range(4)]
+    k0, k1 = key[..., 0] & _M32, key[..., 1] & _M32
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c[0])
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c[2])
+        c = [hi1 ^ c[1] ^ k0, lo1, hi0 ^ c[3] ^ k1, lo0]
+        k0 = (k0 + _PHILOX_W[0]) & _M32
+        k1 = (k1 + _PHILOX_W[1]) & _M32
+    return torch.stack(torch.broadcast_tensors(*c), dim=-1)
 
 
 def laplace_from_uniform(u: torch.Tensor, scale=1.0) -> torch.Tensor:
@@ -157,11 +189,89 @@ class _Consts:
         """Uniform rows of one replication in external mode."""
         return 4 * self.rows + 8 + (self.rows + 8 if compute_int else 0)
 
-    def smem(self, compute_int: bool) -> int:
-        """Dynamic shared memory of one kernel block: the x and y planes
-        (f32) and, with INT, one flip byte per position."""
+    def plane_bytes(self, compute_int: bool) -> int:
+        """Shared memory of one replication's planes: x and y (f32) and,
+        with INT, one flip byte per position. It caps n."""
         plane = self.rows * LANES
         return plane * 8 + (plane if compute_int else 0)
+
+    def noise_in_smem(self, compute_int: bool) -> bool:
+        """Whether the kernel keeps the (x, y) noise of each batch (f32)
+        beside the planes, as ``noise_fits`` in csrc/fused_ni.cu; else its
+        sweep draws the noise where it forms T_j."""
+        return self.plane_bytes(compute_int) + 8 * self.k <= _SMEM_LIMIT
+
+
+def observation_positions(n: int, eps1: float, eps2: float,
+                          device=None) -> torch.Tensor:
+    """(n,) position of each observation in the (rows, 128) layout, as
+    the kernel places it: observation o of batch o // m sits at lane
+    o % m of lane group o // m; the leftovers follow the k·m' group
+    lanes."""
+    m, m_pad, k, _, _ = layout(n, eps1, eps2)
+    o = torch.arange(n, device=device)
+    in_batch = o < k * m
+    return torch.where(in_batch, (o // m) * m_pad + o % m,
+                       k * m_pad + o - k * m)
+
+
+def _stream_words(key: torch.Tensor, tag: int, calls: int) -> torch.Tensor:
+    """(B, 4·calls) words of the in-kernel stream ``tag``: Philox on
+    counters (i, tag, 0, 0) for i < calls, in counter order."""
+    ctr = torch.zeros(calls, 4, dtype=torch.int64, device=key.device)
+    ctr[:, 0] = torch.arange(calls, device=key.device)
+    ctr[:, 1] = tag
+    return philox4x32(ctr[None], key[:, None]).reshape(key.shape[0], -1)
+
+
+def philox_uniforms(seeds: torch.Tensor, n: int, eps1: float, eps2: float,
+                    compute_int: bool = False,
+                    normalise: bool = True) -> torch.Tensor:
+    """The kernel's in-kernel draws, laid out as external uniforms.
+
+    Plain twin of the kernel's Philox4x32-10 streams (the counter scheme
+    in csrc/fused_ni.cu): for each replication's seed words ``(B, 2)``
+    int32, every word the kernel draws in its in-kernel mode, turned into
+    a uniform by the 23-bit rule and put where external mode reads it in
+    the TPU kernel's take() order. Returns ``(B, n_uniform_rows, 128)``
+    f32; positions the kernel never reads hold 0.5. External mode on this
+    tensor computes what in-kernel mode computes from ``seeds``, with the
+    same ``compute_int`` and ``normalise``."""
+    c = _Consts(n, eps1, eps2, (0.0, 0.0), (1.0, 1.0))
+    rows, k, plane = c.rows, c.k, c.rows * LANES
+    dev = seeds.device
+    key = seeds.to(torch.int64) & _M32
+    b = key.shape[0]
+    out = torch.full((b, c.u_rows(compute_int) * LANES), 0.5,
+                     dtype=torch.float32, device=dev)
+    pos = observation_positions(n, eps1, eps2, dev)
+    unit = uniform_from_bits
+    # tag 0: (u1, u2) of observations 2i and 2i + 1
+    w = _stream_words(key, 0, -(-n // 2)).reshape(b, -1, 2)
+    out[:, pos] = unit(w[:, :n, 0])
+    out[:, plane + pos] = unit(w[:, :n, 1])
+    # tag 3, counter 0: lx, ly, lxi, lyi; counter 1: the receiver draw
+    scal = unit(_stream_words(key, 3, 2))
+    row = 2 * rows
+    if normalise:
+        out[:, row * LANES] = scal[:, 0]
+        out[:, (row + 1) * LANES] = scal[:, 1]
+        row += 8
+    # tag 2: (ux, uy) of batches 2i and 2i + 1, at (row, col) = divmod(j,
+    # g_cols) of the x and y noise blocks
+    w = _stream_words(key, 2, -(-k // 2)).reshape(b, -1, 2)[:, :k]
+    j = torch.arange(k, device=dev)
+    at = (row + j // c.g_cols) * LANES + j % c.g_cols
+    out[:, at] = unit(w[..., 0])
+    out[:, at + rows * LANES] = unit(w[..., 1])
+    row += 2 * rows
+    if compute_int:
+        for i in range(3):
+            out[:, (row + i) * LANES] = scal[:, 2 + i]
+        # tag 1: flip uniforms of observations 4i .. 4i + 3
+        w = _stream_words(key, 1, -(-n // 4))[:, :n]
+        out[:, (row + 8) * LANES + pos] = unit(w)
+    return out.reshape(b, -1, LANES)
 
 
 def _planes(u: torch.Tensor, rho: torch.Tensor, c: _Consts,
@@ -265,10 +375,8 @@ class _Params(ctypes.Structure):
                     "mu1", "sig0", "sig1", "p_keep", "c_eta", "scale_z")])
 
 
-def _library():
-    from dpcorr_torch.ops import _build
-
-    lib = _build.load("fused_ni")
+def _typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of csrc/fused_ni.cu on a loaded library."""
     if not getattr(lib, "_dpcorr_typed", False):
         lib.fused_ni_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -280,6 +388,60 @@ def _library():
         lib.fused_ni_error_string.restype = ctypes.c_char_p
         lib._dpcorr_typed = True
     return lib
+
+
+def _library() -> ctypes.CDLL:
+    from dpcorr_torch.ops import _build
+
+    return _typed(_build.load("fused_ni"))
+
+
+def _params(c: _Consts, compute_int: bool) -> _Params:
+    return _Params(c.n, c.m, c.m_pad, c.k, c.leftover, c.rows,
+                   c.u_rows(compute_int), c.g_cols, c.l_clip, c.den_x,
+                   c.den_y, c.scale_x, c.scale_y, c.mu[0], c.mu[1],
+                   c.sigma[0], c.sigma[1], c.p_keep, c.c_eta, c.scale_z)
+
+
+def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"fused_ni {what} failed: "
+                           + lib.fused_ni_error_string(err).decode())
+
+
+def _call(lib: ctypes.CDLL, seeds, rho, uniforms, out, c: _Consts,
+          normalise, compute_int, gauss) -> None:
+    """One launch of ``lib``'s kernel on the current stream, on tensors
+    the caller has checked; raises if the launch is refused."""
+    params = _params(c, compute_int)
+    dev = seeds.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_ni_launch(
+            seeds.data_ptr(), rho.data_ptr(),
+            None if uniforms is None else uniforms.data_ptr(),
+            out.data_ptr(), seeds.shape[0], ctypes.byref(params),
+            int(uniforms is not None), int(compute_int),
+            int(gauss == "ndtri"), int(normalise), stream)
+    _raise_on(lib, err, "kernel launch")
+
+
+def blocks_per_sm(n: int, eps1: float, eps2: float, *,
+                  compute_int: bool = False) -> int:
+    """Blocks (replications) of the in-kernel Box–Muller mode with
+    ``normalise`` that the card keeps resident on one SM, by the CUDA
+    occupancy calculator. Card only."""
+    c = _Consts(n, eps1, eps2, (0.0, 0.0), (1.0, 1.0))
+    lib = _library()
+    fn = lib.fused_ni_blocks_per_sm
+    fn.argtypes = [ctypes.POINTER(_Params)] + [ctypes.c_int] * 4 + [
+        ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    _raise_on(lib, fn(ctypes.byref(_params(c, compute_int)), 0,
+                      int(compute_int), 0, 1, ctypes.byref(blocks)),
+              "occupancy query")
+    return blocks.value
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -303,7 +465,7 @@ def _launch(seeds, rho, uniforms, c: _Consts, normalise, compute_int,
     _check(rho, "rho", torch.float32, (b,), dev)
     if uniforms is not None:
         _check(uniforms, "uniforms", torch.float32, (b, u_rows, LANES), dev)
-    smem = c.smem(compute_int)
+    smem = c.plane_bytes(compute_int)
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"n={c.n} needs {smem} bytes of shared memory per replication; "
@@ -312,21 +474,8 @@ def _launch(seeds, rho, uniforms, c: _Consts, normalise, compute_int,
     out = torch.empty(b, 3, dtype=torch.float32, device=dev)
     if b == 0:
         return out
-    lib = _library()
-    params = _Params(c.n, c.m, c.m_pad, c.k, c.leftover, c.rows, u_rows,
-                     c.g_cols, c.l_clip, c.den_x, c.den_y, c.scale_x,
-                     c.scale_y, c.mu[0], c.mu[1], c.sigma[0], c.sigma[1],
-                     c.p_keep, c.c_eta, c.scale_z)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_ni_launch(
-            seeds.data_ptr(), rho.data_ptr(),
-            None if uniforms is None else uniforms.data_ptr(),
-            out.data_ptr(), b, ctypes.byref(params), int(uniforms is not None),
-            int(compute_int), int(gauss == "ndtri"), int(normalise), stream)
-    if err != 0:
-        raise RuntimeError("fused_ni kernel launch failed: "
-                           + lib.fused_ni_error_string(err).decode())
+    _call(_library(), seeds, rho, uniforms, out, c, normalise, compute_int,
+          gauss)
     KERNEL_LAUNCHES["fused_ni"] += 1
     return out
 

@@ -17,12 +17,15 @@ per run.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import time
 from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from dpcorr_torch.models.dgp import gen_gaussian
 from dpcorr_torch.models.estimators.common import batch_geometry
@@ -34,6 +37,48 @@ from dpcorr_torch.models.estimators.ni_sign import ci_ni_signbatch
 from dpcorr_torch.ops.fused_ni import fused_ni_sums, ni_result
 from dpcorr_torch.utils import rng
 from dpcorr_torch.utils.device import f32_on, resolve_device
+
+
+#: the stages of a fused block, as ``torch.profiler`` ranges (:func:`stage`)
+FUSED_STAGES = ("rep_keys", "kernel_seeds", "fused_ni", "ni_result+_metrics",
+                "accumulate")
+
+
+_stage_seconds: dict | None = None  # inside stage_host_seconds() only
+
+
+@contextlib.contextmanager
+def stage_host_seconds():
+    """Inside this block, the host seconds spent in each :func:`stage`
+    are summed by name into the dict it yields (the stages are
+    asynchronous, so this is their enqueue time)."""
+    global _stage_seconds
+    outer, _stage_seconds = _stage_seconds, {}
+    try:
+        yield _stage_seconds
+    finally:
+        _stage_seconds = outer
+
+
+@contextlib.contextmanager
+def _host_timed(name: str, into: dict):
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        into[name] = into.get(name, 0.0) + time.perf_counter() - t0
+
+
+def stage(name: str):
+    """A ``torch.profiler`` range named ``name`` around one stage of a
+    block while the profiler records, or the stage's host time inside
+    :func:`stage_host_seconds`; else nothing (a range costs microseconds
+    of host time, and the fused path is host-bound)."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    if _stage_seconds is not None:
+        return _host_timed(name, _stage_seconds)
+    return contextlib.nullcontext()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,9 +279,12 @@ def fused_ni_rep_fn(n: int, rho: float, eps1: float, eps2: float,
     _, k = batch_geometry(n, eps1, eps2)
 
     def body(keys):
-        out = fused_ni_sums(rng.kernel_seeds(keys).contiguous(), rho, n,
-                            eps1, eps2)
-        return _metrics(ni_result(out[:, 0], out[:, 1], k, alpha), rho)
+        with stage("kernel_seeds"):
+            seeds = rng.kernel_seeds(keys).contiguous()
+        with stage("fused_ni"):
+            out = fused_ni_sums(seeds, rho, n, eps1, eps2)
+        with stage("ni_result+_metrics"):
+            return _metrics(ni_result(out[:, 0], out[:, 1], k, alpha), rho)
 
     return body
 
@@ -271,13 +319,16 @@ class RepBlockPipeline:
         self.fetches = 0
 
     def _block_keys(self, i: int) -> torch.Tensor:
-        return rng.rep_keys(rng.design_key(self._key, i), self.block_reps)
+        with stage("rep_keys"):
+            return rng.rep_keys(rng.design_key(self._key, i),
+                                self.block_reps)
 
     def _fill(self, keys: torch.Tensor) -> None:
         for s in range(0, self.block_reps, self.chunk_size):
             outs = self.rep_fn(keys[s:s + self.chunk_size])
-            for row, o in zip(self._out, outs, strict=True):
-                row[s:s + o.shape[0]].copy_(o)
+            with stage("accumulate"):
+                for row, o in zip(self._out, outs, strict=True):
+                    row[s:s + o.shape[0]].copy_(o)
 
     def run(self, n_blocks: int, *, start_block: int = 0):
         """Run ``n_blocks`` chained blocks; returns ``(sums, n_reps)``
@@ -286,7 +337,8 @@ class RepBlockPipeline:
         keys = self._block_keys(start_block)
         for i in range(start_block, start_block + int(n_blocks)):
             self._fill(keys)
-            self._acc.add_(self._out.sum(dim=1))
+            with stage("accumulate"):
+                self._acc.add_(self._out.sum(dim=1))
             keys = self._block_keys(i + 1)
         sums = self._acc.cpu()  # the one host sync
         self.fetches += 1

@@ -1,6 +1,10 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution for the port's entry points, and what the
+measuring scripts (``chip_smoke.py``, ``dpcorr_torch.perf_fused``) read
+from the card."""
 
 from __future__ import annotations
+
+import subprocess
 
 import torch
 
@@ -24,3 +28,29 @@ def f32_on(v, device) -> torch.Tensor:
     if isinstance(v, torch.Tensor):
         return v.to(device, torch.float32)
     return torch.full((), float(v), dtype=torch.float32, device=device)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def time_cuda(fn, reps: int) -> float:
+    """Milliseconds per call of ``fn`` on the card, by CUDA events over
+    ``reps`` calls after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps

@@ -16,7 +16,32 @@ from dpcorr_torch import sim
 from dpcorr_torch.ops import fused_ni
 from dpcorr_torch.utils import rng
 
-EPS_PAIRS = [(1.0, 1.0), (1.5, 0.5)]
+#: (n, ε) of each lane-group layout the kernel's sweep branches on:
+#: m' = 1, 8, 16 (m = 11, with leftovers), 32, 64, 128, and n = 1000 and
+#: 20,000
+GEOMETRIES = [
+    (10_000, (4.0, 2.0)),
+    (10_000, (1.0, 1.0)),
+    (9_000, (1.5, 0.5)),
+    (10_000, (0.5, 0.5)),
+    (10_000, (0.5, 0.25)),
+    (10_000, (0.25, 0.25)),
+    (1_000, (1.0, 1.0)),
+    (20_000, (1.0, 1.0)),
+]
+#: (n, ε, compute_int) where the batch noise does not fit beside the
+#: planes in shared memory, so the kernel's sweep draws it: m' = 1 and 8
+#: at the cap on n (NI and INT), m' = 2, 4, 64, 128
+NOISE_IN_SWEEP = [
+    (28_000, (4.0, 2.0), False), (25_000, (4.0, 2.0), True),
+    (20_000, (2.0, 2.0), False), (20_000, (2.0, 2.0), True),
+    (24_000, (1.5, 1.5), False), (24_000, (1.5, 1.5), True),
+    (28_000, (1.0, 1.0), False), (25_000, (1.0, 1.0), True),
+    (28_000, (0.5, 0.25), False), (28_000, (0.25, 0.25), False),
+]
+#: every layout in both INT modes, then the noise-in-sweep cases
+CASES = [(n, eps, ci) for n, eps in GEOMETRIES
+         for ci in (False, True)] + NOISE_IN_SWEEP
 
 
 @pytest.fixture
@@ -32,20 +57,42 @@ def _uniforms(seed, b, n, eps, compute_int, device):
     return torch.from_numpy(u.astype(np.float32)).to(device)
 
 
+def _within(got, want):
+    """Per replication: ΣT_j and ΣT_j² within 1e-4 relative, η̂_INT
+    within 1e-5."""
+    ok = torch.isclose(got[:, :2], want[:, :2], rtol=1e-4, atol=0.0).all(1)
+    return ok & torch.isclose(got[:, 2], want[:, 2], rtol=0.0, atol=1e-5)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("eps", EPS_PAIRS)
+@pytest.mark.parametrize("source", ["external", "philox"])
+@pytest.mark.parametrize("n,eps,compute_int", CASES)
 @pytest.mark.parametrize("normalise", [True, False])
 @pytest.mark.parametrize("gauss", ["boxmuller", "ndtri"])
-@pytest.mark.parametrize("compute_int", [False, True])
-def test_kernel_matches_plain(cuda, compute_int, gauss, normalise, eps):
-    """External uniforms: ΣT_j and ΣT_j² within 1e-4 relative and η̂_INT
-    within 1e-5 for at least 99% of replications (the rest: a centered
-    value at a sign tie under another rounding)."""
-    b, n = 128, 10_000
-    u = _uniforms(6, b, n, eps, compute_int, cuda)
-    rho = torch.full((b,), 0.5, device=cuda)
-    seeds = torch.zeros(b, 2, dtype=torch.int32, device=cuda)
+def test_kernel_matches_plain(cuda, gauss, normalise, n, eps, compute_int,
+                              source):
+    """The kernel against its plain version on identical uniforms: for at
+    least 99% of replications ΣT_j and ΣT_j² within 1e-4 relative and
+    η̂_INT within 1e-5 (the rest: a centered value at a sign tie under
+    another rounding). ``external``: random uniforms. ``philox``: the
+    in-kernel generator, whose draws ``philox_uniforms`` lays out; both
+    modes walk positions in the same order, so in-kernel mode must equal
+    external mode on those uniforms bit for bit. In the
+    ``NOISE_IN_SWEEP`` cases the kernel draws the batch noise in its
+    sweep, from the same words."""
+    if (n, eps, compute_int) in NOISE_IN_SWEEP:
+        c = fused_ni._Consts(n, *eps, (0.0, 0.0), (1.0, 1.0))
+        assert not c.noise_in_smem(compute_int)
+    b = 128
+    rho = torch.linspace(-0.6, 0.9, b, device=cuda)
     kw = dict(normalise=normalise, compute_int=compute_int, gauss=gauss)
+    if source == "external":
+        seeds = torch.zeros(b, 2, dtype=torch.int32, device=cuda)
+        u = _uniforms(6, b, n, eps, compute_int, cuda)
+    else:
+        seeds = torch.from_numpy(np.random.default_rng(8).integers(
+            -2**31, 2**31, (b, 2), dtype=np.int64).astype(np.int32)).to(cuda)
+        u = fused_ni.philox_uniforms(seeds, n, *eps, compute_int, normalise)
     before = fused_ni.KERNEL_LAUNCHES["fused_ni"]
     got = fused_ni.fused_ni_sums(seeds, rho, n, *eps, uniforms=u, **kw)
     torch.cuda.synchronize()
@@ -53,9 +100,10 @@ def test_kernel_matches_plain(cuda, compute_int, gauss, normalise, eps):
     want = fused_ni.fused_ni_plain(seeds, rho, u, n=n, eps1=eps[0],
                                    eps2=eps[1], **kw)
     assert torch.isfinite(got).all()
-    ok = torch.isclose(got[:, :2], want[:, :2], rtol=1e-4, atol=0.0).all(1)
-    ok &= torch.isclose(got[:, 2], want[:, 2], rtol=0.0, atol=1e-5)
-    assert ok.float().mean().item() >= 0.99
+    assert _within(got, want).float().mean().item() >= 0.99
+    if source == "philox":
+        inside = fused_ni.fused_ni_sums(seeds, rho, n, *eps, **kw)
+        assert torch.equal(inside, got)
 
 
 @pytest.mark.cuda
@@ -71,6 +119,15 @@ def test_in_kernel_generator_is_seeded(cuda, compute_int):
                                1.0, compute_int=compute_int)
     assert torch.isfinite(a).all() and torch.equal(a, b)
     assert not torch.equal(a[:, 0], c[:, 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_int", [False, True])
+def test_two_blocks_per_sm_on_the_main_path(cuda, compute_int):
+    """n = 10⁴: two replications' planes fit in one SM's shared memory,
+    and the registers allow two 512-thread blocks."""
+    assert fused_ni.blocks_per_sm(10_000, 1.0, 1.0,
+                                  compute_int=compute_int) == 2
 
 
 @pytest.mark.cuda

@@ -9,6 +9,7 @@ the plain version on the card by tests/test_torch_cuda.py.
 """
 
 import ctypes
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -163,3 +164,24 @@ def test_params_struct_has_no_padding():
     text = open(src).read()
     for name, _ in fused_ni._Params._fields_:
         assert name in text
+
+
+@pytest.mark.parametrize("compute_int,n_cap", [(False, 28_672),
+                                               (True, 25_600)])
+def test_planes_alone_cap_n(compute_int, n_cap):
+    """At m = 8 the x and y planes (and INT's flips) cap n; the batch
+    noise stays in shared memory at the main path's n = 10⁴ and moves to
+    the kernel's sweep where it does not fit, so it never lowers the cap.
+    The wrapper's limit is the kernel's ``kSmemLimit``."""
+    def consts(n):
+        return fused_ni._Consts(n, 1.0, 1.0, (0.0, 0.0), (1.0, 1.0))
+
+    assert fused_ni.layout(n_cap, 1.0, 1.0)[1] == 8
+    assert consts(n_cap).plane_bytes(compute_int) <= fused_ni._SMEM_LIMIT
+    assert not consts(n_cap).noise_in_smem(compute_int)
+    assert consts(n_cap + 1).plane_bytes(compute_int) > fused_ni._SMEM_LIMIT
+    assert consts(10_000).noise_in_smem(compute_int)
+    src = (fused_ni.__file__.rsplit("/ops/", 1)[0] + "/csrc/fused_ni.cu")
+    total, margin = re.search(r"kSmemLimit = (\d+) - (\d+);",
+                              open(src).read()).groups()
+    assert int(total) - int(margin) == fused_ni._SMEM_LIMIT

@@ -95,6 +95,30 @@ def test_rep_block_pipeline_matches_jax():
     assert ok.mean() >= 0.98
 
 
+def test_pipeline_marks_its_stages():
+    """``sim.stage`` around the block's stages: host seconds per stage
+    inside ``stage_host_seconds``, a ``torch.profiler`` range per stage
+    while the profiler records, nothing otherwise; the sums are the same
+    either way."""
+    pipe = sim.RepBlockPipeline(sim.ni_rep_fn(N, RHO, 1.0, 1.0), 3,
+                                key=rng.master_key(), block_reps=16,
+                                chunk_size=8, device="cpu")
+    plain = pipe.run(2)
+    with sim.stage_host_seconds() as seconds:
+        timed = pipe.run(2)
+    assert timed == plain
+    assert set(seconds) == {"rep_keys", "accumulate"}
+    assert all(v > 0 for v in seconds.values())
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        pipe.run(1)
+    names = [ev.name for ev in prof.events() if ev.name in sim.FUSED_STAGES]
+    # keys for this block and the next; two chunks' copies and one add
+    assert sorted(names) == ["accumulate"] * 3 + ["rep_keys"] * 2
+    with sim.stage("rep_keys") as inside:
+        assert inside is None
+
+
 def _imports(path: pathlib.Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
