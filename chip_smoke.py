@@ -27,7 +27,30 @@ north-star workload (n = 10⁴ Gaussian pair → NI sign-batch estimate + CI →
 7. times: the kernel at the main path's launch shape (CUDA events), its
    plain version on the same replications, blocks resident per SM, and
    the least time the card could take for the same work, by pipe and by
-   issue slots.
+   issue slots;
+8. the sub-Gaussian and streaming paths (no kernel of their own: torch
+   ops on the key-tree), each driven with the launch counts set to 0
+   just before it and read just after:
+   (a) card against CPU on the same keys: ``permutation`` and the
+       bounded-factor data bit for bit, and ``_one_rep`` for the subG grid
+       pair, the real-data pair and the streaming pair within 1e-5 for
+       ≥ 99% of 256 replications;
+   (b) the acceptance points ``subg_factor`` (det and mc) and
+       ``subg_real`` (det) through ``run_sim_one``, 2¹⁸ replications
+       each, against the JAX package's committed coverage at B ≈ 10⁶:
+       |Δ coverage| ≤ 0.003, ci_length within 1%, mse within 3%;
+   (c) full width: ``RepBlockPipeline`` over the subG body at
+       n = 12,000, ε = (1.5, 0.5), 2¹⁶ replications: NI coverage in
+       [0.90, 0.99], one host read per run, reps/s;
+   (d) streaming: n = 10⁶, ``stream_n_chunk`` = 65536, the subG pair,
+       2048 replications: finite values, NI coverage in [0.90, 0.99],
+       reps/s. The INT estimator's receiver clips its products at
+       λ_r = 30, which biases η̂ by about −0.031 at every n ≥ 403 (the
+       JAX package's construction, replication by replication:
+       ``tests/test_torch_sim.py``); at n = 10⁶ its CI is 0.034 wide, so
+       it covers ρ in about 5% of replications. Its gates are therefore
+       against the materialized path of (b) in the same run: bias within
+       0.003, and ci_length within 2% of (b)'s scaled by √(4000/n).
 
 Every failure raises. The last line is the device record; before it come
 the per-kernel JSON record and the card line. Run from the repository
@@ -39,6 +62,7 @@ root:
 from __future__ import annotations
 
 import json
+import math
 import re
 import sys
 import time
@@ -83,6 +107,48 @@ CLOCK_HZ = 1.98e9
 # issue per clock.
 PIPE_RATES = {"f32": 128, "int32": 64, "sfu": 16}
 ISSUE_RATE = 4 * 32
+
+#: the JAX package's committed coverage at B ≈ 10⁶ for the sub-Gaussian
+#: acceptance points (dpcorr/acceptance.py:109-130), copied here so the
+#: script reads nothing of the JAX package: benchmarks/results/
+#: acceptance_r02.json, points "subg_factor" det and mc (b = 1,015,808),
+#: and benchmarks/results/acceptance_r03_subg_real.json, point
+#: "subg_real" det (b = 1,048,576)
+SUBG_POINT = dict(n=4000, rho=0.5, eps1=1.0, eps2=1.0,
+                  dgp="bounded_factor", use_subg=True)
+_NI_FACTOR = {"coverage": 0.9507869597404234, "mse": 0.33798967205709024,
+              "ci_length": 1.4930936636463288}
+ACCEPTANCE = {
+    "subg_factor det": (SUBG_POINT, {
+        "NI": _NI_FACTOR,
+        "INT": {"coverage": 0.9415470246345766, "mse": 0.02039640261641433,
+                "ci_length": 0.5391578020588044}}),
+    "subg_factor mc": (dict(SUBG_POINT, mixquant_mode="mc"), {
+        "NI": _NI_FACTOR,
+        "INT": {"coverage": 0.9396736391129032, "mse": 0.02039640261641433,
+                "ci_length": 0.5365214145952656}}),
+    "subg_real det": (dict(SUBG_POINT, subg_variant="real"), {
+        "NI": {"coverage": 0.9502944946289062, "mse": 0.3388798236846924,
+               "ci_length": 1.492500677704811},
+        "INT": {"coverage": 0.9500713348388672, "mse": 0.04646471468731761,
+                "ci_length": 0.8032669238746166}}),
+}
+ACCEPTANCE_REPS = 1 << 18
+#: card-against-CPU configurations of phase 8a, 256 replications each
+PARITY = {
+    "subg-grid": SUBG_POINT,
+    "subg-real": dict(SUBG_POINT, subg_variant="real"),
+    "stream-subg": dict(SUBG_POINT, n=40_000, stream_n_chunk=8192),
+}
+PARITY_REPS = 256
+FULL_WIDTH = dict(n=12_000, rho=0.5, eps1=1.5, eps2=0.5,
+                  dgp="bounded_factor", use_subg=True)
+FULL_WIDTH_REPS, FULL_WIDTH_BLOCK = 1 << 16, 1 << 14
+STREAM = dict(n=10**6, rho=0.5, eps1=1.0, eps2=1.0, dgp="bounded_factor",
+              use_subg=True, stream_n_chunk=65536)
+STREAM_REPS = 2048
+#: replications resident per chunk on the materialized subG path
+SUBG_CHUNK = 8192
 
 #: the main-path variant's template flags (external, INT, ndtri, normalise,
 #: noise in shared memory)
@@ -256,10 +322,10 @@ def compare_kernel_with_plain() -> float:
     return worst
 
 
-def run_pipeline(body, block_reps, chunk, n_blocks, key):
-    from dpcorr_torch.sim import RepBlockPipeline
+def run_pipeline(body, block_reps, chunk, n_blocks, key, out_len=3):
+    from dpcorr_torch.sim import DETAIL_FIELDS, RepBlockPipeline
 
-    pipe = RepBlockPipeline(body, 3, key=key, block_reps=block_reps,
+    pipe = RepBlockPipeline(body, out_len, key=key, block_reps=block_reps,
                             chunk_size=chunk)
     pipe.run(1, start_block=10_000)  # warm: allocator, first launches
     t0 = time.perf_counter()
@@ -268,9 +334,158 @@ def run_pipeline(body, block_reps, chunk, n_blocks, key):
     if pipe.fetches != 2:
         raise RuntimeError(f"expected one host read per run, saw "
                            f"{pipe.fetches} over two runs")
-    mse, cover, ci_len = (s / n_reps for s in sums)
-    return {"reps": n_reps, "seconds": dt, "reps_per_s": n_reps / dt,
-            "mse": mse, "coverage": cover, "ci_length": ci_len}
+    out = {"reps": n_reps, "seconds": dt, "reps_per_s": n_reps / dt}
+    if out_len == 3:
+        mse, cover, ci_len = (s / n_reps for s in sums)
+        return {**out, "mse": mse, "coverage": cover, "ci_length": ci_len}
+    return {**out, **{f: s / n_reps for f, s in zip(DETAIL_FIELDS, sums,
+                                                      strict=True)}}
+
+
+def reset_launches() -> None:
+    from dpcorr_torch.ops import fused_ni
+
+    for name in fused_ni.KERNEL_LAUNCHES:
+        fused_ni.KERNEL_LAUNCHES[name] = 0
+
+
+def read_launches(label: str) -> dict:
+    from dpcorr_torch.ops import fused_ni
+
+    launches = dict(fused_ni.KERNEL_LAUNCHES)
+    print(f"launches in the {label} run: {launches} (the path has no kernel "
+          f"of its own)", flush=True)
+    return launches
+
+
+def detail_agreement(got, want) -> float:
+    """Share of replications whose 12 detail fields agree: 1e-5 absolute,
+    and 1e-6 relative on the squared errors, which magnify ρ̂'s last bits
+    by 2|ρ̂ − ρ|."""
+    from dpcorr_torch.sim import DETAIL_FIELDS
+
+    ok = torch.ones(got[0].shape[0], dtype=torch.bool)
+    for name, g, w in zip(DETAIL_FIELDS, got, want, strict=True):
+        rtol = 1e-6 if name.endswith("se2") else 0.0
+        ok &= torch.isclose(g.cpu(), w.cpu(), rtol=rtol, atol=1e-5)
+    return ok.float().mean().item()
+
+
+def card_against_cpu(card: str) -> None:
+    """Phase 8a: the same keys through the card and the CPU."""
+    from dpcorr_torch.models.dgp import gen_bounded_factor
+    from dpcorr_torch.sim import SimConfig, _one_rep
+    from dpcorr_torch.utils import rng
+
+    for n, seed in ((4000, 1), (10_000, 98)):
+        keys = rng.rep_keys(rng.master_key(seed), 64)
+        perm = torch.equal(rng.permutation(keys.cuda(), n).cpu(),
+                           rng.permutation(keys, n))
+        data = torch.equal(gen_bounded_factor(keys.cuda(), n, 0.5).cpu(),
+                           gen_bounded_factor(keys, n, 0.5))
+        print(f"[{card}] card == CPU at n={n}, seed {seed}: permutation "
+              f"{perm}, bounded-factor data {data}", flush=True)
+        if not (perm and data):
+            raise RuntimeError(f"card and CPU differ at n={n}: permutation "
+                               f"{perm}, bounded-factor data {data}")
+    keys = rng.rep_keys(rng.master_key(), PARITY_REPS)
+    for name, kw in PARITY.items():
+        cfg = SimConfig(**kw, b=PARITY_REPS)
+        share = detail_agreement(_one_rep(keys.cuda(), cfg.rho, cfg),
+                                 _one_rep(keys, cfg.rho, cfg))
+        print(f"[{card}] _one_rep {name}: card agrees with CPU on "
+              f"{share:.4f} of {PARITY_REPS} replications", flush=True)
+        if share < 0.99:
+            raise RuntimeError(f"_one_rep {name}: card agrees with CPU on "
+                               f"only {share:.4f} of replications")
+
+
+def acceptance_points(card: str) -> dict:
+    """Phase 8b: the subG acceptance points against the committed
+    coverage of the JAX package. Returns each point's summary."""
+    from dpcorr_torch.sim import SimConfig, run_sim_one
+
+    summaries = {}
+    for label, (kw, ref) in ACCEPTANCE.items():
+        cfg = SimConfig(**kw, b=ACCEPTANCE_REPS, chunk_size=SUBG_CHUNK)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = run_sim_one(cfg).summary
+        dt = time.perf_counter() - t0
+        summaries[label] = summary
+        print(f"[{card}] acceptance {label}, B={ACCEPTANCE_REPS}, "
+              f"{dt:.3f} s ({ACCEPTANCE_REPS / dt:.1f} reps/s): "
+              f"{json.dumps(summary)}", flush=True)
+        for meth in ("NI", "INT"):
+            got, want = summary[meth], ref[meth]
+            gaps = {"coverage": abs(got["coverage"] - want["coverage"]),
+                    "ci_length": abs(got["ci_length"] / want["ci_length"]
+                                     - 1.0),
+                    "mse": abs(got["mse"] / want["mse"] - 1.0)}
+            print(f"acceptance {label} {meth}: |Δ coverage| "
+                  f"{gaps['coverage']:.5f} (≤ 0.003), ci_length "
+                  f"{gaps['ci_length']:.2%} (≤ 1%), mse {gaps['mse']:.2%} "
+                  f"(≤ 3%) from the JAX package at B ≈ 10⁶", flush=True)
+            if (gaps["coverage"] > 0.003 or gaps["ci_length"] > 0.01
+                    or gaps["mse"] > 0.03):
+                raise RuntimeError(f"acceptance {label} {meth} outside its "
+                                   f"gates: {gaps}")
+    return summaries
+
+
+def full_width(card: str) -> dict:
+    """Phase 8c: the block pipeline over the subG body at n = 12,000."""
+    from dpcorr_torch.sim import DETAIL_FIELDS, SimConfig, _one_rep
+    from dpcorr_torch.utils import rng
+
+    cfg = SimConfig(**FULL_WIDTH)
+    res = run_pipeline(lambda k: _one_rep(k, cfg.rho, cfg),
+                       FULL_WIDTH_BLOCK, SUBG_CHUNK,
+                       FULL_WIDTH_REPS // FULL_WIDTH_BLOCK,
+                       rng.master_key(device="cuda"), len(DETAIL_FIELDS))
+    print(f"[{card}] subG pipeline n={cfg.n} eps=({cfg.eps1}, {cfg.eps2}) "
+          f"bounded_factor: {json.dumps(res)}", flush=True)
+    if not 0.90 <= res["ni_cover"] <= 0.99:
+        raise RuntimeError(f"full-width NI coverage {res['ni_cover']} "
+                           f"outside [0.90, 0.99]")
+    return res
+
+
+def streaming(card: str, materialized: dict) -> dict:
+    """Phase 8d: the streaming subG pair at n = 10⁶; ``materialized`` is
+    the INT summary of phase 8b's ``subg_factor det`` point."""
+    from dpcorr_torch.sim import DETAIL_FIELDS, SimConfig, run_sim_one
+    from dpcorr_torch.sim import stress_chunk_size
+
+    cfg = SimConfig(**STREAM, b=STREAM_REPS,
+                    chunk_size=stress_chunk_size(STREAM_REPS, True))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_sim_one(cfg)
+    dt = time.perf_counter() - t0
+    out = {"reps": STREAM_REPS, "seconds": dt,
+           "reps_per_s": STREAM_REPS / dt, "chunk": cfg.chunk_size,
+           **res.summary}
+    print(f"[{card}] streaming n={cfg.n} n_chunk={cfg.stream_n_chunk} subG "
+          f"pair: {json.dumps(out)}", flush=True)
+    for name in DETAIL_FIELDS:
+        if not torch.isfinite(res.detail[name]).all():
+            raise RuntimeError(f"streaming {name}: non-finite values")
+    if not 0.90 <= res.summary["NI"]["coverage"] <= 0.99:
+        raise RuntimeError(f"streaming NI coverage outside [0.90, 0.99]: "
+                           f"{res.summary['NI']}")
+    it = res.summary["INT"]
+    bias_gap = abs(it["bias"] - materialized["bias"])
+    len_gap = abs(it["ci_length"] / (materialized["ci_length"]
+                                     * math.sqrt(SUBG_POINT["n"] / cfg.n))
+                  - 1.0)
+    print(f"streaming INT against the materialized path at n="
+          f"{SUBG_POINT['n']}: |Δ bias| {bias_gap:.5f} (≤ 0.003), ci_length "
+          f"{len_gap:.2%} from √n scaling (≤ 2%)", flush=True)
+    if bias_gap > 0.003 or len_gap > 0.02:
+        raise RuntimeError(f"streaming INT differs from the materialized "
+                           f"path: |Δ bias| {bias_gap}, ci_length {len_gap}")
+    return out
 
 
 def main() -> int:
@@ -416,6 +631,25 @@ def main() -> int:
           f"{bounds['external NI'][0]:.4f} ms by "
           f"{bounds['external NI'][1]}); plain version {plain_ms:.4f} ms",
           flush=True)
+
+    # ---- 8. the sub-Gaussian and streaming paths, each driven with the
+    # launch counts set to 0 just before it and read just after
+    t0 = time.perf_counter()
+    reset_launches()
+    card_against_cpu(card)
+    read_launches("card-against-CPU")
+    reset_launches()
+    accepted = acceptance_points(card)
+    read_launches("subG acceptance")
+    reset_launches()
+    full_width(card)
+    read_launches("subG full-width")
+    reset_launches()
+    streaming(card, accepted["subg_factor det"]["INT"])
+    read_launches("streaming")
+    print(f"sub-Gaussian and streaming phases: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
     record = {"kernels": [{
         "name": "fused_ni",
         "route": "cuda",

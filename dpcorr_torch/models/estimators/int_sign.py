@@ -2,22 +2,22 @@
 
 Counterpart of ``dpcorr/models/estimators/int_sign.py``: reference
 ``correlation_INT_signflip`` (vert-cor.R:164-195) and ``ci_INT_signflip``
-(vert-cor.R:260-317), deterministic mixquant only.
+(vert-cor.R:260-317), with the deterministic or the Monte-Carlo mixture
+quantile.
 """
 
 from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from dpcorr_torch.models.estimators.common import CorrResult
 from dpcorr_torch.models.estimators.ni_sign import l_clip_for
-from dpcorr_torch.ops.mixquant import mixquant
+from dpcorr_torch.ops.mixquant import mixquant, mixquant_mc
 from dpcorr_torch.ops.noise import laplace
 from dpcorr_torch.ops.standardize import priv_center
-from dpcorr_torch.utils.rng import stream, uniform
+from dpcorr_torch.utils.rng import bernoulli, stream
 
 _HALF_PI = math.pi / 2.0
 
@@ -33,11 +33,6 @@ def int_constants(n: int, eps1: float, eps2: float):
     return eps_s, eps_r, p_keep, c_eta, scale_z
 
 
-def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
-    """``jax.random.bernoulli``: f32 uniform < p (p rounded to f32)."""
-    return uniform(key, shape) < float(np.float32(p))
-
-
 def correlation_int_signflip(key: torch.Tensor, x: torch.Tensor,
                              y: torch.Tensor, eps1: float,
                              eps2: float) -> torch.Tensor:
@@ -51,11 +46,15 @@ def correlation_int_signflip(key: torch.Tensor, x: torch.Tensor,
     return torch.sin(math.pi * eta_hat / 2.0)
 
 
-def interval_from_rho(rho_hat: torch.Tensor, n: int, eps_s: float,
-                      eps_r: float, alpha: float,
-                      mode: str = "auto") -> CorrResult:
-    """CI construction given ρ̂ (vert-cor.R:281-317), det mixquant.
-    ``mode`` "auto" switches normal/laplace at √n·ε_r > 0.5."""
+def interval_from_rho(key: torch.Tensor | None, rho_hat: torch.Tensor,
+                      n: int, eps_s: float, eps_r: float, alpha: float,
+                      mode: str = "auto",
+                      mixquant_mode: str = "det") -> CorrResult:
+    """CI construction given ρ̂ (vert-cor.R:281-317), shared by the
+    materialized and streaming estimators. ``mode`` "auto" switches
+    normal/laplace at √n·ε_r > 0.5. ``key`` is the CI-level key, from
+    which ``mixquant_mode="mc"`` draws (stream ``"int_sign/mixquant"``);
+    the deterministic quantile needs none."""
     e_s = math.exp(eps_s)
     ratio = (e_s + 1.0) / (e_s - 1.0)
     eta_hat = 1.0 - torch.arccos(rho_hat) * 2.0 / math.pi
@@ -68,7 +67,12 @@ def interval_from_rho(rho_hat: torch.Tensor, n: int, eps_s: float,
         mode = "normal" if math.sqrt(n) * eps_r > 0.5 else "laplace"
     if mode == "normal":
         cstar = 2.0 / (torch.sqrt(n * sigma_eta2) * eps_r)
-        width_eta = mixquant(cstar, 1.0 - alpha / 2.0) * se_norm_eta
+        if mixquant_mode == "mc":
+            q = mixquant_mc(stream(key, "int_sign/mixquant"), cstar,
+                            1.0 - alpha / 2.0)
+        else:
+            q = mixquant(cstar, 1.0 - alpha / 2.0)
+        width_eta = q * se_norm_eta
     elif mode == "laplace":
         width_eta = torch.full_like(
             eta_hat, (2.0 / (n * eps_r)) * ratio * math.log(1.0 / alpha))
@@ -82,9 +86,10 @@ def interval_from_rho(rho_hat: torch.Tensor, n: int, eps_s: float,
 
 def ci_int_signflip(key: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
                     eps1: float, eps2: float, alpha: float = 0.05,
-                    mode: str = "auto",
-                    normalise: bool = True) -> CorrResult:
-    """Estimate + CI (vert-cor.R:260-317)."""
+                    mode: str = "auto", normalise: bool = True,
+                    mixquant_mode: str = "det") -> CorrResult:
+    """Estimate + CI (vert-cor.R:260-317). ``mixquant_mode`` "mc" is the
+    reference's per-CI 1000-draw order statistic (vert-cor.R:302)."""
     n = x.shape[-1]
     if normalise:
         l_clip = l_clip_for(n, x.device)
@@ -93,4 +98,5 @@ def ci_int_signflip(key: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     eps_s, eps_r = max(eps1, eps2), min(eps1, eps2)
     rho_hat = correlation_int_signflip(stream(key, "int_sign/est"), x, y,
                                        eps1, eps2)
-    return interval_from_rho(rho_hat, n, eps_s, eps_r, alpha, mode)
+    return interval_from_rho(key, rho_hat, n, eps_s, eps_r, alpha, mode,
+                             mixquant_mode)

@@ -1,8 +1,8 @@
 """Quantiles of the Gaussian + scaled-Laplace mixture X = Z + c·L.
 
-Counterpart of ``dpcorr/ops/mixquant.py`` (deterministic mode only; the
-reference's Monte-Carlo order statistic, ``mixquant_mc``, waits for a
-later slice). The CDF has the closed form
+Counterpart of ``dpcorr/ops/mixquant.py``: the deterministic quantile
+and the reference's Monte-Carlo order statistic (``mixquant_mc``). The
+CDF has the closed form
 
     F(x) = Φ(x) + ½·[ e^{1/(2b²) + x/b}·Φ(−x − 1/b)
                     − e^{1/(2b²) − x/b}·Φ( x − 1/b) ]
@@ -14,8 +14,12 @@ package does.
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.special import log_ndtr, ndtr, ndtri
+
+from dpcorr_torch.utils.rng import bernoulli, exponential, normal, split
 
 
 def _f32(v, like=None) -> torch.Tensor:
@@ -57,3 +61,22 @@ def mixquant(c, p) -> torch.Tensor:
         below = mix_cdf(mid, c) < p
         lo, hi = torch.where(below, mid, lo), torch.where(below, hi, mid)
     return 0.5 * (lo + hi)
+
+
+def mixquant_mc(key: torch.Tensor, c, p: float,
+                nsim: int = 1000) -> torch.Tensor:
+    """The reference's MC order statistic, faithfully:
+    ``sort(Z + c·E·S)[ceil(p·nsim)]`` with Z ~ N(0, 1), E ~ Exp(1),
+    S ~ ±1 (vert-cor.R:45-48; nsim = 2000 in real-data-sims.R:161-164),
+    each replication from its own key (``split(key, 3)`` gives the z, e
+    and s keys). ``c`` is a number or a tensor over the key's leading
+    axes. The order statistic's index is computed on the host in f64, as
+    R does; an f32 ``ceil(p·nsim)`` picks the wrong one for ~1% of p."""
+    kz, ke, ks = split(key, 3).unbind(-2)
+    z = normal(kz, (nsim,))
+    e = exponential(ke, (nsim,))
+    s = 2.0 * bernoulli(ks, 0.5, (nsim,)).to(torch.float32) - 1.0
+    c = _f32(c, z)
+    x = z + c.reshape(*c.shape, 1) * e * s
+    idx = min(max(math.ceil(float(p) * nsim) - 1, 0), nsim - 1)
+    return torch.sort(x, dim=-1).values[..., idx]

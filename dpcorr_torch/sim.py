@@ -1,13 +1,16 @@
-"""Monte-Carlo simulator (reference layer L3), Gaussian sign family.
+"""Monte-Carlo simulator (reference layer L3).
 
-Counterpart of ``dpcorr/sim.py``. The reference's hot loop
-(vert-cor.R:392-419) is a batched function of per-replication keys: the
+Counterpart of ``dpcorr/sim.py``, for the four estimator families (sign
+and sub-Gaussian, NI and INT), the four DGPs and the streaming path. The
+reference's hot loops (vert-cor.R:392-419, ver-cor-subG.R:174-198) are a
+batched function of per-replication keys: the
 replication axis is a leading tensor dimension, blocked into chunks of at
 most ``chunk_size`` replications so B × n never has to be resident at
 once. Two bodies compute it:
 
 - unfused: :func:`_one_rep`, torch ops on the key-tree, which agrees with
-  the JAX package replication by replication;
+  the JAX package replication by replication, in every family, DGP and
+  on the streaming path (:func:`_one_rep_streaming`);
 - fused: :func:`sim_detail_fused`, one kernel pass per replication on the
   card (``dpcorr_torch.ops.fused_ni``), statistically equivalent.
 
@@ -19,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import time
 from typing import Any, Callable, Mapping
@@ -27,13 +31,16 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from dpcorr_torch.models.dgp import gen_gaussian
+from dpcorr_torch.models.dgp import DGPS, gen_gaussian
+from dpcorr_torch.models.estimators import streaming as st
 from dpcorr_torch.models.estimators.common import batch_geometry
 from dpcorr_torch.models.estimators.int_sign import (
     ci_int_signflip,
     interval_from_rho,
 )
+from dpcorr_torch.models.estimators.int_subg import ci_int_subg
 from dpcorr_torch.models.estimators.ni_sign import ci_ni_signbatch
+from dpcorr_torch.models.estimators.ni_subg import correlation_ni_subg
 from dpcorr_torch.ops.fused_ni import fused_ni_sums, ni_result
 from dpcorr_torch.utils import rng
 from dpcorr_torch.utils.device import f32_on, resolve_device
@@ -83,11 +90,19 @@ def stage(name: str):
 
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
-    """One design point of the Gaussian sign family (vert-cor.R:356-444).
+    """One design point (vert-cor.R:356-444, ver-cor-subG.R:159-222).
 
-    ``dgp_args`` may carry ``mu`` and ``sigma`` for the Gaussian. The
-    sub-Gaussian families, other DGPs, the streaming path and the Monte-
-    Carlo mixquant are later slices of the port and raise here.
+    ``dgp`` is a name from :data:`dpcorr_torch.models.dgp.DGPS` or a
+    callable ``f(keys, n, rho, **dgp_args)``; ``dgp_args`` carries its
+    keyword arguments (``mu`` and ``sigma`` for the Gaussian).
+    ``use_subg`` runs the sub-Gaussian estimator pair, ``subg_variant``
+    picks the grid pair (sequential batches, se with the Laplace term,
+    ver-cor-subG.R:25-108) or the real-data pair (randomized batches and
+    the k ≥ 2 fallback, receiver λ from the sender's noise, sampling-only
+    se, δ_clip = 1/n; real-data-sims.R:115-252). ``eta1``/``eta2`` feed
+    the λ rules (ver-cor-subG.R:28-31). ``stream_n_chunk`` runs the
+    streaming estimators with about that many rows resident per
+    replication (BASELINE.md config 5).
     """
 
     n: int
@@ -96,9 +111,12 @@ class SimConfig:
     eps2: float
     b: int = 1000
     alpha: float = 0.05
-    dgp: str = "gaussian"
+    dgp: str | Callable = "gaussian"
     dgp_args: Any = ()
     use_subg: bool = False
+    subg_variant: str = "grid"
+    eta1: float = 1.0
+    eta2: float = 1.0
     ci_mode: str = "auto"
     normalise: bool = True
     mixquant_mode: str = "det"
@@ -107,32 +125,34 @@ class SimConfig:
     stream_n_chunk: int | None = None
 
     def __post_init__(self):
-        if self.use_subg:
-            raise NotImplementedError("the sub-Gaussian families are not "
-                                      "ported yet")
-        if self.stream_n_chunk:
-            raise NotImplementedError("the streaming path is not ported yet")
-        if self.dgp != "gaussian":
-            raise NotImplementedError(f"dgp {self.dgp!r} is not ported yet; "
-                                      "only 'gaussian' is")
-        if self.mixquant_mode != "det":
-            raise NotImplementedError("only mixquant_mode='det' is ported")
-        args = dict(self.dgp_args.items() if isinstance(self.dgp_args,
-                                                        Mapping)
-                    else self.dgp_args)
-        if set(args) - {"mu", "sigma"}:
-            raise ValueError(f"gaussian dgp_args take mu and sigma, got "
-                             f"{sorted(args)}")
-        object.__setattr__(self, "dgp_args", tuple(sorted(
-            (k, tuple(v)) for k, v in args.items())))
+        if self.subg_variant not in ("grid", "real"):
+            raise ValueError(f"subg_variant must be 'grid' or 'real', "
+                             f"got {self.subg_variant!r}")
+        if self.stream_n_chunk and self.use_subg \
+                and self.subg_variant == "real":
+            # randomized batches need a permutation of all n rows, which
+            # cannot be n-blocked
+            raise ValueError("subg_variant='real' is not available on the "
+                             "streaming path")
 
-    @property
-    def mu(self) -> tuple:
-        return dict(self.dgp_args).get("mu", (0.0, 0.0))
+        def freeze(v):
+            if isinstance(v, Mapping):
+                return tuple(sorted((k, freeze(x)) for k, x in v.items()))
+            if isinstance(v, (list, tuple)):
+                return tuple(freeze(x) for x in v)
+            return v
 
-    @property
-    def sigma(self) -> tuple:
-        return dict(self.dgp_args).get("sigma", (1.0, 1.0))
+        object.__setattr__(self, "dgp_args", freeze(self.dgp_args))
+
+    def dgp_fn(self) -> Callable:
+        if isinstance(self.dgp, str):
+            if self.dgp not in DGPS:
+                raise ValueError(f"unknown dgp {self.dgp!r}; one of "
+                                 f"{sorted(DGPS)} or a callable")
+            fn = DGPS[self.dgp]
+        else:
+            fn = self.dgp
+        return functools.partial(fn, **dict(self.dgp_args))
 
 
 #: detail-table columns, in the reference's order (vert-cor.R:367-385)
@@ -159,20 +179,100 @@ def _metrics_row(ni, it, rho) -> tuple:
             ni_cover, int_cover, ni_len, int_len)
 
 
-def _one_rep(keys: torch.Tensor, rho, cfg: SimConfig) -> tuple:
+def _one_rep(keys: torch.Tensor, rho, cfg: SimConfig, eps=None,
+             k_pad: int | None = None) -> tuple:
     """A batch of replications, generate → NI + INT → metrics, as a
     function of the replication keys ``(C, 2)``; returns the 12 (C,)
-    fields of :data:`DETAIL_FIELDS`. ``rho`` is a float or a (C,)
-    tensor."""
-    xy = gen_gaussian(rng.stream(keys, "dgp"), cfg.n, rho, cfg.mu,
-                      cfg.sigma)
+    fields of :data:`DETAIL_FIELDS`. ``rho`` is a float or a (C,) tensor.
+
+    ``eps``: optional ``(ε₁, ε₂)`` tensors over the replications, in
+    place of the config's: the sub-Gaussian estimators then run with
+    per-replication batch geometry (padded to ``k_pad``) and the sender
+    named ``"x"``, so one call serves design points at different ε. The
+    caller guarantees ε₁ ≥ ε₂, so the named sender is the larger-ε rule
+    the static path applies."""
+    if eps is not None and not cfg.use_subg:
+        raise ValueError("per-replication ε is only supported for the "
+                         "sub-Gaussian families")
+    if eps is not None and cfg.stream_n_chunk:
+        # the streaming body's chunk geometry is fixed by the config's ε
+        raise ValueError("per-replication ε does not compose with the "
+                         "streaming path")
+    if cfg.stream_n_chunk:
+        ni, it = _one_rep_streaming(keys, rho, cfg)
+        return _metrics_row(ni, it, rho)
+
+    xy = cfg.dgp_fn()(rng.stream(keys, "dgp"), cfg.n, rho)
     x, y = xy[..., 0], xy[..., 1]
-    ni = ci_ni_signbatch(rng.stream(keys, "ni"), x, y, cfg.eps1, cfg.eps2,
-                         alpha=cfg.alpha, normalise=cfg.normalise)
-    it = ci_int_signflip(rng.stream(keys, "int"), x, y, cfg.eps1, cfg.eps2,
-                         alpha=cfg.alpha, mode=cfg.ci_mode,
-                         normalise=cfg.normalise)
+    if cfg.use_subg:
+        real = cfg.subg_variant == "real"
+        e1, e2 = (cfg.eps1, cfg.eps2) if eps is None else eps
+        ni = correlation_ni_subg(rng.stream(keys, "ni"), x, y, e1, e2,
+                                 eta1=cfg.eta1, eta2=cfg.eta2,
+                                 alpha=cfg.alpha, randomize_batches=real,
+                                 enforce_min_k=real,
+                                 dynamic_geometry=eps is not None,
+                                 k_pad=k_pad)
+        it = ci_int_subg(rng.stream(keys, "int"), x, y, e1, e2,
+                         eta1=cfg.eta1, eta2=cfg.eta2, alpha=cfg.alpha,
+                         variant=cfg.subg_variant,
+                         mixquant_mode=cfg.mixquant_mode,
+                         sender="x" if eps is not None else None)
+    else:
+        ni = ci_ni_signbatch(rng.stream(keys, "ni"), x, y, cfg.eps1,
+                             cfg.eps2, alpha=cfg.alpha,
+                             normalise=cfg.normalise)
+        it = ci_int_signflip(rng.stream(keys, "int"), x, y, cfg.eps1,
+                             cfg.eps2, alpha=cfg.alpha, mode=cfg.ci_mode,
+                             normalise=cfg.normalise,
+                             mixquant_mode=cfg.mixquant_mode)
     return _metrics_row(ni, it, rho)
+
+
+def _one_rep_streaming(keys: torch.Tensor, rho, cfg: SimConfig):
+    """The streaming body: the same generate → estimate pipeline with the
+    n axis in ``cfg.stream_n_chunk``-row chunks regenerated from folded
+    keys instead of held (BASELINE.md config 5)."""
+    m, _ = batch_geometry(cfg.n, cfg.eps1, cfg.eps2)
+    n_chunk = st.choose_n_chunk(cfg.n, m, cfg.stream_n_chunk)
+    chunk_fn = st.dgp_chunk_fn(cfg.dgp_fn(), rng.stream(keys, "dgp"),
+                               n_chunk, rho)
+    if cfg.use_subg:
+        # one pass: each chunk is generated once for both estimators
+        return st.subg_pair_stream(
+            rng.stream(keys, "ni"), rng.stream(keys, "int"), chunk_fn,
+            cfg.n, cfg.eps1, cfg.eps2, eta1=cfg.eta1, eta2=cfg.eta2,
+            alpha=cfg.alpha, mixquant_mode=cfg.mixquant_mode,
+            n_chunk=n_chunk)
+    # pass A depends only on the data: computed once for both estimators
+    # (each still draws its own standardization noise)
+    sums = (st.clipped_moment_sums(chunk_fn, cfg.n, n_chunk)
+            if cfg.normalise else None)
+    ni = st.ci_ni_signbatch_stream(
+        rng.stream(keys, "ni"), chunk_fn, cfg.n, cfg.eps1, cfg.eps2,
+        alpha=cfg.alpha, normalise=cfg.normalise, n_chunk=n_chunk,
+        moment_sums=sums)
+    it = st.ci_int_signflip_stream(
+        rng.stream(keys, "int"), chunk_fn, cfg.n, cfg.eps1, cfg.eps2,
+        alpha=cfg.alpha, mode=cfg.ci_mode, normalise=cfg.normalise,
+        mixquant_mode=cfg.mixquant_mode, n_chunk=n_chunk, moment_sums=sums)
+    return ni, it
+
+
+#: replications resident per chunk of the streaming path on the card
+#: (n = 10⁶, n_chunk = 65536; measured by ``python -m
+#: dpcorr_torch.perf_subg``, PERF.md §5)
+STRESS_CHUNK_CARD = 512
+
+
+def stress_chunk_size(b: int, on_card: bool) -> int:
+    """Replications resident at once on the streaming path. The card
+    wants wide chunks: a chunk costs the same launches whatever its
+    width, and at 512 replications the run peaks at 2.6 GiB (64 → 118,
+    128 → 170, 256 → 182, 512 → 190 reps/s on an H100 at n = 10⁶,
+    PERF.md §5). On the CPU, one replication at a time (the JAX
+    package's measured CPU policy, not measured for the port)."""
+    return min(b, STRESS_CHUNK_CARD) if on_card else 1
 
 
 def chunked(fn: Callable, keys: torch.Tensor, chunk_size: int) -> tuple:
@@ -250,7 +350,7 @@ def sim_detail_fused(seeds: torch.Tensor, rhos, n: int, eps1: float,
     ni = ni_result(out[:, 0], out[:, 1], k, alpha)
     rho_hat_int = torch.sin(math.pi * out[:, 2] / 2.0)
     eps_s, eps_r = max(eps1, eps2), min(eps1, eps2)
-    it = interval_from_rho(rho_hat_int, n, eps_s, eps_r, alpha, ci_mode)
+    it = interval_from_rho(None, rho_hat_int, n, eps_s, eps_r, alpha, ci_mode)
     return _metrics_row(ni, it, rhos)
 
 

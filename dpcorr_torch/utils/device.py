@@ -30,6 +30,15 @@ def f32_on(v, device) -> torch.Tensor:
     return torch.full((), float(v), dtype=torch.float32, device=device)
 
 
+def per_rep(v, ndim: int):
+    """A tensor over the leading (replication) axes with singleton axes
+    appended up to ``ndim``, so it broadcasts against a tensor whose
+    trailing axes hold the observations; a number passes through."""
+    if not isinstance(v, torch.Tensor):
+        return v
+    return v.reshape(*v.shape, *([1] * (ndim - v.dim())))
+
+
 def card_line() -> str:
     """The card's name and power limit, as ``nvidia-smi
     --query-gpu=name,power.limit --format=csv,noheader`` prints them."""

@@ -8,7 +8,10 @@ Counterpart of ``dpcorr/utils/rng.py``. The tree is the same
 and every key word, raw bit and f32 uniform equals what ``jax.random``
 gives under jax 0.9 with ``jax_threefry_partitionable=True`` (the
 default there), so the port and the JAX package can be handed the same
-keys (``dpcorr_torch.interop``) and draw the same noise.
+keys (``dpcorr_torch.interop``) and draw the same noise. The
+``jax.random`` samplers the estimators draw from are here too: ``split``,
+``bernoulli`` and ``permutation`` bit for bit, ``exponential`` and
+``normal`` within the stated tolerances.
 
 Representation: a key is an int64 tensor whose last axis holds the two
 uint32 words, shape ``(..., 2)``. torch's uint32 coverage is thin, so the
@@ -155,6 +158,76 @@ def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
     span = float(np.float32(hi - lo))
     u = (f.to(torch.float64) * span + float(lo)).to(torch.float32)
     return torch.clamp_min(u, float(lo))
+
+
+def chunk_key(key: torch.Tensor, chunk_index) -> torch.Tensor:
+    """Key for one streaming n-chunk (``models/estimators/streaming.py``):
+    ``fold_in(key, chunk_index)``, the same derivation as
+    :func:`design_key`, named for the axis it folds over."""
+    return fold_in(key, chunk_index)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split``: with the partitionable layout subkey i is
+    threefry(key, (0, i)), which is ``fold_in(key, i)``. Returns shape
+    ``key.shape[:-1] + (num, 2)``."""
+    key = _as_key(key)
+    return fold_in(key.unsqueeze(-2), torch.arange(int(num),
+                                                   device=key.device))
+
+
+def bernoulli(key: torch.Tensor, p, shape) -> torch.Tensor:
+    """``jax.random.bernoulli``: f32 uniform < p, with p in f32. A tensor
+    ``p`` carries the key's leading axes."""
+    u = uniform(key, shape)
+    if isinstance(p, torch.Tensor):
+        return u < p.to(u.device, torch.float32).reshape(
+            *p.shape, *([1] * len(tuple(shape))))
+    return u < float(np.float32(p))
+
+
+def exponential(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.exponential`` in f32: −log1p(−u). Within an ulp or two
+    of JAX's (the last ulp of log1p differs between torch and XLA)."""
+    return -torch.log1p(-uniform(key, shape))
+
+
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_SQRT2 = float(np.float32(np.sqrt(2.0)))
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """Standard normal f32 draws, shape ``key.shape[:-1] + shape``: jax's
+    construction √2·erfinv(u) with u ~ U(nextafter(−1, 0), 1) drawn bit
+    for bit, but through ``torch.erfinv``, not XLA's f32 polynomial, so
+    held to a tolerance (``models/dgp.py`` says which)."""
+    return _SQRT2 * torch.erfinv(uniform(key, shape, _NORMAL_LO, 1.0))
+
+
+def permutation_rounds(n: int) -> int:
+    """Sort rounds of ``jax.random.permutation`` at length n:
+    ⌈3·ln(max(1, n)) / ln(2³²−1)⌉ in numpy f64, as jax computes it
+    (1 up to about n = 1,600, 2 up to about 2.6·10⁶)."""
+    return int(np.ceil(3 * np.log(max(1, int(n)))
+                       / np.log(np.iinfo(np.uint32).max)))
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` for an int n, bit for bit: each
+    round splits the key, draws n 32-bit sort keys from the subkey and
+    reorders by a *stable* sort on them (two equal keys keep their
+    order, as ``lax.sort_key_val`` does). Returns int64 indices of shape
+    ``key.shape[:-1] + (n,)``."""
+    key = _as_key(key)
+    x = torch.arange(int(n), device=key.device).expand(
+        *key.shape[:-1], int(n))
+    for _ in range(permutation_rounds(n)):
+        sub = split(key)
+        key = sub[..., 0, :]
+        order = torch.sort(random_bits(sub[..., 1, :], (int(n),)), dim=-1,
+                           stable=True).indices
+        x = torch.gather(x, -1, order)
+    return x
 
 
 def kernel_seeds(keys: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""The port on the card: the CUDA kernel against its plain version, and
-the replication pipeline through both bodies.
+"""The port on the card: the CUDA kernel against its plain version, the
+replication pipeline through both bodies, and the sub-Gaussian and
+streaming paths against the same keys on the CPU.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor the JAX package, so it also runs where only the
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from dpcorr_torch import sim
+from dpcorr_torch.models.dgp import gen_bounded_factor
 from dpcorr_torch.ops import fused_ni
 from dpcorr_torch.utils import rng
 
@@ -160,3 +162,55 @@ def test_pipeline_fused_and_unfused_agree(cuda):
         stats.append((mse / n_reps, ci_len / n_reps))
     assert abs(stats[1][0] / stats[0][0] - 1) < 0.1
     assert abs(stats[1][1] / stats[0][1] - 1) < 0.05
+
+
+SUBG = dict(n=4000, rho=0.5, eps1=1.0, eps2=1.0, dgp="bounded_factor",
+            use_subg=True)
+#: _one_rep bodies held card against CPU, 256 replications each
+PARITY = {
+    "subg-grid": SUBG,
+    "subg-real": dict(SUBG, subg_variant="real"),
+    "stream-subg": dict(SUBG, n=40_000, stream_n_chunk=8192),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,seed", [(4000, 1), (10_000, 98)])
+def test_permutation_and_bounded_factor_card_equals_cpu(cuda, n, seed):
+    """Integer-exact draws: the card gives the CPU's bits (seed 98 has
+    two equal sort keys at n = 10⁴, where the sort's stability decides)."""
+    keys = rng.rep_keys(rng.master_key(seed), 64)
+    assert torch.equal(rng.permutation(keys.to(cuda), n).cpu(),
+                       rng.permutation(keys, n))
+    assert torch.equal(gen_bounded_factor(keys.to(cuda), n, 0.5).cpu(),
+                       gen_bounded_factor(keys, n, 0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(PARITY))
+def test_one_rep_card_agrees_with_cpu(cuda, name):
+    """Every detail field within 1e-5 (the squared errors also 1e-6
+    relative) for at least 99% of 256 replications."""
+    cfg = sim.SimConfig(**PARITY[name], b=256)
+    keys = rng.rep_keys(rng.master_key(), 256)
+    card = sim._one_rep(keys.to(cuda), cfg.rho, cfg)
+    cpu = sim._one_rep(keys, cfg.rho, cfg)
+    ok = torch.ones(256, dtype=torch.bool)
+    for field, a, b in zip(sim.DETAIL_FIELDS, card, cpu, strict=True):
+        rtol = 1e-6 if field.endswith("se2") else 0.0
+        ok &= torch.isclose(a.cpu(), b, rtol=rtol, atol=1e-5)
+    assert ok.float().mean().item() >= 0.99
+
+
+@pytest.mark.cuda
+def test_subg_paths_run_on_the_card_by_default(cuda):
+    res = sim.run_sim_one(sim.SimConfig(**SUBG, b=4096, chunk_size=2048))
+    assert res.detail["ni_hat"].device.type == "cuda"
+    assert 0.90 <= res.summary["NI"]["coverage"] <= 0.99
+    pipe = sim.RepBlockPipeline(
+        lambda k: sim._one_rep(k, 0.5, sim.SimConfig(**SUBG)),
+        len(sim.DETAIL_FIELDS), key=rng.master_key(device=cuda),
+        block_reps=2048, chunk_size=1024)
+    sums, n_reps = pipe.run(2)
+    assert pipe.fetches == 1 and n_reps == 4096
+    assert 0.90 <= sums[8] / n_reps <= 0.99

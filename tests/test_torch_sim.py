@@ -2,8 +2,10 @@
 
 Same master key, same per-replication addresses: the port's per-rep
 detail agrees with the JAX simulator field by field (1e-5 absolute for
-at least 98% of replications; the rest are centered values at a sign
-tie), and the block pipeline's sums agree on the bench body. Also: the
+at least 98% of replications on the Gaussian sign path, where the rest
+are centered values at a sign tie, and 99% on the sub-Gaussian
+families, the other DGPs and the streaming bodies), and the block
+pipeline's sums agree on the bench body and the subG body. Also: the
 port imports nothing of JAX or the JAX package, and its entry points
 raise without a device instead of running on the CPU.
 """
@@ -21,6 +23,7 @@ from dpcorr.models.dgp import gen_gaussian as jax_gen
 from dpcorr.models.estimators import ci_ni_signbatch as jax_ci_ni
 from dpcorr.utils import rng as jrng
 from dpcorr_torch import sim
+from dpcorr_torch.models.estimators import k_pad_for
 from dpcorr_torch.ops import fused_ni
 from dpcorr_torch.utils import rng
 
@@ -159,5 +162,141 @@ def test_entry_points_raise_without_a_device(monkeypatch):
                                 dict(dgp="bounded_factor"),
                                 dict(mixquant_mode="mc")])
 def test_sim_config_refuses_unported_paths(kw):
-    with pytest.raises(NotImplementedError):
-        sim.SimConfig(n=N, rho=RHO, eps1=1.0, eps2=1.0, **kw)
+    """Every path of the JAX simulator is ported now: each of these once
+    refused configurations constructs and runs a b = 4 design point."""
+    cfg = sim.SimConfig(n=N, rho=RHO, eps1=1.0, eps2=1.0, b=4, **kw)
+    res = sim.run_sim_one(cfg, device="cpu")
+    for name in sim.DETAIL_FIELDS:
+        assert res.detail[name].shape == (4,)
+        assert torch.isfinite(res.detail[name]).all()
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(subg_variant="other"), "subg_variant"),
+    (dict(use_subg=True, subg_variant="real", stream_n_chunk=256),
+     "streaming"),
+])
+def test_sim_config_refuses_what_jax_refuses(kw, match):
+    for mod in (jsim, sim):
+        with pytest.raises(ValueError, match=match):
+            mod.SimConfig(n=N, rho=RHO, eps1=1.0, eps2=1.0, **kw)
+
+
+#: the JAX pipeline test's subG configurations (tests/test_pipeline.py),
+#: the other DGPs under the sign pair, and the streaming bodies
+SUBG = dict(n=400, rho=0.5, eps1=1.0, eps2=1.0, dgp="bounded_factor",
+            use_subg=True)
+DETAIL_CONFIGS = {
+    "subg-grid": SUBG,
+    "subg-real": dict(SUBG, subg_variant="real"),
+    "subg-grid-mc": dict(SUBG, eps1=1.5, eps2=0.5, mixquant_mode="mc"),
+    "subg-real-mc": dict(SUBG, subg_variant="real", mixquant_mode="mc",
+                         eta1=0.8),
+    "mix_gaussian": dict(SUBG, use_subg=False, dgp="mix_gaussian"),
+    "bernoulli": dict(SUBG, use_subg=False, dgp="bernoulli",
+                      mixquant_mode="mc"),
+    "stream-subg": dict(SUBG, n=4096, stream_n_chunk=1024),
+    "stream-sign": dict(SUBG, n=4096, use_subg=False, dgp="gaussian",
+                        stream_n_chunk=1024),
+}
+
+
+def _detail_close(got: dict, want: dict) -> np.ndarray:
+    """Per replication: every field within 1e-5 absolute. The squared
+    errors ``*_se2`` = (ρ̂−ρ)² magnify ρ̂'s last bits by 2|ρ̂−ρ|, which
+    reaches 10 for NI subG at n = 400, so they also get 1e-6 relative."""
+    ok = np.ones(len(want["ni_hat"]), bool)
+    for name in sim.DETAIL_FIELDS:
+        rtol = 1e-6 if name.endswith("se2") else 0.0
+        ok &= np.isclose(got[name].numpy(), np.asarray(want[name]),
+                         rtol=rtol, atol=1e-5)
+    return ok
+
+
+@pytest.mark.parametrize("name", sorted(DETAIL_CONFIGS))
+def test_one_rep_detail_matches_jax_every_family(name):
+    kw = dict(DETAIL_CONFIGS[name], b=128, chunk_size=64)
+    want = jsim.run_sim_one(jsim.SimConfig(**kw))
+    got = sim.run_sim_one(sim.SimConfig(**kw), device="cpu")
+    assert _detail_close(got.detail, want.detail).mean() >= 0.99
+
+
+@pytest.mark.parametrize("variant", ["grid", "real"])
+def test_eps_merged_body_matches_jax(variant):
+    """Per-replication ε with k_pad (the grid's ε-merged body): one call
+    over replications at four ε pairs."""
+    cfg = sim.SimConfig(**dict(SUBG, subg_variant=variant, b=64))
+    jcfg = jsim.SimConfig(**dict(SUBG, subg_variant=variant, b=64, rho=0.0,
+                                 seed=0))
+    e1 = np.tile(np.array([2.0, 1.5, 1.0, 1.1547], np.float32), 16)
+    e2 = np.tile(np.array([1.0, 0.5, 1.0, 1.1547], np.float32), 16)
+    rhos = np.linspace(0.05, 0.9, 64).astype(np.float32)
+    k_pad = k_pad_for(cfg.n, set((e1 * e2).tolist()))
+    jkeys = jrng.rep_keys(jrng.master_key(), 64)
+    want = jsim._run_detail_flat_eps(jcfg, jkeys, jnp.asarray(rhos),
+                                     jnp.asarray(e1), jnp.asarray(e2), k_pad)
+    got = sim._one_rep(rng.rep_keys(rng.master_key(), 64),
+                       torch.from_numpy(rhos), cfg,
+                       eps=(torch.from_numpy(e1), torch.from_numpy(e2)),
+                       k_pad=k_pad)
+    ok = _detail_close(dict(zip(sim.DETAIL_FIELDS, got)),
+                       dict(zip(sim.DETAIL_FIELDS, want)))
+    assert ok.mean() >= 0.99
+    two = rng.rep_keys(rng.master_key(), 2)
+    with pytest.raises(ValueError, match="sub-Gaussian"):
+        sim._one_rep(two, 0.5, sim.SimConfig(n=64, rho=0.5, eps1=1.0,
+                                             eps2=1.0),
+                     eps=(torch.ones(2), torch.ones(2)))
+    with pytest.raises(ValueError, match="streaming"):
+        sim._one_rep(two, 0.5, sim.SimConfig(**SUBG, stream_n_chunk=128),
+                     eps=(torch.ones(2), torch.ones(2)))
+
+
+def test_rep_block_pipeline_matches_jax_on_the_subg_body():
+    jcfg = jsim.SimConfig(**dict(SUBG, rho=0.0, seed=0))
+    jpipe = jsim.RepBlockPipeline(
+        lambda k: jsim._one_rep(k, jnp.float32(0.5), jcfg),
+        len(jsim.DETAIL_FIELDS), key=jrng.master_key(), block_reps=48,
+        chunk_size=16, aot=False)
+    want, _ = jpipe.run(2, start_block=1)
+    cfg = sim.SimConfig(**SUBG)
+    pipe = sim.RepBlockPipeline(lambda k: sim._one_rep(k, 0.5, cfg),
+                                len(sim.DETAIL_FIELDS),
+                                key=rng.master_key(), block_reps=48,
+                                chunk_size=16, device="cpu")
+    got, n_reps = pipe.run(2, start_block=1)
+    assert n_reps == 96 and pipe.fetches == 1
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+    pd = dict(zip(sim.DETAIL_FIELDS, pipe.block_detail(2)))
+    jd = dict(zip(jsim.DETAIL_FIELDS, jpipe.block_detail(2)))
+    assert _detail_close(pd, jd).mean() >= 0.99
+
+
+def test_stress_body_matches_jax_at_full_n():
+    """BASELINE.md config 5 itself, n = 10⁶ with n_chunk = 65536, four
+    replications: the streaming subG pair agrees with the JAX package's.
+    The receiver's clip at λ_r = 30 biases the INT estimate by about
+    −0.03 at any n, and at n = 10⁶ its CI is 0.034 wide: both packages
+    miss ρ here, replication by replication."""
+    kw = dict(SUBG, n=10**6, stream_n_chunk=65536, b=4, chunk_size=4)
+    want = jsim.run_sim_one(jsim.SimConfig(**kw))
+    got = sim.run_sim_one(sim.SimConfig(**kw), device="cpu")
+    assert _detail_close(got.detail, want.detail).all()
+    assert got.summary["NI"]["coverage"] == want.summary["NI"]["coverage"]
+    assert got.summary["INT"]["coverage"] == want.summary["INT"]["coverage"]
+    assert -0.04 < got.summary["INT"]["bias"] < -0.02
+
+
+def test_stress_chunk_size_policy():
+    assert sim.stress_chunk_size(2048, on_card=True) == \
+        sim.STRESS_CHUNK_CARD
+    assert sim.stress_chunk_size(8, on_card=True) == 8
+    assert sim.stress_chunk_size(256, on_card=False) == 1
+
+
+def test_subg_and_streaming_entry_points_raise_without_a_device(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kw in (SUBG, dict(SUBG, stream_n_chunk=256)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            sim.run_sim_one(sim.SimConfig(**dict(kw, b=4)))
