@@ -12,7 +12,8 @@ north-star workload (n = 10⁴ Gaussian pair → NI sign-batch estimate + CI →
 3. holds the fused kernel against its plain PyTorch version in all 16
    modes (8 flag combinations × external or in-kernel uniforms) at every
    lane-group layout the kernel branches on (m' = 1, 8, 16 with leftovers,
-   32, 64, 128; n = 1000 and 20,000), and near the shared-memory cap,
+   32, 64, 128; n = 1000 and 20,000; m' = 8 with leftovers at n = 1500),
+   and near the shared-memory cap,
    where the kernel draws the batch noise in its sweep (m' = 1, 2, 4, 8,
    64, 128), B = 256: external mode on random uniforms, and in-kernel
    mode, which must equal external mode on ``philox_uniforms`` (its draws
@@ -50,7 +51,30 @@ north-star workload (n = 10⁴ Gaussian pair → NI sign-batch estimate + CI →
        ``tests/test_torch_sim.py``); at n = 10⁶ its CI is 0.034 wide, so
        it covers ρ in about 5% of replications. Its gates are therefore
        against the materialized path of (b) in the same run: bias within
-       0.003, and ci_length within 2% of (b)'s scaled by √(4000/n).
+       0.003, and ci_length within 2% of (b)'s scaled by √(4000/n);
+9. the design grid (``dpcorr_torch.grid``) and the acceptance campaign
+   (``dpcorr_torch.acceptance``), the path users run the paper's studies
+   through, each part driven with the launch counts set to 0 just before
+   it and read just after:
+   (a) the reference's v1 sign grid (144 points, B = 250, bucketed),
+       ``fused="auto"`` and ``"off"`` in turns: wall time, grid reps/s,
+       K1 launches (one per (n, ε) bucket: 18); gates: per method the
+       grid-wide mean coverage of the two arms within 0.01 and mean
+       ci_len within 2%, 144 × 250 finite fused rows, the two fused runs
+       bit-equal; then K1 on each bucket's own seeds and ρ (2000 reps,
+       NI + INT), held against its plain version (≥ 99% of replications
+       within tolerance) and timed against its bound;
+   (b) the smallest bucket (n = 1000, ε = (1, 1), 8 points) unfused on the
+       card and the CPU: within 1e-5 on ≥ 99% of replications;
+   (c) the reference's subG grid (120 points, n = 2500-12,000, B = 250),
+       ε-merged and not: wall time; per-method mean coverage within 0.01;
+   (d) resume: the fused grid rerun into its directory runs no point,
+       launches nothing and is bit-equal; the unfused grid there loads no
+       fused cache; ``detail_all.rds`` reads back;
+   (e) the sign acceptance points at 2¹⁸ reps through ``run_campaign``,
+       against the JAX package's committed coverage at B = 1,015,808:
+       within 0.003, ``sign_laplace`` exactly (NI 0, INT 1), and the
+       det-vs-mc criterion passes.
 
 Every failure raises. The last line is the device record; before it come
 the per-kernel JSON record and the card line. Run from the repository
@@ -78,11 +102,12 @@ COMPARE_B = 256
 INT_REF_REPS = 1 << 13
 
 #: (n, ε) of each lane-group layout the kernel branches on: m' = 1, 8,
-#: 16 (m = 11, with leftovers), 32, 64, 128, and n = 1000 and 20,000
+#: 16 (m = 11, with leftovers), 32, 64, 128, n = 1000 and 20,000, and
+#: m' = 8 with leftovers (n = 1500)
 COMPARE_GEOMETRIES = [
     (10_000, (4.0, 2.0)), (10_000, (1.0, 1.0)), (9_000, (1.5, 0.5)),
     (10_000, (0.5, 0.5)), (10_000, (0.5, 0.25)), (10_000, (0.25, 0.25)),
-    (1_000, (1.0, 1.0)), (20_000, (1.0, 1.0)),
+    (1_000, (1.0, 1.0)), (20_000, (1.0, 1.0)), (1_500, (1.0, 1.0)),
 ]
 #: (n, ε, compute_int) where the batch noise does not fit beside the
 #: planes, so the sweep draws it: m' = 1 and 8 at the cap on n (NI and
@@ -153,6 +178,24 @@ SUBG_CHUNK = 8192
 #: the main-path variant's template flags (external, INT, ndtri, normalise,
 #: noise in shared memory)
 MAIN_VARIANT = (0, 0, 0, 1, 1)
+
+#: phase 9: the reference's grids at their published sizes, B = 250 per
+#: point (vert-cor.R:486-499, ver-cor-subG.R:245)
+GRID_B = 250
+V1_POINTS, V1_BUCKETS = 144, 18
+SUBG_GRID = dict(n_grid=(2500, 4000, 6000, 9000, 12000),
+                 dgp="bounded_factor", use_subg=True)
+SUBG_GRID_POINTS = 120
+#: the JAX package's committed coverage at B = 1,015,808 for the sign
+#: acceptance points (dpcorr/acceptance.py:89-108), copied from
+#: benchmarks/results/acceptance_r02.json so the script reads nothing of
+#: the JAX package
+SIGN_ACCEPTANCE = {
+    "sign_normal": {"NI": 0.949646980531754, "INT": 0.9497798796622984,
+                    "INT mc": 0.9479015719506049},
+    "sign_low_eps": {"NI": 0.9485453944052419, "INT": 0.9497326266381049},
+    "sign_laplace": {"NI": 0.0, "INT": 1.0},
+}
 
 
 def fused_pipe_ops(n: int, eps, compute_int: bool,
@@ -244,6 +287,13 @@ def mode_label(flags) -> str:
             f"noise in {'smem' if noise_smem else 'sweep'}")
 
 
+def within_tolerance(got, want):
+    """Per replication: ΣT and ΣT² within 1e-4 relative, and the third
+    output within 1e-5 absolute, of the plain version."""
+    close = torch.isclose(got[:, :2], want[:, :2], rtol=1e-4, atol=0.0).all(1)
+    return close & torch.isclose(got[:, 2], want[:, 2], rtol=0.0, atol=1e-5)
+
+
 def compare_mode(n: int, eps, kw: dict, gen, rho):
     """One mode at one geometry, B = ``COMPARE_B``: per uniform source
     (external random, in-kernel Philox laid out by its plain twin) the
@@ -268,10 +318,7 @@ def compare_mode(n: int, eps, kw: dict, gen, rho):
                                        eps2=eps[1], **kw)
         if not torch.isfinite(got).all():
             raise RuntimeError(f"kernel gave NaN/Inf: n={n} eps={eps} {kw}")
-        close = torch.isclose(got[:, :2], want[:, :2], rtol=1e-4,
-                              atol=0.0).all(1)
-        close &= torch.isclose(got[:, 2], want[:, 2], rtol=0.0, atol=1e-5)
-        fracs.append(close.float().mean().item())
+        fracs.append(within_tolerance(got, want).float().mean().item())
         errs.append((got - want).abs().max(0).values.tolist())
     inside = fused_ni.fused_ni_sums(seeds, rho, n, *eps, **kw)
     torch.cuda.synchronize()
@@ -488,11 +535,259 @@ def streaming(card: str, materialized: dict) -> dict:
     return out
 
 
+def run_grid_timed(gcfg):
+    """One grid run, host clock around it (it ends in host reads)."""
+    from dpcorr_torch.grid import run_grid
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_grid(gcfg)
+    return res, time.perf_counter() - t0
+
+
+def method_means(res, metric: str) -> dict:
+    """Grid-wide mean of one summary column per method."""
+    s = res.summ_all
+    return {m: float(s[metric][s["method"] == m].mean())
+            for m in ("NI", "INT")}
+
+
+def v1_grid_arms(card: str) -> dict:
+    """Phase 9a: the reference's 144-point sign grid, bucketed, fused and
+    unfused in turns, the launch counts set to 0 before each fused arm and
+    read after it."""
+    import numpy as np
+
+    from dpcorr_torch.grid import GridConfig
+    from dpcorr_torch.ops import fused_ni
+    from dpcorr_torch.sim import DETAIL_FIELDS
+
+    arms = {"auto": [], "off": []}
+    fused_res = None
+    for fused in ("auto", "off", "auto", "off"):
+        reset_launches()
+        res, dt = run_grid_timed(GridConfig(b=GRID_B, backend="bucketed",
+                                            fused=fused))
+        launches = fused_ni.KERNEL_LAUNCHES["fused_ni"]
+        rps = V1_POINTS * GRID_B / dt
+        arms[fused].append({"seconds": dt, "reps_per_s": rps,
+                            "launches": launches,
+                            "grid_reps_per_sec": float(
+                                res.timings["grid_reps_per_sec"][0])})
+        print(f"[{card}] 9a v1 grid, fused={fused}: {V1_POINTS} points x "
+              f"{GRID_B} reps in {dt:.3f} s ({rps:.1f} grid reps/s; "
+              f"dispatch+fetch {res.timings['grid_reps_per_sec'][0]:.1f}); "
+              f"K1 launches {launches}; fused buckets "
+              f"{int(res.timings['fused'].sum())}", flush=True)
+        if fused == "auto":
+            if launches != V1_BUCKETS or not res.timings["fused"].all():
+                raise RuntimeError(f"fused v1 grid: {launches} launches, "
+                                   f"expected {V1_BUCKETS}, one per bucket")
+            for f in DETAIL_FIELDS:
+                col = res.detail_all[f]
+                if col.shape != (V1_POINTS * GRID_B,) or \
+                        not np.isfinite(col).all():
+                    raise RuntimeError(f"fused v1 grid {f}: bad values")
+            if fused_res is not None:
+                for f in DETAIL_FIELDS:
+                    if not np.array_equal(res.detail_all[f],
+                                          fused_res.detail_all[f]):
+                        raise RuntimeError("two fused v1 runs differ")
+            fused_res = res
+        else:
+            off_res = res
+            if launches:
+                raise RuntimeError("the unfused grid launched K1")
+    cov_f, cov_o = method_means(fused_res, "coverage"), method_means(
+        off_res, "coverage")
+    len_f, len_o = method_means(fused_res, "ci_len"), method_means(
+        off_res, "ci_len")
+    for m in ("NI", "INT"):
+        d_cov = abs(cov_f[m] - cov_o[m])
+        d_len = abs(len_f[m] / len_o[m] - 1.0)
+        print(f"9a {m}: mean coverage fused {cov_f[m]:.5f} unfused "
+              f"{cov_o[m]:.5f} (|Δ| {d_cov:.5f} ≤ 0.01); mean ci_len "
+              f"{len_f[m]:.5f} / {len_o[m]:.5f} ({d_len:.2%} ≤ 2%)",
+              flush=True)
+        if d_cov > 0.01 or d_len > 0.02:
+            raise RuntimeError(f"fused and unfused v1 grids differ on {m}: "
+                               f"coverage {d_cov}, ci_len {d_len}")
+    return {"arms": arms, "fused": fused_res}
+
+
+def grid_bucket_times(card: str) -> dict:
+    """K1 at each v1 bucket's launch, on that bucket's inputs: its points'
+    seeds (``kernel_seeds`` of ``rep_keys(design_key(master, i), 250)``)
+    and ρ per replication, NI + INT. Each launch is held against the plain
+    version on the same words (``philox_uniforms``), then timed (CUDA
+    events) beside the bound of the same work. These launches do not
+    count."""
+    from dpcorr_torch.grid import GridConfig
+    from dpcorr_torch.ops import fused_ni
+    from dpcorr_torch.utils import rng
+    from dpcorr_torch.utils.device import time_cuda
+
+    gc = GridConfig()
+    points = gc.design_points()
+    master = rng.master_key(gc.seed, "cuda")
+    out = {}
+    for eps in gc.eps_pairs:
+        for n in gc.n_grid:
+            at = ((points["n"] == n) & (points["eps1"] == eps[0])
+                  & (points["eps2"] == eps[1]))
+            design = rng.design_key(master, torch.as_tensor(
+                points["i"][at], dtype=torch.int64, device="cuda"))
+            seeds = rng.kernel_seeds(rng.rep_keys(design, GRID_B)
+                                     .reshape(-1, 2)).contiguous()
+            rhos = torch.as_tensor(points["rho"][at], dtype=torch.float32,
+                                   device="cuda").repeat_interleave(GRID_B)
+            b = rhos.numel()
+            got = fused_ni.fused_ni_sums(seeds, rhos, n, *eps,
+                                         compute_int=True)
+            want = fused_ni.fused_ni_plain(
+                seeds, rhos, fused_ni.philox_uniforms(seeds, n, *eps, True),
+                n=n, eps1=eps[0], eps2=eps[1], compute_int=True)
+            share = within_tolerance(got, want).float().mean().item()
+            err = (got - want).abs().max(0).values.tolist()
+            if not torch.isfinite(got).all() or share < 0.99:
+                raise RuntimeError(f"K1 at the v1 bucket n={n} eps={eps} "
+                                   f"disagrees with its plain version: "
+                                   f"{share} within tolerance")
+            ms = time_cuda(lambda: fused_ni.fused_ni_sums(
+                seeds, rhos, n, *eps, compute_int=True), 20)
+            times = least_time_ms(fused_pipe_ops(n, eps, True), b,
+                                  b * (8 + 4 + 12))
+            by = max(times, key=times.get)
+            out[(n, eps)] = {"ms": ms, "bound_ms": times[by], "bound_by": by,
+                             "max_abs_err": err[0]}
+            print(f"[{card}] K1 at the v1 bucket n={n} eps={eps} ({b} reps, "
+                  f"NI+INT): within tol of the plain version {share:.4f}, "
+                  f"max |err| {[f'{e:.3g}' for e in err]}; {ms:.4f} ms per "
+                  f"launch, bound {times[by]:.4f} ms by {by} "
+                  f"({times[by] / ms:.1%})", flush=True)
+    return out
+
+
+def grid_card_against_cpu(card: str) -> None:
+    """Phase 9b: the smallest v1 bucket, unfused, on the card and the CPU."""
+    from dpcorr_torch.grid import GridConfig, run_grid
+    from dpcorr_torch.sim import DETAIL_FIELDS
+
+    kw = dict(n_grid=(1000,), eps_pairs=((1.0, 1.0),), b=GRID_B,
+              backend="bucketed")
+    card_res = run_grid(GridConfig(**kw))
+    cpu_res = run_grid(GridConfig(**kw, device="cpu"))
+    share = detail_agreement(
+        [torch.from_numpy(card_res.detail_all[f]) for f in DETAIL_FIELDS],
+        [torch.from_numpy(cpu_res.detail_all[f]) for f in DETAIL_FIELDS])
+    print(f"[{card}] 9b grid bucket n=1000 eps=(1, 1), 8 points: card "
+          f"agrees with CPU on {share:.4f} of {8 * GRID_B} replications",
+          flush=True)
+    if share < 0.99:
+        raise RuntimeError(f"grid bucket: card agrees with CPU on only "
+                           f"{share:.4f} of replications")
+
+
+def subg_grid_arms(card: str) -> dict:
+    """Phase 9c: the reference's 120-point subG grid, bucketed, ε-merged
+    and not."""
+    from dpcorr_torch.grid import GridConfig
+
+    runs = {}
+    for merge in ("eps", "off"):
+        res, dt = run_grid_timed(GridConfig(**SUBG_GRID, b=GRID_B,
+                                            backend="bucketed",
+                                            bucket_merge=merge))
+        rps = SUBG_GRID_POINTS * GRID_B / dt
+        runs[merge] = {"seconds": dt, "reps_per_s": rps,
+                       "buckets": len(res.timings["n"]),
+                       "coverage": method_means(res, "coverage")}
+        print(f"[{card}] 9c subG grid, bucket_merge={merge}: "
+              f"{SUBG_GRID_POINTS} points x {GRID_B} reps in {dt:.3f} s "
+              f"({rps:.1f} grid reps/s; {len(res.timings['n'])} buckets); "
+              f"mean coverage {json.dumps(runs[merge]['coverage'])}",
+              flush=True)
+    for m in ("NI", "INT"):
+        gap = abs(runs["eps"]["coverage"][m] - runs["off"]["coverage"][m])
+        if gap > 0.01:
+            raise RuntimeError(f"merged and unmerged subG grids differ on "
+                               f"{m} coverage by {gap}")
+    return runs
+
+
+def grid_resume(card: str, fused_res) -> None:
+    """Phase 9d: the fused v1 grid into a directory, rerun there (every
+    point cached, bit-equal, no launch), then unfused there (no fused
+    cache loads); detail_all.rds reads back."""
+    import tempfile
+
+    import numpy as np
+
+    from dpcorr_torch.grid import GridConfig, run_grid
+    from dpcorr_torch.io.rds_py import read_rds_table
+    from dpcorr_torch.ops import fused_ni
+
+    with tempfile.TemporaryDirectory(prefix="dpcorr_smoke_grid_") as out:
+        gc = GridConfig(b=GRID_B, backend="bucketed", fused="auto",
+                        out_dir=out)
+        first = run_grid(gc)
+        reset_launches()
+        again = run_grid(gc)
+        launches = fused_ni.KERNEL_LAUNCHES["fused_ni"]
+        ran = int(again.timings["points_run"].sum())
+        same = all(np.array_equal(again.detail_all[f], v)
+                   and np.array_equal(fused_res.detail_all[f], v)
+                   for f, v in first.detail_all.items())
+        off = run_grid(GridConfig(b=GRID_B, backend="bucketed", out_dir=out))
+        off_ran = int(off.timings["points_run"].sum())
+        table = read_rds_table(f"{out}/detail_all.rds")
+        rds_ok = list(table) == list(off.detail_all) and all(
+            np.array_equal(table[f], v) for f, v in off.detail_all.items())
+    print(f"[{card}] 9d resume: rerun ran {ran} points with {launches} K1 "
+          f"launches, detail bit-equal {same}; unfused in the same "
+          f"directory ran {off_ran} of {V1_POINTS}; detail_all.rds reads "
+          f"back equal: {rds_ok}", flush=True)
+    if ran or launches or not same or off_ran != V1_POINTS or not rds_ok:
+        raise RuntimeError("grid resume failed its gates")
+
+
+def sign_acceptance(card: str) -> dict:
+    """Phase 9e: the sign acceptance points through the port's campaign,
+    against the JAX package's committed coverage."""
+    from dpcorr_torch import acceptance
+
+    points = [p for p in acceptance.POINTS if p.name in SIGN_ACCEPTANCE]
+    t0 = time.perf_counter()
+    table = acceptance.run_campaign(b=ACCEPTANCE_REPS, points=points)
+    dt = time.perf_counter() - t0
+    for row in table["points"]:
+        ref = SIGN_ACCEPTANCE[row["point"]]
+        got = {"NI": row["det"]["NI"]["coverage"],
+               "INT": row["det"]["INT"]["coverage"]}
+        if "mc" in row:
+            got["INT mc"] = row["mc"]["INT"]["coverage"]
+        print(f"[{card}] 9e acceptance {row['point']}, B={row['det']['b']}, "
+              f"{row['det']['seconds']} s det: coverage {json.dumps(got)} "
+              f"against the JAX package's {json.dumps(ref)}", flush=True)
+        for key, want in ref.items():
+            gap = abs(got[key] - want)
+            exact = row["point"] == "sign_laplace"
+            if (exact and got[key] != want) or gap > 0.003:
+                raise RuntimeError(f"acceptance {row['point']} {key}: "
+                                   f"{got[key]} against {want}")
+    print(f"9e campaign {dt:.1f} s; det_mc_pass {table['det_mc_pass']}",
+          flush=True)
+    if not table["det_mc_pass"]:
+        raise RuntimeError("acceptance: det-vs-mc criterion failed")
+    return table
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
+    from dpcorr_torch.grid import GridConfig
     from dpcorr_torch.ops import _build, fused_ni
     from dpcorr_torch.sim import (
         DETAIL_FIELDS,
@@ -505,6 +800,7 @@ def main() -> int:
     from dpcorr_torch.utils import rng
     from dpcorr_torch.utils.device import card_line, time_cuda
 
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
@@ -650,13 +946,43 @@ def main() -> int:
     print(f"sub-Gaussian and streaming phases: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- 9. the design grid and the acceptance campaign, each part driven
+    # with the launch counts set to 0 just before it and read just after
+    t9 = time.perf_counter()
+    parts = {}
+    t0 = time.perf_counter()
+    v1 = v1_grid_arms(card)
+    grid_launches = v1["arms"]["auto"][-1]["launches"]
+    parts["9a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    buckets = grid_bucket_times(card)
+    parts["bucket times"] = time.perf_counter() - t0
+    for label, part, fn in (("9b", "card-against-CPU grid bucket",
+                             lambda: grid_card_against_cpu(card)),
+                            ("9c", "subG grid", lambda: subg_grid_arms(card)),
+                            ("9d", "grid resume",
+                             lambda: grid_resume(card, v1["fused"])),
+                            ("9e", "sign acceptance",
+                             lambda: sign_acceptance(card))):
+        t0 = time.perf_counter()
+        reset_launches()
+        fn()
+        print(f"launches in the {part} run: "
+              f"{dict(fused_ni.KERNEL_LAUNCHES)}", flush=True)
+        parts[label] = time.perf_counter() - t0
+    print(f"phase 9: {time.perf_counter() - t9:.1f} s "
+          f"{json.dumps({k: round(v, 1) for k, v in parts.items()})}",
+          flush=True)
+    bucket_ms = [v["ms"] for v in buckets.values()]
+
     record = {"kernels": [{
         "name": "fused_ni",
         "route": "cuda",
         "source": "dpcorr_torch/csrc/fused_ni.cu",
         "replaces": "dpcorr/ops/pallas_ni.py:280",
         "launches": launches["fused_ni"],
-        "max_abs_err": worst_err,
+        "max_abs_err": max(worst_err, *(v["max_abs_err"]
+                                        for v in buckets.values())),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -672,7 +998,13 @@ def main() -> int:
         "int_bound_ms": bounds["in-kernel NI+INT"][0],
         "external_ms": ext_ms,
         "external_bound_ms": bounds["external NI"][0],
+        "grid_launches": grid_launches,
+        "grid_bucket_reps": len(GridConfig().rho_grid) * GRID_B,
+        "grid_bucket_ms_min": min(bucket_ms),
+        "grid_bucket_ms_max": max(bucket_ms),
+        "grid_bucket_ms_sum": sum(bucket_ms),
     }]}
+    print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(record), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

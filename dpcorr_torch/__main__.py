@@ -1,0 +1,204 @@
+"""Command-line entry points: ``python -m dpcorr_torch <command>``.
+
+Counterpart of the simulation commands of ``python -m dpcorr``:
+
+- ``demo``        single-design-point Gaussian demo (vert-cor.R:449-466)
+- ``demo-subg``   sub-Gaussian single point (ver-cor-subG.R:224-233)
+- ``grid``        v1 Gaussian sign grid + summaries (vert-cor.R:486-597)
+- ``grid-subg``   v2 bounded-factor sub-Gaussian grid (ver-cor-subG.R:245-335)
+- ``stress``      stress-scale streaming run (BASELINE.md config 5)
+- ``acceptance``  the B ≥ 10⁶ coverage campaign (``dpcorr_torch.acceptance``)
+
+Every command runs on the card (``--device cuda``, the default) and
+raises without one unless ``--device cpu`` is given. Grids persist
+per-design-point ``.npz`` caches and the merged tables
+(``detail_all.npz``, ``summ_all.npz``, ``detail_all.rds``) into
+``--out`` and resume from them; they draw no figures.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+
+
+def _device(args):
+    """The run's device: the card unless ``--device cpu``; raises when
+    there is no card and the CPU was not asked for."""
+    from dpcorr_torch.utils.device import resolve_device
+
+    return resolve_device(None if args.device == "cuda" else args.device)
+
+
+def _add_common(p, backends=("local",)):
+    """Shared flags. ``backends`` lists only the execution backends the
+    subcommand implements."""
+    p.add_argument("--out", default=None, help="output directory")
+    p.add_argument("--b", type=int, default=None, help="MC replications")
+    p.add_argument("--seed", type=int, default=2025)
+    p.add_argument("--backend", default=backends[0], choices=list(backends))
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where to run: the card (default; raises without "
+                        "one) or the CPU")
+
+
+def cmd_demo(args):
+    from dpcorr_torch.sim import SimConfig, run_sim_one
+
+    cfg = SimConfig(n=2000, rho=-0.95, eps1=0.5, eps2=1.0,
+                    b=args.b or 1000, seed=args.seed,
+                    dgp="gaussian", dgp_args={"mu": (2.0, 2.0),
+                                              "sigma": (2.0, 0.1)})
+    t0 = time.perf_counter()
+    res = run_sim_one(cfg, device=_device(args))
+    # the config echo is the full design point, as the JAX package prints
+    # it: tests pin it against vert-cor.R:449-458
+    print(json.dumps({"config": {"n": cfg.n, "rho": cfg.rho,
+                                 "eps": [cfg.eps1, cfg.eps2], "B": cfg.b,
+                                 "dgp": cfg.dgp,
+                                 "dgp_args": {k: list(v) for k, v in
+                                              dict(cfg.dgp_args).items()},
+                                 "normalise": cfg.normalise,
+                                 "seed": cfg.seed},
+                      "summary": res.summary,
+                      "seconds": round(time.perf_counter() - t0, 2)},
+                     indent=2))
+
+
+def cmd_demo_subg(args):
+    from dpcorr_torch.sim import SimConfig, run_sim_one
+
+    cfg = SimConfig(n=5500, rho=0.6, eps1=5.0, eps2=1.0, b=args.b or 500,
+                    seed=args.seed, dgp="bounded_factor", use_subg=True)
+    res = run_sim_one(cfg, device=_device(args))
+    print(json.dumps({"config": {"n": cfg.n, "rho": cfg.rho,
+                                 "eps": [cfg.eps1, cfg.eps2], "B": cfg.b},
+                      "summary": res.summary}, indent=2))
+
+
+def _format_table(table: dict) -> str:
+    """A dict of numpy columns as aligned text, floats to 4 places."""
+    cols = list(table)
+    cells = [[f"{v:.4f}" if isinstance(v, (float, np.floating)) else str(v)
+              for v in table[c]] for c in cols]
+    widths = [max([len(c)] + [len(x) for x in cs])
+              for c, cs in zip(cols, cells)]
+    lines = [" ".join(c.rjust(w) for c, w in zip(cols, widths))]
+    for row in zip(*cells):
+        lines.append(" ".join(x.rjust(w) for x, w in zip(row, widths)))
+    return "\n".join(lines)
+
+
+def _run_grid(gcfg):
+    from dpcorr_torch.grid import run_grid
+
+    t0 = time.perf_counter()
+    res = run_grid(gcfg)
+    dt = time.perf_counter() - t0
+    reps = len(res.detail_all["repl"])
+    print(f"grid: {reps} replicate rows in {dt:.1f}s "
+          f"({reps / dt:.0f} reps/sec incl. build)")
+    print(_format_table(res.summ_all))
+    if gcfg.out_dir:
+        print(f"tables: {gcfg.out_dir}/detail_all.npz, summ_all.npz, "
+              f"detail_all.rds (no figures)")
+
+
+def _grid_kwargs(args) -> dict:
+    return dict(b=args.b or 250, seed=args.seed, backend=args.backend,
+                fused=args.fused, bucket_merge=args.bucket_merge,
+                out_dir=args.out, device=_device(args))
+
+
+def cmd_grid(args):
+    from dpcorr_torch.grid import GridConfig
+
+    _run_grid(GridConfig(**_grid_kwargs(args)))
+
+
+def cmd_grid_subg(args):
+    from dpcorr_torch.grid import GridConfig
+
+    _run_grid(GridConfig(
+        n_grid=(2500, 4000, 6000, 9000, 12000),  # ver-cor-subG.R:245
+        dgp="bounded_factor", use_subg=True, **_grid_kwargs(args)))
+
+
+def cmd_stress(args):
+    """Stress-scale run (BASELINE.md config 5 shape): the streaming
+    n-blocked estimators; prints reps/sec."""
+    from dpcorr_torch.sim import SimConfig, run_sim_one, stress_chunk_size
+
+    dev = _device(args)
+    b = args.b or 256
+    chunk = args.chunk_size or stress_chunk_size(b, on_card=dev.type
+                                                 == "cuda")
+    cfg = SimConfig(
+        n=args.n, rho=0.5, eps1=1.0, eps2=1.0, b=b,
+        dgp="bounded_factor" if args.family == "subg" else "gaussian",
+        use_subg=args.family == "subg",
+        stream_n_chunk=args.n_chunk,
+        chunk_size=chunk)
+    t0 = time.perf_counter()
+    summary = run_sim_one(cfg, device=dev).summary
+    dt = time.perf_counter() - t0
+    print(json.dumps({
+        "n": cfg.n, "b": cfg.b, "family": args.family,
+        "stream_n_chunk": cfg.stream_n_chunk,
+        "seconds": round(dt, 2),
+        "reps_per_sec_incl_compile": round(cfg.b / dt, 2),
+        "summary": summary}, indent=2))
+
+
+def cmd_acceptance(args):
+    """B ≥ 10⁶ coverage campaign at the BASELINE 1e-3 criterion
+    (vert-cor.R:687 oracle; see dpcorr_torch.acceptance)."""
+    from dpcorr_torch import acceptance
+
+    table = acceptance.run_campaign(b=args.b or 1_000_000,
+                                    out=args.out_json, device=_device(args))
+    print(acceptance.dumps(table))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="dpcorr_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    backends_by_cmd = {"grid": ("local", "bucketed"),
+                       "grid-subg": ("local", "bucketed")}
+    for name, fn in [("demo", cmd_demo), ("demo-subg", cmd_demo_subg),
+                     ("grid", cmd_grid), ("grid-subg", cmd_grid_subg),
+                     ("stress", cmd_stress), ("acceptance", cmd_acceptance)]:
+        p = sub.add_parser(name)
+        _add_common(p, backends_by_cmd.get(name, ("local",)))
+        if name == "stress":
+            p.add_argument("--n", type=int, default=1_000_000)
+            p.add_argument("--n-chunk", dest="n_chunk", type=int,
+                           default=65_536)
+            p.add_argument("--family", choices=["sign", "subg"],
+                           default="subg")
+            p.add_argument("--chunk-size", dest="chunk_size", type=int,
+                           default=None,
+                           help="replications resident at once (default: "
+                                "sim.stress_chunk_size)")
+        if name == "acceptance":
+            p.add_argument("--out-json", dest="out_json", default=None)
+        if name in ("grid", "grid-subg"):
+            p.add_argument("--fused", default="off", choices=["off", "auto"],
+                           help="run eligible (n, eps) buckets through the "
+                                "fused kernel (card + --backend bucketed "
+                                "only; the Gaussian sign pair)")
+            p.add_argument("--bucket-merge", dest="bucket_merge",
+                           default="off", choices=["off", "eps"],
+                           help="eps: merge subG buckets across eps pairs "
+                                "(one call per n, eps per replication; "
+                                "subG + --backend bucketed only)")
+        p.set_defaults(fn=fn)
+    args = ap.parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -68,6 +68,15 @@ def use_fused_ni(n: int, eps1: float, eps2: float) -> bool:
     return m <= LANES and k >= 2
 
 
+def fits_on_chip(n: int, eps1: float, eps2: float,
+                 compute_int: bool = True) -> bool:
+    """True iff one replication's planes fit in the kernel's shared
+    memory (``_Consts.plane_bytes`` ≤ ``_SMEM_LIMIT``), the cap on n that
+    :func:`use_fused_ni` does not check and a launch enforces."""
+    c = _Consts(n, eps1, eps2, (0.0, 0.0), (1.0, 1.0))
+    return c.plane_bytes(compute_int) <= _SMEM_LIMIT
+
+
 def n_uniform_rows(n: int, eps1: float = 1.0, eps2: float = 1.0,
                    compute_int: bool = False) -> int:
     """Rows of (·, 128) uniforms one replication consumes in external

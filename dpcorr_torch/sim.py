@@ -49,6 +49,10 @@ from dpcorr_torch.utils.device import f32_on, resolve_device
 #: the stages of a fused block, as ``torch.profiler`` ranges (:func:`stage`)
 FUSED_STAGES = ("rep_keys", "kernel_seeds", "fused_ni", "ni_result+_metrics",
                 "accumulate")
+#: the stages of a fused grid bucket (``grid._dispatch``); ``int_ci``, the
+#: INT CI with its mixture quantile, lies inside ``ni_result+_metrics``
+GRID_STAGES = ("rep_keys", "kernel_seeds", "fused_ni", "ni_result+_metrics",
+               "int_ci")
 
 
 _stage_seconds: dict | None = None  # inside stage_host_seconds() only
@@ -275,13 +279,42 @@ def stress_chunk_size(b: int, on_card: bool) -> int:
     return min(b, STRESS_CHUNK_CARD) if on_card else 1
 
 
-def chunked(fn: Callable, keys: torch.Tensor, chunk_size: int) -> tuple:
-    """``fn`` over the leading replication axis of ``keys`` in chunks of
-    at most ``chunk_size``; the per-chunk outputs are concatenated.
-    Outputs do not depend on the chunk width."""
-    b = keys.shape[0]
-    parts = [fn(keys[s:s + chunk_size]) for s in range(0, b, chunk_size)]
+def chunked(fn: Callable, args, chunk_size: int) -> tuple:
+    """``fn`` over the leading replication axis in chunks of at most
+    ``chunk_size``; the per-chunk outputs are concatenated. ``args`` is
+    one tensor (→ ``fn(x)``) or a tuple of tensors of one length sliced
+    together (→ ``fn(*xs)``, e.g. per-replication (key, ρ) pairs for the
+    bucketed grid). Outputs do not depend on the chunk width."""
+    tup = args if isinstance(args, tuple) else (args,)
+    b = tup[0].shape[0]
+    parts = [fn(*(a[s:s + chunk_size] for a in tup))
+             for s in range(0, b, chunk_size)]
     return tuple(torch.cat(cols) for cols in zip(*parts, strict=True))
+
+
+def _run_detail_flat(cfg_norho: SimConfig, keys: torch.Tensor,
+                     rhos: torch.Tensor) -> tuple:
+    """Batched design points: per-replication (key, ρ) pairs flattened
+    over (points × replications), the bucketed grid's body (counterpart
+    of ``dpcorr.sim._run_detail_flat``). Returns the 12 fields of
+    :data:`DETAIL_FIELDS`."""
+    return chunked(lambda k, r: _one_rep(k, r, cfg_norho), (keys, rhos),
+                   cfg_norho.chunk_size)
+
+
+def _run_detail_flat_eps(cfg_noeps: SimConfig, keys: torch.Tensor,
+                         rhos: torch.Tensor, eps1s: torch.Tensor,
+                         eps2s: torch.Tensor,
+                         k_pad: int | None = None) -> tuple:
+    """ε-merged bucket body: like :func:`_run_detail_flat` with ε per
+    replication too, so one call serves every (ρ, ε) design point at a
+    given n (``GridConfig.bucket_merge="eps"``; sub-Gaussian families
+    only, ε₁ ≥ ε₂, see :func:`_one_rep`). ``k_pad``: the pad bound of the
+    per-batch vectors (``common.k_pad_for``)."""
+    return chunked(
+        lambda k, r, e1, e2: _one_rep(k, r, cfg_noeps, eps=(e1, e2),
+                                      k_pad=k_pad),
+        (keys, rhos, eps1s, eps2s), cfg_noeps.chunk_size)
 
 
 def summarize(detail: Mapping[str, torch.Tensor], rho: float) -> dict:
@@ -344,14 +377,18 @@ def sim_detail_fused(seeds: torch.Tensor, rhos, n: int, eps1: float,
     if uniforms is not None:
         uniforms = uniforms.to(dev, torch.float32).contiguous()
     rhos = f32_on(rhos, dev)
-    out = fused_ni_sums(seeds, rhos, n, eps1, eps2, mu, sigma, normalise,
-                        True, gauss, uniforms)
+    with stage("fused_ni"):
+        out = fused_ni_sums(seeds, rhos, n, eps1, eps2, mu, sigma, normalise,
+                            True, gauss, uniforms)
     _, k = batch_geometry(n, eps1, eps2)
-    ni = ni_result(out[:, 0], out[:, 1], k, alpha)
-    rho_hat_int = torch.sin(math.pi * out[:, 2] / 2.0)
-    eps_s, eps_r = max(eps1, eps2), min(eps1, eps2)
-    it = interval_from_rho(None, rho_hat_int, n, eps_s, eps_r, alpha, ci_mode)
-    return _metrics_row(ni, it, rhos)
+    with stage("ni_result+_metrics"):
+        ni = ni_result(out[:, 0], out[:, 1], k, alpha)
+        rho_hat_int = torch.sin(math.pi * out[:, 2] / 2.0)
+        eps_s, eps_r = max(eps1, eps2), min(eps1, eps2)
+        with stage("int_ci"):
+            it = interval_from_rho(None, rho_hat_int, n, eps_s, eps_r, alpha,
+                                   ci_mode)
+        return _metrics_row(ni, it, rhos)
 
 
 def ni_rep_fn(n: int, rho: float, eps1: float, eps2: float,

@@ -34,6 +34,15 @@ _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
+def impl_tag() -> str:
+    """The port's PRNG tag, for result-cache stamps. The key-tree is JAX's
+    threefry bit for bit, but the estimators on top agree with the JAX
+    package's only to f32 rounding, so the tag differs from
+    ``dpcorr.utils.rng.impl_tag()``'s and the two packages' caches never
+    mix."""
+    return "threefry2x32-torch"
+
+
 def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
     return ((v << r) | (v >> (32 - r))) & _M32
 
@@ -91,13 +100,15 @@ def design_key(key: torch.Tensor, design_index) -> torch.Tensor:
 
 def rep_keys_slice(key: torch.Tensor, start, n_reps: int) -> torch.Tensor:
     """Keys ``[start, start + n_reps)`` of the :func:`rep_keys` stream,
-    shape ``(n_reps, 2)``, made on the key's device."""
+    shape ``key.shape[:-1] + (n_reps, 2)``, made on the key's device: a
+    batch of keys ``(P, 2)`` gives each one's stream in one call."""
     idx = torch.arange(int(n_reps), device=key.device) + int(start)
-    return fold_in(_as_key(key)[None, :], idx)
+    return fold_in(_as_key(key)[..., None, :], idx)
 
 
 def rep_keys(key: torch.Tensor, n_reps: int) -> torch.Tensor:
-    """Per-replication keys, shape ``(n_reps, 2)`` (vert-cor.R:364, 392)."""
+    """Per-replication keys, shape ``(n_reps, 2)`` for one key
+    (vert-cor.R:364, 392); ``(P, n_reps, 2)`` for P keys."""
     return rep_keys_slice(key, 0, n_reps)
 
 

@@ -1,6 +1,7 @@
 """The port on the card: the CUDA kernel against its plain version, the
-replication pipeline through both bodies, and the sub-Gaussian and
-streaming paths against the same keys on the CPU.
+replication pipeline through both bodies, the sub-Gaussian and
+streaming paths against the same keys on the CPU, and the design grid's
+fused and unfused buckets.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither JAX nor the JAX package, so it also runs where only the
@@ -13,14 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from dpcorr_torch import sim
+from dpcorr_torch import grid, sim
 from dpcorr_torch.models.dgp import gen_bounded_factor
 from dpcorr_torch.ops import fused_ni
 from dpcorr_torch.utils import rng
 
 #: (n, ε) of each lane-group layout the kernel's sweep branches on:
-#: m' = 1, 8, 16 (m = 11, with leftovers), 32, 64, 128, and n = 1000 and
-#: 20,000
+#: m' = 1, 8, 16 (m = 11, with leftovers), 32, 64, 128, n = 1000 and
+#: 20,000, and m' = 8 with leftovers (n = 1500)
 GEOMETRIES = [
     (10_000, (4.0, 2.0)),
     (10_000, (1.0, 1.0)),
@@ -30,6 +31,7 @@ GEOMETRIES = [
     (10_000, (0.25, 0.25)),
     (1_000, (1.0, 1.0)),
     (20_000, (1.0, 1.0)),
+    (1_500, (1.0, 1.0)),
 ]
 #: (n, ε, compute_int) where the batch noise does not fit beside the
 #: planes in shared memory, so the kernel's sweep draws it: m' = 1 and 8
@@ -214,3 +216,51 @@ def test_subg_paths_run_on_the_card_by_default(cuda):
     sums, n_reps = pipe.run(2)
     assert pipe.fetches == 1 and n_reps == 4096
     assert 0.90 <= sums[8] / n_reps <= 0.99
+
+
+#: two (n, ε) buckets of two points each
+GRID2 = dict(n_grid=(1000, 2500), rho_grid=(0.0, 0.5),
+             eps_pairs=((1.0, 1.0),), b=256, seed=3)
+
+
+@pytest.mark.cuda
+def test_fused_grid_launches_once_per_bucket(cuda, tmp_path):
+    """fused="auto" on the card: one kernel launch per bucket, finite
+    detail, coverage near the unfused grid's; a rerun loads every point
+    from its cache and launches nothing."""
+    before = fused_ni.KERNEL_LAUNCHES["fused_ni"]
+    gc = grid.GridConfig(**GRID2, backend="bucketed", fused="auto",
+                         out_dir=str(tmp_path))
+    res = grid.run_grid(gc)
+    assert fused_ni.KERNEL_LAUNCHES["fused_ni"] == before + 2
+    assert res.timings["fused"].all()
+    for field in sim.DETAIL_FIELDS:
+        assert res.detail_all[field].shape == (4 * 256,)
+        assert np.isfinite(res.detail_all[field]).all()
+    off = grid.run_grid(grid.GridConfig(**GRID2, backend="bucketed"))
+    for meth in ("NI", "INT"):
+        rows = res.summ_all["method"] == meth
+        assert abs(res.summ_all["coverage"][rows].mean()
+                   - off.summ_all["coverage"][rows].mean()) <= 0.05
+    again = grid.run_grid(gc)
+    assert fused_ni.KERNEL_LAUNCHES["fused_ni"] == before + 2
+    assert again.timings["points_run"].sum() == 0
+    for col, v in res.detail_all.items():
+        np.testing.assert_array_equal(again.detail_all[col], v)
+
+
+@pytest.mark.cuda
+def test_unfused_grid_card_agrees_with_cpu(cuda):
+    """The unfused bucketed grid launches no kernel, and the card agrees
+    with the CPU on the same keys for at least 99% of rows."""
+    before = fused_ni.KERNEL_LAUNCHES["fused_ni"]
+    card = grid.run_grid(grid.GridConfig(**GRID2, backend="bucketed"))
+    assert fused_ni.KERNEL_LAUNCHES["fused_ni"] == before
+    cpu = grid.run_grid(grid.GridConfig(**GRID2, backend="bucketed",
+                                        device="cpu"))
+    ok = np.ones(4 * 256, bool)
+    for field in sim.DETAIL_FIELDS:
+        rtol = 1e-6 if field.endswith("se2") else 0.0
+        ok &= np.isclose(card.detail_all[field], cpu.detail_all[field],
+                         rtol=rtol, atol=1e-5)
+    assert ok.mean() >= 0.99

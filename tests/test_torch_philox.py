@@ -30,9 +30,10 @@ KAT = [
      (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
 ]
 
-# (n, ε): m' = 8 with no leftover, m = 11 < m' = 16 with leftovers, and
-# m' = 32 with leftovers
-GEOMETRIES = [(1000, (1.0, 1.0)), (1000, (1.5, 0.5)), (2000, (0.5, 0.5))]
+# (n, ε): m' = 8 with no leftover, m = 11 < m' = 16 with leftovers,
+# m' = 32 with leftovers, and m' = 8 with leftovers
+GEOMETRIES = [(1000, (1.0, 1.0)), (1000, (1.5, 0.5)), (2000, (0.5, 0.5)),
+              (1500, (1.0, 1.0))]
 
 
 def _philox_ref(ctr, key):

@@ -72,6 +72,20 @@ def test_bits_and_uniform_bit_equal(seed, design, name, shape):
         np.testing.assert_array_equal(pu.view(np.int32), ju.view(np.int32))
 
 
+@pytest.mark.parametrize("start", [0, 5])
+def test_rep_keys_of_a_key_batch_bit_equal(start):
+    """The grid's bucket keys: each design key's replication stream from
+    one call over the batch of design keys, as JAX gives it key by key."""
+    idx = [3, 0, 41, 7]
+    design = rng.design_key(rng.master_key(9), torch.tensor(idx))
+    got = rng.rep_keys_slice(design, start, 6)
+    assert got.shape == (4, 6, 2)
+    for j, i in enumerate(idx):
+        want = jrng.rep_keys_slice(jrng.design_key(jrng.master_key(9), i),
+                                   start, 6)
+        np.testing.assert_array_equal(got[j].numpy(), _words(want))
+
+
 def test_batched_keys_match_per_key_draws():
     """A leading key axis draws what each key draws alone."""
     jk = jrng.rep_keys(jrng.master_key(5), 17)
