@@ -74,7 +74,30 @@ north-star workload (n = 10⁴ Gaussian pair → NI sign-batch estimate + CI →
    (e) the sign acceptance points at 2¹⁸ reps through ``run_campaign``,
        against the JAX package's committed coverage at B = 1,015,808:
        within 0.003, ``sign_laplace`` exactly (NI 0, INT 1), and the
-       det-vs-mc criterion passes.
+       det-vs-mc criterion passes;
+10. the HRS real-data pipeline (``dpcorr_torch.hrs``; no kernel of its
+    own: torch ops on the key-tree), at the panel's full shape, driven
+    with the launch counts set to 0 just before it and read just after:
+    (a) ingest: a synthetic panel of the real one's shape
+        (``perf_hrs.synthetic_panel``: 723,744 rows, 16 waves, 19,433
+        complete cases in wave 2) written as gzip RDS by the port's
+        writer and read back through ``io.rds.read_rds_table``, timed;
+    (b) card against CPU on the same keys: the point estimates (ρ̂ and CI
+        ends within 1e-5, the λ/geometry block within 1e-5 relative, k
+        and m exact), 3 ε × 64 sweep replications and the bootstrap's
+        first 256 replications (≥ 99% of rows within 1e-5);
+    (c) the ε-sweep at the reference size (23 ε × 200 replications × 2
+        methods = 9,200 runs, real-data-sims.R:345-346) under a tracer
+        writing a temporary JSONL (one ``hrs.eps_sweep`` root with 23
+        ``hrs.dispatch`` and 23 ``hrs.fetch`` children), and the
+        bootstrap at 10,000 replications at ε = 2 (BASELINE.md config 4):
+        seconds, reps/s, peak device memory, and from ``perf_hrs`` one
+        ε and one bootstrap chunk split by stage with the device's idle
+        share;
+    (d) statistics gates: per method the mean CI length at ε = 2.45 is
+        below that at ε = 0.25, and the mean ρ̂ over the three largest ε
+        lies within 0.05 of the non-private ρ; the NI bootstrap's
+        [q025, q975] contains the non-private ρ.
 
 Every failure raises. The last line is the device record; before it come
 the per-kernel JSON record and the card line. Run from the repository
@@ -186,6 +209,16 @@ V1_POINTS, V1_BUCKETS = 144, 18
 SUBG_GRID = dict(n_grid=(2500, 4000, 6000, 9000, 12000),
                  dgp="bounded_factor", use_subg=True)
 SUBG_GRID_POINTS = 120
+#: phase 10: the HRS pipeline at the panel's shape; the sweep's size is the
+#: reference's (real-data-sims.R:345-346), the bootstrap's BASELINE.md
+#: config 4's
+HRS_SEED = 0
+HRS_ROWS, HRS_COMPLETE = 723_744, 19_433
+HRS_SWEEP_EPS, HRS_SWEEP_REPS = 23, 200
+HRS_BOOT_REPS = 10_000
+HRS_PARITY_EPS = (0.25, 1.25, 2.45)
+HRS_PARITY_SWEEP_REPS, HRS_PARITY_BOOT_REPS = 64, 256
+
 #: the JAX package's committed coverage at B = 1,015,808 for the sign
 #: acceptance points (dpcorr/acceptance.py:89-108), copied from
 #: benchmarks/results/acceptance_r02.json so the script reads nothing of
@@ -724,7 +757,7 @@ def grid_resume(card: str, fused_res) -> None:
     import numpy as np
 
     from dpcorr_torch.grid import GridConfig, run_grid
-    from dpcorr_torch.io.rds_py import read_rds_table
+    from dpcorr_torch.io.rds import read_rds_table
     from dpcorr_torch.ops import fused_ni
 
     with tempfile.TemporaryDirectory(prefix="dpcorr_smoke_grid_") as out:
@@ -742,7 +775,8 @@ def grid_resume(card: str, fused_res) -> None:
         off_ran = int(off.timings["points_run"].sum())
         table = read_rds_table(f"{out}/detail_all.rds")
         rds_ok = list(table) == list(off.detail_all) and all(
-            np.array_equal(table[f], v) for f, v in off.detail_all.items())
+            np.array_equal(table[f].values, v)
+            for f, v in off.detail_all.items())
     print(f"[{card}] 9d resume: rerun ran {ran} points with {launches} K1 "
           f"launches, detail bit-equal {same}; unfused in the same "
           f"directory ran {off_ran} of {V1_POINTS}; detail_all.rds reads "
@@ -780,6 +814,180 @@ def sign_acceptance(card: str) -> dict:
     if not table["det_mc_pass"]:
         raise RuntimeError("acceptance: det-vs-mc criterion failed")
     return table
+
+
+def rows_within(got: dict, want: dict, fields, atol: float = 1e-5) -> float:
+    """Share of rows whose ``fields`` all agree within ``atol``."""
+    import numpy as np
+
+    ok = np.ones(len(want[fields[0]]), dtype=bool)
+    for f in fields:
+        ok &= np.isclose(got[f], want[f], rtol=0.0, atol=atol)
+    return float(ok.mean())
+
+
+def hrs_ingest(card: str):
+    """Phase 10a: the full-shape synthetic panel written as gzip RDS and
+    read back; returns the columns read."""
+    import os
+    import tempfile
+
+    from dpcorr_torch import hrs, perf_hrs
+    from dpcorr_torch.io.rds import read_rds_table
+
+    with tempfile.TemporaryDirectory(prefix="dpcorr_smoke_hrs_") as d:
+        path = os.path.join(d, "hrs_long_panel.rds")
+        t0 = time.perf_counter()
+        perf_hrs.write_panel(path, perf_hrs.synthetic_panel(HRS_SEED))
+        write_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        cols = read_rds_table(path)
+        read_s = time.perf_counter() - t0
+    miss = hrs.wave_missingness(cols)
+    rows = len(cols["wave"].values)
+    complete = int(miss["complete"][miss["wave"] == 2][0])
+    print(f"[{card}] 10a ingest: {rows} rows x {len(cols)} columns, "
+          f"{size} bytes gzip; written in {write_s:.3f} s, read back through "
+          f"io.rds.read_rds_table in {read_s:.3f} s (host); wave 2 "
+          f"complete cases {complete}", flush=True)
+    if rows != HRS_ROWS or complete != HRS_COMPLETE:
+        raise RuntimeError(f"HRS ingest: {rows} rows and {complete} wave-2 "
+                           f"complete cases, expected {HRS_ROWS} and "
+                           f"{HRS_COMPLETE}")
+    return cols
+
+
+def hrs_card_against_cpu(card: str, cols, boot) -> None:
+    """Phase 10b: point estimates, a sweep subset and the bootstrap's first
+    replications on the card and the CPU, on the same keys. ``boot`` is
+    the card's full bootstrap run."""
+    import numpy as np
+
+    from dpcorr_torch import hrs
+
+    card_pt = hrs.point_estimates(cols=cols)
+    cpu_pt = hrs.point_estimates(cols=cols, device="cpu")
+    for meth in ("ni", "int_"):
+        got, want = getattr(card_pt, meth), getattr(cpu_pt, meth)
+        ci = max(abs(got[f] - want[f]) for f in ("rho_hat", "ci_low",
+                                                 "ci_high"))
+        aux = max(abs(got[f] / want[f] - 1.0) for f in want
+                  if f not in ("rho_hat", "ci_low", "ci_high") and want[f])
+        geometry = all(got[f] == want[f] for f in ("k", "m") if f in want)
+        print(f"[{card}] 10b point estimates {meth.strip('_').upper()}: card "
+              f"{json.dumps(got)}; |card - CPU| {ci:.3g} on rho_hat and CI "
+              f"ends (<= 1e-5), {aux:.3g} relative on the lambda/geometry "
+              f"block (<= 1e-5), k and m equal: {geometry}", flush=True)
+        if ci > 1e-5 or aux > 1e-5 or not geometry or set(got) != set(want):
+            raise RuntimeError(f"HRS point estimates {meth}: card and CPU "
+                               f"differ")
+    sweeps = [hrs.eps_sweep(cols=cols, eps_grid=HRS_PARITY_EPS,
+                            reps=HRS_PARITY_SWEEP_REPS, device=dev)
+              for dev in (None, "cpu")]
+    share = rows_within(sweeps[0].runs, sweeps[1].runs, hrs.SWEEP_FIELDS)
+    first = {f: v[:HRS_PARITY_BOOT_REPS] for f, v in boot.runs.items()}
+    cpu_boot = hrs.bootstrap(cols=cols, reps=HRS_PARITY_BOOT_REPS,
+                             device="cpu")
+    boot_share = rows_within(first, cpu_boot.runs, hrs.BOOT_FIELDS)
+    print(f"[{card}] 10b sweep {len(HRS_PARITY_EPS)} eps x "
+          f"{HRS_PARITY_SWEEP_REPS} reps x 2 methods: card agrees with CPU "
+          f"on {share:.4f} of rows; bootstrap's first "
+          f"{HRS_PARITY_BOOT_REPS} reps: {boot_share:.4f} (>= 0.99 within "
+          f"1e-5)", flush=True)
+    if share < 0.99 or boot_share < 0.99 or not np.array_equal(
+            sweeps[0].runs["eps_corr"], sweeps[1].runs["eps_corr"]):
+        raise RuntimeError(f"HRS card and CPU differ: sweep {share}, "
+                           f"bootstrap {boot_share}")
+
+
+def hrs_workloads(card: str, cols) -> tuple:
+    """Phase 10c: the ε-sweep at the reference size under a tracer, and
+    the bootstrap at 10,000 replications; returns both results."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from dpcorr_torch import hrs, perf_hrs
+    from dpcorr_torch.obs import trace as obs_trace
+
+    with tempfile.TemporaryDirectory(prefix="dpcorr_smoke_trace_") as d:
+        spans_path = os.path.join(d, "spans.jsonl")
+        obs_trace.configure(spans_path)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            sweep = hrs.eps_sweep(cols=cols, reps=HRS_SWEEP_REPS)
+            sweep_s = time.perf_counter() - t0
+        finally:
+            obs_trace.configure(None)
+        spans = obs_trace.read_spans(spans_path)
+    sweep_peak = torch.cuda.max_memory_allocated() / 2**30
+    runs = len(sweep.runs["rho_hat"])
+    roots = [sp for sp in spans if sp["name"] == "hrs.eps_sweep"]
+    children = {name: [sp for sp in spans if sp["name"] == name
+                       and roots and sp["parent_id"] == roots[0]["span_id"]]
+                for name in ("hrs.dispatch", "hrs.fetch")}
+    print(f"[{card}] 10c eps-sweep {HRS_SWEEP_EPS} eps x {HRS_SWEEP_REPS} "
+          f"reps x 2 methods = {runs} runs in {sweep_s:.3f} s "
+          f"({runs / sweep_s:.1f} runs/s), peak device memory "
+          f"{sweep_peak:.3f} GiB; spans: {len(roots)} hrs.eps_sweep root, "
+          f"{len(children['hrs.dispatch'])} hrs.dispatch and "
+          f"{len(children['hrs.fetch'])} hrs.fetch children", flush=True)
+    if runs != 2 * HRS_SWEEP_EPS * HRS_SWEEP_REPS or len(roots) != 1 or any(
+            len(v) != HRS_SWEEP_EPS for v in children.values()):
+        raise RuntimeError("HRS sweep: wrong number of runs or spans")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    boot = hrs.bootstrap(cols=cols, reps=HRS_BOOT_REPS)
+    boot_s = time.perf_counter() - t0
+    print(f"[{card}] 10c bootstrap {HRS_BOOT_REPS} reps at eps = 2, chunk "
+          f"{boot.chunk}: {boot_s:.3f} s ({HRS_BOOT_REPS / boot_s:.1f} "
+          f"reps/s), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; summary "
+          f"{json.dumps(boot.summary)}", flush=True)
+    for name, split in (("one sweep eps", perf_hrs.sweep_eps_split(cols)),
+                        ("one bootstrap chunk",
+                         perf_hrs.boot_chunk_split(cols, boot.chunk))):
+        print(f"[{card}] 10c {name} by stage: {json.dumps(split)}",
+              flush=True)
+    for name, res in (("sweep", sweep.runs), ("bootstrap", boot.runs)):
+        if not all(np.isfinite(v).all() for k, v in res.items()
+                   if k not in ("method",)):
+            raise RuntimeError(f"HRS {name}: non-finite values")
+    return sweep, boot
+
+
+def hrs_gates(card: str, sweep, boot) -> None:
+    """Phase 10d: the statistics gates."""
+    import numpy as np
+
+    runs, rho_np = sweep.runs, sweep.rho_np
+    eps = np.asarray(runs["eps_corr"])
+    top3 = np.sort(np.unique(eps))[-3:]
+    for meth in ("NI", "INT"):
+        m = np.asarray(runs["method"]) == meth
+        length = (np.asarray(runs["ci_high"], np.float64)
+                  - np.asarray(runs["ci_low"], np.float64))
+        lo_len = length[m & (eps == eps.min())].mean()
+        hi_len = length[m & (eps == eps.max())].mean()
+        top = np.asarray(runs["rho_hat"], np.float64)[
+            m & np.isin(eps, top3)].mean()
+        print(f"[{card}] 10d {meth}: mean CI length {hi_len:.4f} at eps = "
+              f"{eps.max()} against {lo_len:.4f} at eps = {eps.min()} "
+              f"(must be below); mean rho_hat over eps {top3.tolist()} "
+              f"{top:.4f}, non-private rho {rho_np:.4f} (within 0.05)",
+              flush=True)
+        if not hi_len < lo_len or abs(top - rho_np) > 0.05:
+            raise RuntimeError(f"HRS sweep gate failed for {meth}")
+    ni = boot.summary["ni"]
+    print(f"[{card}] 10d NI bootstrap [q025, q975] = [{ni['q025']:.4f}, "
+          f"{ni['q975']:.4f}] (must contain {rho_np:.4f})", flush=True)
+    if not ni["q025"] <= rho_np <= ni["q975"]:
+        raise RuntimeError("HRS NI bootstrap interval misses rho_np")
 
 
 def main() -> int:
@@ -973,6 +1181,17 @@ def main() -> int:
     print(f"phase 9: {time.perf_counter() - t9:.1f} s "
           f"{json.dumps({k: round(v, 1) for k, v in parts.items()})}",
           flush=True)
+
+    # ---- 10. the HRS real-data pipeline, driven with the launch counts
+    # set to 0 just before it and read just after
+    t10 = time.perf_counter()
+    reset_launches()
+    cols = hrs_ingest(card)
+    sweep, boot = hrs_workloads(card, cols)
+    hrs_card_against_cpu(card, cols, boot)
+    hrs_gates(card, sweep, boot)
+    read_launches("HRS")
+    print(f"phase 10: {time.perf_counter() - t10:.1f} s", flush=True)
     bucket_ms = [v["ms"] for v in buckets.values()]
 
     record = {"kernels": [{

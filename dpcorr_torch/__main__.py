@@ -6,6 +6,8 @@ Counterpart of the simulation commands of ``python -m dpcorr``:
 - ``demo-subg``   sub-Gaussian single point (ver-cor-subG.R:224-233)
 - ``grid``        v1 Gaussian sign grid + summaries (vert-cor.R:486-597)
 - ``grid-subg``   v2 bounded-factor sub-Gaussian grid (ver-cor-subG.R:245-335)
+- ``hrs``         HRS point estimates (real-data-sims.R:259-333)
+- ``hrs-sweep``   HRS ε-sweep (real-data-sims.R:342-448), tables only
 - ``stress``      stress-scale streaming run (BASELINE.md config 5)
 - ``acceptance``  the B ≥ 10⁶ coverage campaign (``dpcorr_torch.acceptance``)
 
@@ -13,13 +15,17 @@ Every command runs on the card (``--device cuda``, the default) and
 raises without one unless ``--device cpu`` is given. Grids persist
 per-design-point ``.npz`` caches and the merged tables
 (``detail_all.npz``, ``summ_all.npz``, ``detail_all.rds``) into
-``--out`` and resume from them; they draw no figures.
+``--out`` and resume from them; they draw no figures. The HRS commands
+read the panel at ``dpcorr_torch.hrs.DEFAULT_PANEL`` and raise when it is
+not there; ``hrs-sweep --out`` writes ``hrs_sweep_runs.npz`` and
+``hrs_sweep_summary.npz``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -127,6 +133,36 @@ def cmd_grid_subg(args):
         dgp="bounded_factor", use_subg=True, **_grid_kwargs(args)))
 
 
+def cmd_hrs(args):
+    from dpcorr_torch import hrs
+
+    cfg = hrs.HrsConfig(panel_path=hrs.DEFAULT_PANEL, seed=args.seed)
+    res = hrs.point_estimates(cfg, device=_device(args))
+    print(json.dumps({
+        "n": res.n,
+        "private_moments": {
+            "age": {"mean": res.std.age_mean, "sd": res.std.age_sd},
+            "bmi": {"mean": res.std.bmi_mean, "sd": res.std.bmi_sd}},
+        "lambda": {"age_z": res.std.lam_age, "bmi_z": res.std.lam_bmi},
+        "rho_non_private": res.std.rho_np,
+        "NI": res.ni, "INT_age_to_bmi": res.int_}, indent=2))
+
+
+def cmd_hrs_sweep(args):
+    from dpcorr_torch import hrs
+
+    cfg = hrs.HrsConfig(panel_path=hrs.DEFAULT_PANEL, seed=args.seed)
+    sweep = hrs.eps_sweep(cfg, reps=args.b or 200, progress=True,
+                          device=_device(args))
+    print(_format_table(sweep.summary))
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        np.savez(f"{args.out}/hrs_sweep_runs.npz", **sweep.runs)
+        np.savez(f"{args.out}/hrs_sweep_summary.npz", **sweep.summary)
+        print(f"tables: {args.out}/hrs_sweep_runs.npz, "
+              f"hrs_sweep_summary.npz (no figures)")
+
+
 def cmd_stress(args):
     """Stress-scale run (BASELINE.md config 5 shape): the streaming
     n-blocked estimators; prints reps/sec."""
@@ -170,6 +206,7 @@ def main(argv=None):
                        "grid-subg": ("local", "bucketed")}
     for name, fn in [("demo", cmd_demo), ("demo-subg", cmd_demo_subg),
                      ("grid", cmd_grid), ("grid-subg", cmd_grid_subg),
+                     ("hrs", cmd_hrs), ("hrs-sweep", cmd_hrs_sweep),
                      ("stress", cmd_stress), ("acceptance", cmd_acceptance)]:
         p = sub.add_parser(name)
         _add_common(p, backends_by_cmd.get(name, ("local",)))

@@ -16,6 +16,10 @@ ver-cor-subG.R:245-335) with:
   caches of another configuration, body or package never load;
 - fail-loud error handling per design point or bucket: failures are
   recorded, the rest of the grid runs, one error is raised at the end;
+- the JAX package's spans (``dpcorr_torch.obs.trace``): a ``grid.run``
+  root, and under it ``grid.dispatch`` and ``grid.fetch`` per bucket or
+  ``grid.point`` per point, with the same attributes; no-ops when no
+  tracer is configured;
 - the reference's grouped summaries (vert-cor.R:575-597).
 
 Tables are dicts of numpy columns in the JAX package's column and row
@@ -40,6 +44,7 @@ from dpcorr_torch.models.estimators.common import (
     k_pad_for,
     warn_f32_geometry_band_once,
 )
+from dpcorr_torch.obs import trace as obs_trace
 from dpcorr_torch.ops import fused_ni
 from dpcorr_torch.sim import DETAIL_FIELDS, SimConfig
 from dpcorr_torch.utils import rng
@@ -334,6 +339,7 @@ def _run_grid_bucketed(gcfg: GridConfig, rows: list[_Row],
     run; nothing is rerun another way."""
     details, timings, failures = {}, [], []
     merged = gcfg.bucket_merge == "eps"
+    tr = obs_trace.tracer()
 
     def fail(bucket_rows, phase, e):
         log.error("bucket (n=%d eps=(%.2f,%.2f), %d points) failed at %s: "
@@ -372,15 +378,25 @@ def _run_grid_bucketed(gcfg: GridConfig, rows: list[_Row],
         buckets.append(_Bucket(grp, to_run, stamps, paths, fused, cfg, k_pad,
                                time.perf_counter() - t0))
 
-    # Phase 1: dispatch every bucket; nothing is read back here
+    # Phase 1: dispatch every bucket; nothing is read back here. One span
+    # per bucket, under grid.run by the thread's span stack (the port
+    # compiles nothing ahead, so ``precompiled`` is always False)
     pending = []
     for bk in buckets:
         t0 = time.perf_counter()
+        dsp = tr.start_span("grid.dispatch", n=bk.rows[0].n,
+                            points=len(bk.rows))
         try:
             raw = _dispatch(gcfg, bk, master, dev) if bk.to_run else None
         except Exception as e:
             fail(bk.rows, "dispatch", e)
+            dsp.set(error=type(e).__name__)
             continue
+        else:
+            dsp.set(points_run=len(bk.to_run), fused=bool(bk.fused),
+                    precompiled=False)
+        finally:
+            dsp.end()
         pending.append((bk, raw, bk.scan_s + time.perf_counter() - t0))
 
     # Phase 2: fetch in dispatch order; device-side failures surface here.
@@ -390,6 +406,8 @@ def _run_grid_bucketed(gcfg: GridConfig, rows: list[_Row],
     total_ran = 0
     for bk, raw, dispatch_s in pending:
         t0 = time.perf_counter()
+        fsp = tr.start_span("grid.fetch", n=bk.rows[0].n,
+                            points=len(bk.rows), points_run=len(bk.to_run))
         try:
             if bk.to_run:
                 host = raw.cpu().numpy()  # the bucket's one host read
@@ -403,7 +421,10 @@ def _run_grid_bucketed(gcfg: GridConfig, rows: list[_Row],
                                  **detail)
         except Exception as e:
             fail(bk.rows, "fetch", e)
+            fsp.set(error=type(e).__name__)
             continue
+        finally:
+            fsp.end()
         fetch_s = time.perf_counter() - t0
         total_ran += len(bk.to_run)
         timings.append({
@@ -431,9 +452,11 @@ def _run_grid_local(gcfg: GridConfig, rows: list[_Row],
     """One design point at a time through ``run_sim_one``, each persisted
     before the next runs."""
     details, timings, failures = {}, [], []
+    tr = obs_trace.tracer()
     for row in rows:
         path = _design_path(out_dir, row.i) if out_dir else None
         t0 = time.perf_counter()
+        psp = tr.start_span("grid.point", i=row.i, n=row.n, rho=row.rho)
         try:
             cfg = gcfg.sim_config(row)
             stamp = _stamp(cfg)
@@ -451,7 +474,12 @@ def _run_grid_local(gcfg: GridConfig, rows: list[_Row],
                       "failed: %s", row.i, row.n, row.rho, row.eps1,
                       row.eps2, e)
             failures.append((row.i, e))
+            psp.set(error=type(e).__name__)
             continue
+        else:
+            psp.set(cached=cached)
+        finally:
+            psp.end()
         dt = time.perf_counter() - t0
         details[row.i] = detail
         timings.append({"i": row.i, "n": row.n, "rho": row.rho,
@@ -503,13 +531,18 @@ def run_grid(gcfg: GridConfig) -> GridResult:
         out_dir.mkdir(parents=True, exist_ok=True)
     run = (_run_grid_bucketed if gcfg.backend == "bucketed"
            else _run_grid_local)
-    by_i, timings, failures = run(gcfg, _rows(design), master, out_dir, dev)
-    _raise_if_failed(failures, len(design["i"]))
-    detail_all = _assemble_details(design, by_i, gcfg.b)
-    summ_all = summarize_grid(detail_all)
-    if out_dir:
-        _persist_tables(out_dir, detail_all, summ_all)
-    return GridResult(detail_all, summ_all, _columns(timings))
+    # the root span of one grid run: the dispatch, fetch and point spans
+    # parent under it through the thread's span stack
+    with obs_trace.tracer().span("grid.run", backend=gcfg.backend,
+                                 points=len(design["i"]), b=gcfg.b):
+        by_i, timings, failures = run(gcfg, _rows(design), master, out_dir,
+                                      dev)
+        _raise_if_failed(failures, len(design["i"]))
+        detail_all = _assemble_details(design, by_i, gcfg.b)
+        summ_all = summarize_grid(detail_all)
+        if out_dir:
+            _persist_tables(out_dir, detail_all, summ_all)
+        return GridResult(detail_all, summ_all, _columns(timings))
 
 
 def _persist_tables(out_dir: Path, detail_all: dict, summ_all: dict) -> None:

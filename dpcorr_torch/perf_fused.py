@@ -128,7 +128,7 @@ def stage_split(run, stages: tuple, units: int) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         profiled_ms = timed()
-    ranges = set(sim.FUSED_STAGES + sim.GRID_STAGES)
+    ranges = set(stages) | set(sim.FUSED_STAGES + sim.GRID_STAGES)
     acts = {name: [] for name in stages}
     device = []   # (name, µs) of kernels and copies, not the ranges' spans
     for ev in prof.events():

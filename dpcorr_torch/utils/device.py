@@ -36,7 +36,7 @@ def per_rep(v, ndim: int):
     trailing axes hold the observations; a number passes through."""
     if not isinstance(v, torch.Tensor):
         return v
-    return v.reshape(*v.shape, *([1] * (ndim - v.dim())))
+    return v.reshape(tuple(v.shape) + (1,) * (ndim - v.dim()))
 
 
 def card_line() -> str:

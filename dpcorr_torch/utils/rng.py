@@ -10,8 +10,8 @@ gives under jax 0.9 with ``jax_threefry_partitionable=True`` (the
 default there), so the port and the JAX package can be handed the same
 keys (``dpcorr_torch.interop``) and draw the same noise. The
 ``jax.random`` samplers the estimators draw from are here too: ``split``,
-``bernoulli`` and ``permutation`` bit for bit, ``exponential`` and
-``normal`` within the stated tolerances.
+``bernoulli``, ``permutation``, ``randint`` and ``choice`` bit for bit,
+``exponential`` and ``normal`` within the stated tolerances.
 
 Representation: a key is an int64 tensor whose last axis holds the two
 uint32 words, shape ``(..., 2)``. torch's uint32 coverage is thin, so the
@@ -239,6 +239,40 @@ def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
                            stable=True).indices
         x = torch.gather(x, -1, order)
     return x
+
+
+_I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
+
+
+def randint(key: torch.Tensor, shape, minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` in its default
+    int32, bit for bit: split the key, draw a high and a low 32-bit word
+    per value, and reduce ((hi mod s)·((2¹⁶ mod s)² mod s) + lo mod s)
+    mod s with s = maxval − minval, all in uint32, so the sum wraps at
+    2³² as JAX's does (from s = 65,536 on). Bounds are Python ints inside
+    the int32 range; returns int64 values of shape
+    ``key.shape[:-1] + shape``."""
+    minval, maxval = int(minval), int(maxval)
+    if not (_I32_MIN <= minval <= _I32_MAX and _I32_MIN <= maxval <= _I32_MAX):
+        raise ValueError(f"randint bounds must lie in the int32 range, got "
+                         f"[{minval}, {maxval})")
+    span = max(maxval - minval, 1)  # maxval ≤ minval gives minval
+    mult = ((2**16 % span) ** 2 & _M32) % span  # the square wraps too
+    sub = split(key)
+    hi = random_bits(sub[..., 0, :], shape)
+    lo = random_bits(sub[..., 1, :], shape)
+    offset = (((hi % span) * mult) & _M32) + lo % span
+    # minval + offset in int32, wrapping as JAX's add does
+    return (minval + (offset & _M32) % span - _I32_MIN) % 2**32 + _I32_MIN
+
+
+def choice(key: torch.Tensor, n: int, shape) -> torch.Tensor:
+    """``jax.random.choice(key, n, shape, replace=True)`` with no ``p``:
+    ``randint(key, shape, 0, n)``, int64 indices."""
+    if int(n) <= 0:
+        raise ValueError(f"choice needs n > 0, got {n}")
+    return randint(key, shape, 0, n)
 
 
 def kernel_seeds(keys: torch.Tensor) -> torch.Tensor:

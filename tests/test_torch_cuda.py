@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from dpcorr_torch import grid, sim
+from dpcorr_torch import grid, hrs, perf_hrs, sim
 from dpcorr_torch.models.dgp import gen_bounded_factor
 from dpcorr_torch.ops import fused_ni
 from dpcorr_torch.utils import rng
@@ -264,3 +264,45 @@ def test_unfused_grid_card_agrees_with_cpu(cuda):
         ok &= np.isclose(card.detail_all[field], cpu.detail_all[field],
                          rtol=rtol, atol=1e-5)
     assert ok.mean() >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("span", [7, 19_433, 65_537, 2**31 - 1])
+def test_randint_card_equals_cpu(cuda, span):
+    keys = rng.rep_keys(rng.master_key(11), 32)
+    assert torch.equal(rng.randint(keys.to(cuda), (4096,), 0, span).cpu(),
+                       rng.randint(keys, (4096,), 0, span))
+
+
+@pytest.fixture(scope="module")
+def hrs_panel():
+    """The real panel's shape: n = 19,433 in wave 2."""
+    return perf_hrs.synthetic_panel(4)
+
+
+@pytest.mark.cuda
+def test_hrs_card_agrees_with_cpu(cuda, hrs_panel):
+    """Point estimates within 1e-5 (the λ/geometry block 1e-5 relative,
+    k and m equal); sweep and bootstrap rows within 1e-5 for at least 99%
+    of rows; the results come back from the card."""
+    card = hrs.point_estimates(cols=hrs_panel)
+    cpu = hrs.point_estimates(cols=hrs_panel, device="cpu")
+    assert card.std.age_z.device.type == "cuda"
+    for meth in ("ni", "int_"):
+        g, w = getattr(card, meth), getattr(cpu, meth)
+        assert list(g) == list(w)
+        for f, v in w.items():
+            tol = dict(abs=1e-5) if f in ("rho_hat", "ci_low", "ci_high") \
+                else dict(rel=1e-5)
+            assert g[f] == pytest.approx(v, **tol), (meth, f)
+    kw = dict(cols=hrs_panel, eps_grid=[0.25, 2.45], reps=16)
+    sweeps = [hrs.eps_sweep(**kw), hrs.eps_sweep(**kw, device="cpu")]
+    boots = [hrs.bootstrap(cols=hrs_panel, reps=64),
+             hrs.bootstrap(cols=hrs_panel, reps=64, device="cpu")]
+    for (a, b), fields in ((sweeps, hrs.SWEEP_FIELDS),
+                           (boots, hrs.BOOT_FIELDS)):
+        ok = np.ones(len(b.runs[fields[0]]), bool)
+        for f in fields:
+            ok &= np.isclose(a.runs[f], b.runs[f], rtol=0.0, atol=1e-5)
+        assert ok.mean() >= 0.99
+    assert boots[0].chunk == hrs.boot_chunk_size(64, on_card=True)

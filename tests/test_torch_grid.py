@@ -23,7 +23,7 @@ from dpcorr.io.rds_py import read_rds_table as jax_read_rds_table
 from dpcorr.utils import rng as jrng
 from dpcorr_torch import grid
 from dpcorr_torch import sim as sim_mod
-from dpcorr_torch.io.rds_py import read_rds_table
+from dpcorr_torch.io.rds import read_rds_table
 from dpcorr_torch.io.rds_write import write_rds_frame
 from dpcorr_torch.ops import fused_ni
 from dpcorr_torch.utils import rng
@@ -257,7 +257,7 @@ def test_persistence_and_resume(tmp_path):
     theirs = jax_read_rds_table(str(tmp_path / "detail_all.rds"))
     assert list(ours) == list(first.detail_all) == list(theirs)
     for col, v in first.detail_all.items():
-        np.testing.assert_array_equal(ours[col], v)
+        np.testing.assert_array_equal(ours[col].values, v)
         np.testing.assert_array_equal(theirs[col].values, v)
 
 
@@ -274,13 +274,17 @@ def test_rds_writer_round_trips_every_column_kind(tmp_path):
     ours = read_rds_table(path)
     theirs = jax_read_rds_table(path)
     assert list(ours) == list(table) == list(theirs)
-    np.testing.assert_array_equal(ours["x"], table["x"].astype(np.float64))
-    np.testing.assert_array_equal(ours["i"], table["i"])
-    np.testing.assert_array_equal(ours["big"], table["big"].astype(float))
-    np.testing.assert_array_equal(ours["b"], table["b"])
-    assert ours["s"] == ["NI", None, "é"] == theirs["s"].values
-    assert theirs["b"].kind == "logical" and theirs["big"].kind == "double"
-    np.testing.assert_array_equal(theirs["x"].values, ours["x"])
+    np.testing.assert_array_equal(ours["x"].values,
+                                  table["x"].astype(np.float64))
+    np.testing.assert_array_equal(ours["i"].values, table["i"])
+    np.testing.assert_array_equal(ours["big"].values,
+                                  table["big"].astype(float))
+    np.testing.assert_array_equal(ours["b"].values, table["b"])
+    assert ours["s"].values == ["NI", None, "é"] == theirs["s"].values
+    for name, kind in (("x", "double"), ("i", "integer"), ("big", "double"),
+                       ("b", "logical"), ("s", "string")):
+        assert ours[name].kind == theirs[name].kind == kind
+    np.testing.assert_array_equal(theirs["x"].values, ours["x"].values)
     with pytest.raises(TypeError, match="strings"):
         write_rds_frame(path, {"o": np.array([1, "a"], dtype=object)})
 

@@ -26,6 +26,7 @@ from dpcorr_torch.models.estimators.common import (
 )
 from dpcorr_torch.ops import mixquant, standardize
 from dpcorr_torch.ops.noise import clip, clip_sym
+from dpcorr_torch.utils import rng
 
 B, N = 16, 1024
 
@@ -113,3 +114,61 @@ def test_batch_means_sd_and_clip():
                                v.numpy().std(-1, ddof=1), rtol=1e-5)
     assert clip(v, -0.5, 0.25).max() == 0.25
     assert clip_sym(v, torch.tensor(0.5)).min() == -0.5
+
+
+# --------------------------------------------- real-data standardization ----
+#: (lo, hi) of the real-data variables (real-data-sims.R:260-270) and a
+#: pair that straddles 0, where the second moment's sensitivity is
+#: max(lo², hi²)
+BOUNDS = [(45.0, 90.0), (15.0, 35.0), (-3.0, 5.0)]
+
+
+def _real_data(seed, lo, hi, n=5000):
+    g = np.random.default_rng(seed)
+    mid, half = (lo + hi) / 2, (hi - lo) / 2
+    return (mid + half * 0.6 * g.standard_normal((4, n))).astype(np.float32)
+
+
+@pytest.mark.parametrize("lo,hi", BOUNDS)
+def test_dp_moments_match_jax(lo, hi):
+    """dp_mean and dp_second_moment within 1e-6 relative (f32 summation
+    order, the last ulp of log1p). dp_sd's sd = √(m2 − μ²) carries those
+    errors magnified by the cancellation: held to
+    1e-6 · (m2 + 2μ²) / (2 sd)."""
+    x = _real_data(3, lo, hi)
+    jk, pk = _keys(21)
+    jk, pk = jk[:4], pk[:4]
+    xt = torch.from_numpy(x)
+    for jfn, pfn in ((jstd.dp_mean, standardize.dp_mean),
+                     (jstd.dp_second_moment, standardize.dp_second_moment)):
+        want = np.asarray(jax.vmap(lambda k, v: jfn(k, v, lo, hi, 0.1))(
+            jk, jnp.asarray(x)))
+        got = pfn(pk, xt, lo, hi, 0.1).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=0.0)
+    j_mu, j_sd = (np.asarray(v) for v in jax.vmap(
+        lambda k, v: jstd.dp_sd(k, v, lo, hi, 0.1, 0.1))(jk, jnp.asarray(x)))
+    p_mu, p_sd = (v.numpy() for v in standardize.dp_sd(pk, xt, lo, hi, 0.1,
+                                                      0.1))
+    np.testing.assert_allclose(p_mu, j_mu, rtol=1e-6, atol=0.0)
+    m2 = j_sd.astype(np.float64) ** 2 + j_mu.astype(np.float64) ** 2
+    tol = 1e-6 * (m2 + 2 * j_mu.astype(np.float64) ** 2) / (2 * j_sd)
+    assert (np.abs(p_sd - j_sd) <= tol).all()
+
+
+def test_dp_sd_floors_at_zero_and_standardize_dp_matches_jax():
+    """A constant column has a negative noisy variance now and then: sd is
+    floored at exactly 0 (real-data-sims.R:82), and standardize_dp's sd
+    floor of 1e-8 keeps it finite; on the same moments the z-scores agree
+    within 1e-6 relative."""
+    x = np.full((64, 200), 60.0, np.float32)
+    pk = rng.rep_keys(rng.master_key(22), 64)
+    _, sd = standardize.dp_sd(pk, torch.from_numpy(x), 45.0, 90.0, 0.1, 0.1)
+    assert (sd >= 0).all() and (sd == 0).any()
+    z = _real_data(4, 45.0, 90.0, n=3000)[0]
+    for mu, s in ((60.5, 12.25), (58.0, 0.0)):
+        want = np.asarray(jstd.standardize_dp(jnp.asarray(z), mu, s, 45.0,
+                                              90.0))
+        got = standardize.standardize_dp(torch.from_numpy(z),
+                                         torch.tensor(mu), torch.tensor(s),
+                                         45.0, 90.0).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=0.0)

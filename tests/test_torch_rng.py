@@ -141,3 +141,46 @@ def test_kernel_seeds_are_two_int32_words_per_rep():
     assert s.dtype == torch.int32 and tuple(s.shape) == (4096, 2)
     assert (s < 0).any() and (s > 0).any()  # full 32-bit words
     assert len({tuple(r) for r in s.tolist()}) == 4096
+
+
+#: spans of randint/choice: the multiplier (2¹⁶ mod s)² wraps 32 bits from
+#: s = 65,537 on, and the offset sum wraps from s = 65,536 on
+SPANS = [1, 7, 19_433, 65_537, 2**31 - 1]
+
+
+@pytest.mark.parametrize("span", SPANS)
+@pytest.mark.parametrize("seed,design,name", ADDRESSES[::5])
+def test_randint_and_choice_bit_equal(span, seed, design, name):
+    jk, pk = _jax_key(seed, design, name), _port_key(seed, design, name)
+    want = np.asarray(jax.random.randint(jk, (4096,), 0, span))
+    np.testing.assert_array_equal(rng.randint(pk, (4096,), 0, span).numpy(),
+                                  want)
+    np.testing.assert_array_equal(
+        rng.choice(pk, span, (4096,)).numpy(),
+        np.asarray(jax.random.choice(jk, span, (4096,), replace=True)))
+
+
+@pytest.mark.parametrize("lo,hi", [(-5, 10), (3, 3), (10, 2),
+                                   (-2**31, 2**31 - 1), (-7, 2**31 - 1)])
+def test_randint_bounds_bit_equal(lo, hi):
+    """Negative bounds, an empty range (minval is returned) and the full
+    int32 range, whose result wraps in int32 as JAX's add does."""
+    jk, pk = _jax_key(2025, 2, "dgp"), _port_key(2025, 2, "dgp")
+    np.testing.assert_array_equal(
+        rng.randint(pk, (64, 3), lo, hi).numpy(),
+        np.asarray(jax.random.randint(jk, (64, 3), lo, hi)))
+
+
+def test_choice_over_a_key_batch_bit_equal():
+    """The bootstrap's draw: one resample of n rows per replication key,
+    as ``jax.vmap`` of ``jax.random.choice`` gives it."""
+    jk = jrng.rep_keys(jrng.master_key(4), 6)
+    pk = rng.rep_keys(rng.master_key(4), 6)
+    want = jax.vmap(lambda k: jax.random.choice(
+        jrng.stream(k, "hrs/boot/idx"), 19_433, (19_433,)))(jk)
+    got = rng.choice(rng.stream(pk, "hrs/boot/idx"), 19_433, (19_433,))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError, match="n > 0"):
+        rng.choice(pk, 0, (3,))
+    with pytest.raises(ValueError, match="int32"):
+        rng.randint(pk, (3,), 0, 2**31)
