@@ -97,7 +97,31 @@ north-star workload (n = 10⁴ Gaussian pair → NI sign-batch estimate + CI →
     (d) statistics gates: per method the mean CI length at ε = 2.45 is
         below that at ε = 0.25, and the mean ρ̂ over the three largest ε
         lies within 0.05 of the non-private ρ; the NI bootstrap's
-        [q025, q975] contains the non-private ρ.
+        [q025, q975] contains the non-private ρ;
+11. the R seam, the native RDS reader and the grid's fan-out, driven with
+    the launch counts set to 0 just before it and read just after (the
+    worker processes report their own):
+    (a) ``rbridge.run_design_rows`` over the v1 grid's 144 rows, B = 250,
+        bucketed, ``fused="auto"``: 18 K1 launches, the reference's column
+        order and dtypes, bit-equal to phase 9a's fused grid; on the
+        smallest bucket's 8 rows ``local``, ``sharded`` and bucketed
+        unfused bit-equal; ``run_hrs_sweep`` on phase 10a's panel file
+        (3 ε × 64 reps) equal to ``hrs.eps_sweep`` on the same keys;
+    (b) the native reader (``csrc/rdsread.cpp``, built in phase 2 with the
+        kernels): ``native_reader()`` loads it, and it and the Python
+        reader read phase 10a's 723,744-row panel in turns, every column
+        equal (values, NA positions, levels, labels), seconds of each;
+    (c) ``run_grid_multihost`` on the v1 grid (B = 250, bucketed, fused
+        auto) over two worker processes sharing the card, then as a gloo
+        group: each bit-equal to phase 9a's fused grid, the workers' K1
+        launches summing to 18, one rank merging; ``run_summary_sharded``
+        at the north-star point (2¹⁴ reps) against ``run_detail_sharded``:
+        the f32 sums and the mean fields within 1e-6 relative (the
+        variance, a difference of two sums, within 1e-3); seconds of each
+        arm beside the single-process grid's;
+    (d) the tables ``report --from`` reads (``detail_all.npz``,
+        ``summ_all.npz``, ``hrs_sweep_summary.npz``) reload equal; the
+        card's machine has no matplotlib, so nothing is drawn.
 
 Every failure raises. The last line is the device record; before it come
 the per-kernel JSON record and the card line. Run from the repository
@@ -218,6 +242,11 @@ HRS_SWEEP_EPS, HRS_SWEEP_REPS = 23, 200
 HRS_BOOT_REPS = 10_000
 HRS_PARITY_EPS = (0.25, 1.25, 2.45)
 HRS_PARITY_SWEEP_REPS, HRS_PARITY_BOOT_REPS = 64, 256
+
+#: phase 11: the fan-out's worker processes, and the sharded summary's
+#: replications at the north-star point
+FANOUT_HOSTS = 2
+SUMMARY_REPS = 1 << 14
 
 #: the JAX package's committed coverage at B = 1,015,808 for the sign
 #: acceptance points (dpcorr/acceptance.py:89-108), copied from
@@ -826,24 +855,21 @@ def rows_within(got: dict, want: dict, fields, atol: float = 1e-5) -> float:
     return float(ok.mean())
 
 
-def hrs_ingest(card: str):
-    """Phase 10a: the full-shape synthetic panel written as gzip RDS and
-    read back; returns the columns read."""
+def hrs_ingest(card: str, path: str):
+    """Phase 10a: the full-shape synthetic panel written as gzip RDS to
+    ``path`` and read back; returns the columns read."""
     import os
-    import tempfile
 
     from dpcorr_torch import hrs, perf_hrs
     from dpcorr_torch.io.rds import read_rds_table
 
-    with tempfile.TemporaryDirectory(prefix="dpcorr_smoke_hrs_") as d:
-        path = os.path.join(d, "hrs_long_panel.rds")
-        t0 = time.perf_counter()
-        perf_hrs.write_panel(path, perf_hrs.synthetic_panel(HRS_SEED))
-        write_s = time.perf_counter() - t0
-        size = os.path.getsize(path)
-        t0 = time.perf_counter()
-        cols = read_rds_table(path)
-        read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    perf_hrs.write_panel(path, perf_hrs.synthetic_panel(HRS_SEED))
+    write_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    cols = read_rds_table(path)
+    read_s = time.perf_counter() - t0
     miss = hrs.wave_missingness(cols)
     rows = len(cols["wave"].values)
     complete = int(miss["complete"][miss["wave"] == 2][0])
@@ -990,6 +1016,226 @@ def hrs_gates(card: str, sweep, boot) -> None:
         raise RuntimeError("HRS NI bootstrap interval misses rho_np")
 
 
+def same_table(got: dict, want: dict, label: str) -> None:
+    """Raise unless two tables hold the same columns, in order, bit for
+    bit (NaN where NaN) and of the same dtypes."""
+    import numpy as np
+
+    if list(got) != list(want):
+        raise RuntimeError(f"{label}: columns {list(got)} != {list(want)}")
+    for c, w in want.items():
+        g = got[c]
+        if g.dtype != w.dtype or not np.array_equal(
+                g, w, equal_nan=g.dtype.kind == "f"):
+            raise RuntimeError(f"{label}: column {c} differs")
+
+
+def r_seam(card: str, fused_res, panel_path: str, cols) -> int:
+    """Phase 11a: the R seam on the card; returns its K1 launches."""
+    import numpy as np
+
+    from dpcorr_torch import hrs, rbridge
+    from dpcorr_torch.grid import GridConfig
+    from dpcorr_torch.ops import fused_ni
+    from dpcorr_torch.sim import DETAIL_FIELDS
+
+    design = GridConfig().design_points()
+    rows = [{"n": int(n), "rho": float(r), "eps1": float(e1),
+             "eps2": float(e2)} for n, r, e1, e2 in zip(
+                 design["n"], design["rho"], design["eps1"], design["eps2"])]
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    detail = rbridge.run_design_rows(rows, b=GRID_B, backend="bucketed",
+                                     fused="auto")
+    dt = time.perf_counter() - t0
+    launches = fused_ni.KERNEL_LAUNCHES["fused_ni"]
+    order = ["repl", *DETAIL_FIELDS, "n", "rho_true", "eps1", "eps2"]
+    kinds = {c: ("i8" if c in ("repl", "n") else "f8"
+                 if c in ("rho_true", "eps1", "eps2") else "f4")
+             for c in order}
+    print(f"[{card}] 11a R seam: run_design_rows over {len(rows)} rows x "
+          f"{GRID_B} reps, bucketed, fused auto, in {dt:.3f} s; K1 launches "
+          f"{launches} (expected {V1_BUCKETS}); columns {list(detail)}",
+          flush=True)
+    if launches != V1_BUCKETS or list(detail) != order or any(
+            detail[c].dtype != np.dtype(k) for c, k in kinds.items()):
+        raise RuntimeError("R seam: wrong launches, column order or dtypes")
+    same_table(detail, fused_res.detail_all, "R seam against phase 9a")
+    first = [r for r in rows if (r["n"], r["eps1"], r["eps2"])
+             == (rows[0]["n"], rows[0]["eps1"], rows[0]["eps2"])]
+    arms = {name: rbridge.run_design_rows(first, b=GRID_B, backend=name)
+            for name in ("local", "sharded", "bucketed")}
+    for name in ("sharded", "bucketed"):
+        same_table(arms[name], arms["local"], f"R seam {name} against local")
+    print(f"[{card}] 11a {len(first)} rows of the smallest bucket: local, "
+          f"sharded and bucketed (fused off) bit-equal; R seam bit-equal to "
+          f"phase 9a's fused grid", flush=True)
+    summary = rbridge.run_hrs_sweep(HRS_PARITY_EPS,
+                                    reps=HRS_PARITY_SWEEP_REPS,
+                                    panel_path=panel_path)
+    want = hrs.eps_sweep(cols=cols, eps_grid=HRS_PARITY_EPS,
+                         reps=HRS_PARITY_SWEEP_REPS).summary
+    same_table(summary, want, "run_hrs_sweep against hrs.eps_sweep")
+    print(f"[{card}] 11a run_hrs_sweep ({len(HRS_PARITY_EPS)} eps x "
+          f"{HRS_PARITY_SWEEP_REPS} reps) from the panel file equals "
+          f"hrs.eps_sweep on the same keys", flush=True)
+    return launches
+
+
+def native_ingest(card: str, panel_path: str) -> dict:
+    """Phase 11b: the native reader against the Python reader on the
+    full-shape panel, in turns."""
+    import numpy as np
+
+    from dpcorr_torch.io import rds, rds_py
+    from dpcorr_torch.ops import _build
+
+    rds.native_reader()
+    secs = {"native": [], "python": []}
+    got = {}
+    for _ in range(2):
+        for name, read in (("native", rds.read_native),
+                           ("python", rds_py.read_rds_table)):
+            t0 = time.perf_counter()
+            got[name] = read(panel_path)
+            secs[name].append(time.perf_counter() - t0)
+    nat, py = got["native"], got["python"]
+    if list(nat) != list(py):
+        raise RuntimeError("native reader: other columns than Python's")
+    for name, want in py.items():
+        col = nat[name]
+        meta = ("kind", "levels", "labels", "label")
+        if any(getattr(col, a) != getattr(want, a) for a in meta):
+            raise RuntimeError(f"native reader: column {name} metadata")
+        if want.kind == "string":
+            ok = col.values == want.values
+        else:
+            ok = np.array_equal(col.values, want.values, equal_nan=True) \
+                and np.array_equal(np.isnan(col.values),
+                                   np.isnan(want.values))
+        if not ok:
+            raise RuntimeError(f"native reader: column {name} values")
+    rows = len(py["wave"].values)
+    print(f"[{card}] 11b native RDS reader: built in "
+          f"{_build.BUILD_SECONDS.get('rdsread', float('nan')):.3f} s "
+          f"(phase 2, beside the kernels); {rows} rows x {len(py)} columns "
+          f"equal to the Python reader (values, NA positions, levels, "
+          f"labels); read seconds in turns (host): native "
+          f"{json.dumps([round(t, 4) for t in secs['native']])}, Python "
+          f"{json.dumps([round(t, 4) for t in secs['python']])}", flush=True)
+    if rows != HRS_ROWS:
+        raise RuntimeError(f"native reader: {rows} rows")
+    return secs
+
+
+def fanout(card: str, fused_res, single_s: float, out_root: str) -> dict:
+    """Phase 11c: the v1 grid over two worker processes on the card, then
+    as a gloo group; returns each arm's seconds and worker launches."""
+    from dpcorr_torch.grid import GridConfig, run_grid
+    from dpcorr_torch.parallel import run_grid_multihost
+
+    arms = {}
+    for distributed in (False, True):
+        label = "gloo group" if distributed else "independent workers"
+        out_dir = f"{out_root}/{'gloo' if distributed else 'workers'}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_grid_multihost(
+            GridConfig(b=GRID_B, backend="bucketed", fused="auto",
+                       out_dir=out_dir),
+            n_hosts=FANOUT_HOSTS, distributed=distributed)
+        dt = time.perf_counter() - t0
+        worker_launches = sum(h["launches"] for h in res.hosts)
+        merged = sum(h["merged"] for h in res.hosts)
+        t0 = time.perf_counter()  # the parent's merge alone: cache hits
+        run_grid(GridConfig(b=GRID_B, backend="bucketed", fused="auto",
+                            out_dir=out_dir))
+        merge_s = time.perf_counter() - t0
+        print(f"[{card}] 11c fan-out, {label}: {FANOUT_HOSTS} workers on "
+              f"one card in {dt:.3f} s (single-process fused grid "
+              f"{single_s:.3f} s, phase 9a; the parent's merge from the "
+              f"cache alone {merge_s:.3f} s); worker reports "
+              f"{json.dumps(res.hosts)}", flush=True)
+        if len(res.hosts) != FANOUT_HOSTS or worker_launches != V1_BUCKETS \
+                or merged != (1 if distributed else 0):
+            raise RuntimeError(f"fan-out {label}: {worker_launches} worker "
+                               f"launches (expected {V1_BUCKETS}), {merged} "
+                               f"merged, {len(res.hosts)} reports")
+        same_table(res.detail_all, fused_res.detail_all,
+                   f"fan-out {label} against phase 9a")
+        arms[label] = {"seconds": dt,
+                       "worker_launches": worker_launches,
+                       "out_dir": out_dir, "result": res}
+    return arms
+
+
+def sharded_summary(card: str) -> None:
+    """Phase 11c: ``run_summary_sharded`` against the detail of
+    ``run_detail_sharded`` at the north-star point."""
+    import numpy as np
+
+    from dpcorr_torch.parallel import backend as sharded
+    from dpcorr_torch.sim import SimConfig, summarize
+    from dpcorr_torch.utils import rng
+
+    cfg = SimConfig(n=N, rho=RHO, eps1=EPS[0], eps2=EPS[1], b=SUMMARY_REPS,
+                    alpha=ALPHA, chunk_size=1 << 11)
+    key = rng.design_key(rng.master_key(device="cuda"), 4242)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summ = sharded.run_summary_sharded(cfg, key)
+    summ_s = time.perf_counter() - t0
+    sums = sharded.summary_sums(cfg, key)
+    t0 = time.perf_counter()
+    det = sharded.run_detail_sharded(cfg, key)
+    det_s = time.perf_counter() - t0
+    want = summarize(det.detail, RHO)
+    host = {k: v.cpu().numpy().astype(np.float64)
+            for k, v in det.detail.items()}
+    worst, var_gap = 0.0, 0.0
+    for meth in ("ni", "int"):
+        est = host[f"{meth}_hat"]
+        ref = {"sum_hat": est.sum(), "sum_hat2": (est * est).sum(),
+               "sum_se2": host[f"{meth}_se2"].sum(),
+               "sum_cover": host[f"{meth}_cover"].sum(),
+               "sum_len": host[f"{meth}_ci_len"].sum()}
+        for k, v in ref.items():
+            worst = max(worst, abs(sums[meth][k] / v - 1.0))
+        got, w = summ[meth.upper()], want[meth.upper()]
+        for k in ("mse", "coverage", "ci_length"):
+            worst = max(worst, abs(got[k] / w[k] - 1.0))
+        worst = max(worst, abs((got["bias"] + RHO) / (w["bias"] + RHO) - 1))
+        var_gap = max(var_gap, abs(got["var"] / w["var"] - 1.0))
+    print(f"[{card}] 11c run_summary_sharded at n={N}, {SUMMARY_REPS} reps: "
+          f"{summ_s:.3f} s (run_detail_sharded {det_s:.3f} s); sums and "
+          f"mean fields within {worst:.3g} relative of the detail's "
+          f"(<= 1e-6), variance {var_gap:.3g} (<= 1e-3); NI "
+          f"{json.dumps(summ['NI'])}", flush=True)
+    if worst > 1e-6 or var_gap > 1e-3:
+        raise RuntimeError("run_summary_sharded differs from the detail")
+
+
+def report_tables(card: str, fan, sweep) -> None:
+    """Phase 11d: the tables ``report --from`` reads reload equal."""
+    from dpcorr_torch import report
+
+    arm = fan["independent workers"]
+    report.write_hrs_tables(arm["out_dir"], sweep)
+    tables = report.read_tables(arm["out_dir"])
+    same_table(tables["detail"], arm["result"].detail_all,
+               "detail_all.npz reload")
+    same_table(tables["summ"], arm["result"].summ_all, "summ_all.npz reload")
+    same_table(tables["hrs_summ"], sweep.summary,
+               "hrs_sweep_summary.npz reload")
+    if tables["hrs_rho_np"] != sweep.rho_np:
+        raise RuntimeError("hrs_sweep.json: rho_np differs")
+    print(f"[{card}] 11d report --from tables reload equal: "
+          f"{sorted(report.TABLE_FILES.values())} and "
+          f"{report.HRS_META_FILE} (nothing drawn: no matplotlib here)",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -1008,7 +1254,10 @@ def main() -> int:
     from dpcorr_torch.utils import rng
     from dpcorr_torch.utils.device import card_line, time_cuda
 
+    import tempfile
+
     t_start = time.perf_counter()
+    work = tempfile.TemporaryDirectory(prefix="dpcorr_smoke_")
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
@@ -1017,8 +1266,9 @@ def main() -> int:
     # ---- 2. build every kernel from the checkout's sources
     t0 = time.perf_counter()
     libs = _build.build_all()
-    print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    each = {k: round(v, 2) for k, v in _build.BUILD_SECONDS.items()}
+    print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s, each "
+          f"{json.dumps(each)}", flush=True)
     log = _build.log_path("fused_ni")
     if not log.exists():
         raise RuntimeError(f"no compiler report beside this build of "
@@ -1186,12 +1436,43 @@ def main() -> int:
     # set to 0 just before it and read just after
     t10 = time.perf_counter()
     reset_launches()
-    cols = hrs_ingest(card)
+    panel_path = f"{work.name}/hrs_long_panel.rds"
+    cols = hrs_ingest(card, panel_path)
     sweep, boot = hrs_workloads(card, cols)
     hrs_card_against_cpu(card, cols, boot)
     hrs_gates(card, sweep, boot)
     read_launches("HRS")
     print(f"phase 10: {time.perf_counter() - t10:.1f} s", flush=True)
+
+    # ---- 11. the R seam, the native reader and the fan-out, driven with
+    # the launch counts set to 0 just before it and read just after; the
+    # workers' launches come in their reports
+    t11 = time.perf_counter()
+    parts = {}
+    t0 = time.perf_counter()
+    seam_launches = r_seam(card, v1["fused"], panel_path, cols)
+    parts["11a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native_ingest(card, panel_path)
+    parts["11b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fan = fanout(card, v1["fused"], v1["arms"]["auto"][-1]["seconds"],
+                 work.name)
+    sharded_summary(card)
+    parts["11c"] = time.perf_counter() - t0
+    report_tables(card, fan, sweep)
+    worker_launches = sum(a["worker_launches"] for a in fan.values())
+    phase11_launches = fused_ni.KERNEL_LAUNCHES["fused_ni"] + worker_launches
+    print(f"launches in the R seam, reader and fan-out run: parent "
+          f"{dict(fused_ni.KERNEL_LAUNCHES)}, workers {worker_launches}",
+          flush=True)
+    if seam_launches != V1_BUCKETS or phase11_launches != 3 * V1_BUCKETS:
+        raise RuntimeError(f"phase 11: {phase11_launches} K1 launches, "
+                           f"expected {3 * V1_BUCKETS}")
+    work.cleanup()
+    print(f"phase 11: {time.perf_counter() - t11:.1f} s "
+          f"{json.dumps({k: round(v, 1) for k, v in parts.items()})}",
+          flush=True)
     bucket_ms = [v["ms"] for v in buckets.values()]
 
     record = {"kernels": [{
@@ -1199,7 +1480,10 @@ def main() -> int:
         "route": "cuda",
         "source": "dpcorr_torch/csrc/fused_ni.cu",
         "replaces": "dpcorr/ops/pallas_ni.py:280",
-        "launches": launches["fused_ni"],
+        "launches": launches["fused_ni"] + phase11_launches,
+        "main_path_launches": launches["fused_ni"],
+        "r_seam_launches": seam_launches,
+        "fanout_worker_launches": worker_launches,
         "max_abs_err": max(worst_err, *(v["max_abs_err"]
                                         for v in buckets.values())),
         "ms": ms,

@@ -10,22 +10,26 @@ Counterpart of the simulation commands of ``python -m dpcorr``:
 - ``hrs-sweep``   HRS ε-sweep (real-data-sims.R:342-448), tables only
 - ``stress``      stress-scale streaming run (BASELINE.md config 5)
 - ``acceptance``  the B ≥ 10⁶ coverage campaign (``dpcorr_torch.acceptance``)
+- ``report``      the paper's figures from the tables a finished ``--out``
+  directory holds (``dpcorr_torch.report``)
 
-Every command runs on the card (``--device cuda``, the default) and
-raises without one unless ``--device cpu`` is given. Grids persist
-per-design-point ``.npz`` caches and the merged tables
+Every command but ``report`` runs on the card (``--device cuda``, the
+default) and raises without one unless ``--device cpu`` is given. Grids
+persist per-design-point ``.npz`` caches and the merged tables
 (``detail_all.npz``, ``summ_all.npz``, ``detail_all.rds``) into
-``--out`` and resume from them; they draw no figures. The HRS commands
-read the panel at ``dpcorr_torch.hrs.DEFAULT_PANEL`` and raise when it is
-not there; ``hrs-sweep --out`` writes ``hrs_sweep_runs.npz`` and
-``hrs_sweep_summary.npz``.
+``--out`` and resume from them; they draw no figures (``report --from
+DIR`` draws them where matplotlib is installed). ``--n-hosts k`` fans a
+grid out over k worker processes (``dpcorr_torch.parallel.multihost``),
+``--distributed`` makes them a gloo group. The HRS commands read the
+panel at ``dpcorr_torch.hrs.DEFAULT_PANEL`` and raise when it is not
+there; ``hrs-sweep --out`` writes ``hrs_sweep_runs.npz``,
+``hrs_sweep_summary.npz`` and ``hrs_sweep.json`` (its non-private ρ).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import os
 import time
 
 import numpy as np
@@ -98,22 +102,59 @@ def _format_table(table: dict) -> str:
     return "\n".join(lines)
 
 
-def _run_grid(gcfg):
+def _grid_devices(args, dev):
+    """The sharded backends' devices: ``--local-devices`` CPU entries
+    under ``--device cpu``; on the card every visible card, and
+    ``--local-devices`` must name that count."""
+    import torch
+
+    from dpcorr_torch.parallel.mesh import rep_devices
+
+    if args.local_devices is not None and dev.type == "cuda" and \
+            args.local_devices != torch.cuda.device_count():
+        raise ValueError(f"--local-devices {args.local_devices} differs "
+                         f"from the {torch.cuda.device_count()} visible "
+                         f"cards; it sets the CPU device list's width")
+    if "sharded" not in args.backend:
+        return None
+    return rep_devices(args.local_devices, device=dev)
+
+
+def _run_grid(args, gcfg):
+    """One grid run through ``run_grid``, or with ``--n-hosts`` > 1
+    through ``run_grid_multihost``, the entry points the R seam uses."""
     from dpcorr_torch.grid import run_grid
 
+    devices = _grid_devices(args, gcfg.device)
     t0 = time.perf_counter()
-    res = run_grid(gcfg)
+    if args.n_hosts > 1:
+        from dpcorr_torch.parallel import run_grid_multihost
+
+        res = run_grid_multihost(gcfg, n_hosts=args.n_hosts,
+                                 distributed=args.distributed,
+                                 local_device_count=args.local_devices)
+    elif args.distributed:
+        raise ValueError("--distributed needs --n-hosts >= 2")
+    else:
+        res = run_grid(gcfg, devices)
     dt = time.perf_counter() - t0
     reps = len(res.detail_all["repl"])
     print(f"grid: {reps} replicate rows in {dt:.1f}s "
-          f"({reps / dt:.0f} reps/sec incl. build)")
+          f"({reps / dt:.0f} reps/sec incl. build), backend "
+          f"{gcfg.backend}, fused {gcfg.fused}")
+    for h in res.hosts:
+        print(f"host {h['host_id']}/{h['process_count']}: {h['points']} "
+              f"points, K1 launches {h['launches']}, merged {h['merged']}")
     print(_format_table(res.summ_all))
     if gcfg.out_dir:
         print(f"tables: {gcfg.out_dir}/detail_all.npz, summ_all.npz, "
-              f"detail_all.rds (no figures)")
+              f"detail_all.rds (no figures; draw them with report --from)")
 
 
 def _grid_kwargs(args) -> dict:
+    if args.n_hosts > 1 and not args.out:
+        raise ValueError("--n-hosts needs --out: the workers share its "
+                         "per-point cache")
     return dict(b=args.b or 250, seed=args.seed, backend=args.backend,
                 fused=args.fused, bucket_merge=args.bucket_merge,
                 out_dir=args.out, device=_device(args))
@@ -122,13 +163,13 @@ def _grid_kwargs(args) -> dict:
 def cmd_grid(args):
     from dpcorr_torch.grid import GridConfig
 
-    _run_grid(GridConfig(**_grid_kwargs(args)))
+    _run_grid(args, GridConfig(**_grid_kwargs(args)))
 
 
 def cmd_grid_subg(args):
     from dpcorr_torch.grid import GridConfig
 
-    _run_grid(GridConfig(
+    _run_grid(args, GridConfig(
         n_grid=(2500, 4000, 6000, 9000, 12000),  # ver-cor-subG.R:245
         dgp="bounded_factor", use_subg=True, **_grid_kwargs(args)))
 
@@ -156,11 +197,11 @@ def cmd_hrs_sweep(args):
                           device=_device(args))
     print(_format_table(sweep.summary))
     if args.out:
-        os.makedirs(args.out, exist_ok=True)
-        np.savez(f"{args.out}/hrs_sweep_runs.npz", **sweep.runs)
-        np.savez(f"{args.out}/hrs_sweep_summary.npz", **sweep.summary)
-        print(f"tables: {args.out}/hrs_sweep_runs.npz, "
-              f"hrs_sweep_summary.npz (no figures)")
+        from dpcorr_torch.report import write_hrs_tables
+
+        paths = write_hrs_tables(args.out, sweep)
+        print(f"tables: {', '.join(str(p) for p in paths)} (no figures; "
+              f"draw them with report --from)")
 
 
 def cmd_stress(args):
@@ -179,7 +220,12 @@ def cmd_stress(args):
         stream_n_chunk=args.n_chunk,
         chunk_size=chunk)
     t0 = time.perf_counter()
-    summary = run_sim_one(cfg, device=dev).summary
+    if args.backend == "sharded":
+        from dpcorr_torch.parallel import run_summary_sharded
+
+        summary = run_summary_sharded(cfg, device=dev)
+    else:
+        summary = run_sim_one(cfg, device=dev).summary
     dt = time.perf_counter() - t0
     print(json.dumps({
         "n": cfg.n, "b": cfg.b, "family": args.family,
@@ -199,11 +245,22 @@ def cmd_acceptance(args):
     print(acceptance.dumps(table))
 
 
+def cmd_report(args):
+    """The paper's figures from a finished ``--out`` directory's tables,
+    with the JAX command's file names (host only; needs matplotlib)."""
+    from dpcorr_torch.report import render_from
+
+    paths = render_from(args.src, family=args.family)
+    print("figures:", *(str(p) for p in paths))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="dpcorr_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    backends_by_cmd = {"grid": ("local", "bucketed"),
-                       "grid-subg": ("local", "bucketed")}
+    from dpcorr_torch.grid import BACKENDS
+
+    backends_by_cmd = {"grid": BACKENDS, "grid-subg": BACKENDS,
+                       "stress": ("local", "sharded")}
     for name, fn in [("demo", cmd_demo), ("demo-subg", cmd_demo_subg),
                      ("grid", cmd_grid), ("grid-subg", cmd_grid_subg),
                      ("hrs", cmd_hrs), ("hrs-sweep", cmd_hrs_sweep),
@@ -223,6 +280,21 @@ def main(argv=None):
         if name == "acceptance":
             p.add_argument("--out-json", dest="out_json", default=None)
         if name in ("grid", "grid-subg"):
+            p.add_argument("--n-hosts", dest="n_hosts", type=int, default=1,
+                           help="fan the grid out over this many worker "
+                                "processes (needs --out; see "
+                                "dpcorr_torch.parallel.multihost)")
+            p.add_argument("--distributed", action="store_true",
+                           help="with --n-hosts: the workers form a "
+                                "torch.distributed gloo group (rank and "
+                                "size from the runtime, a barrier, rank-0 "
+                                "merge)")
+            p.add_argument("--local-devices", dest="local_devices",
+                           type=int, default=None,
+                           help="devices each process shards over for the "
+                                "sharded backends: CPU entries under "
+                                "--device cpu; on the card it must equal "
+                                "the visible card count")
             p.add_argument("--fused", default="off", choices=["off", "auto"],
                            help="run eligible (n, eps) buckets through the "
                                 "fused kernel (card + --backend bucketed "
@@ -233,6 +305,13 @@ def main(argv=None):
                                 "(one call per n, eps per replication; "
                                 "subG + --backend bucketed only)")
         p.set_defaults(fn=fn)
+    p = sub.add_parser("report")
+    p.add_argument("--from", dest="src", required=True,
+                   help="a finished grid, grid-subg or hrs-sweep --out "
+                        "directory; the figures are written there")
+    p.add_argument("--family", choices=["v1", "subg"], default="v1",
+                   help="the grid's figure family")
+    p.set_defaults(fn=cmd_report)
     args = ap.parse_args(argv)
     args.fn(args)
 

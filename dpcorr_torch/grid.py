@@ -8,7 +8,10 @@ ver-cor-subG.R:245-335) with:
 - per-design-point execution (``backend="local"``) or one call per
   (n, ε) bucket over the flattened (point × replication) axis
   (``backend="bucketed"``), with ρ, and under ``bucket_merge="eps"`` ε,
-  per replication;
+  per replication; ``"sharded"`` and ``"bucketed-sharded"`` split each
+  point's replications, or each bucket's flat axis, over the devices of
+  ``parallel.rep_devices`` (``dpcorr_torch.parallel.backend``), bit-equal
+  to their unsharded twins;
 - fused buckets (``fused="auto"``): the Gaussian sign pair of a bucket
   in one launch of the fused kernel on the card
   (``dpcorr_torch/ops/fused_ni.py``);
@@ -63,8 +66,10 @@ class GridConfig:
     """The design grid and its execution knobs.
 
     Defaults mirror the reference's v1 grid section (vert-cor.R:486-499).
-    ``backend``: "local" (one design point at a time) or "bucketed" (one
-    call per (n, ε) bucket). ``fused``: "off" or "auto", which sends each
+    ``backend``: "local" (one design point at a time), "sharded" (its
+    replications over the devices), "bucketed" (one call per (n, ε)
+    bucket) or "bucketed-sharded" (each bucket's flat point × replication
+    axis over the devices). ``fused``: "off" or "auto", which sends each
     bucket the fused kernel covers (:func:`_fused_bucket_ok`) through one
     kernel launch; its results come from the kernel's Philox stream, are
     statistically equivalent to the unfused body's, and are stamped
@@ -140,11 +145,14 @@ def _rows(design: Mapping[str, np.ndarray]) -> list[_Row]:
 
 @dataclasses.dataclass
 class GridResult:
-    """``detail_all``, ``summ_all``, ``timings``: dicts of numpy columns."""
+    """``detail_all``, ``summ_all``, ``timings``: dicts of numpy columns;
+    ``hosts``: the worker reports of a fanned-out run
+    (``parallel.run_grid_multihost``)."""
 
     detail_all: dict
     summ_all: dict
     timings: dict
+    hosts: list = dataclasses.field(default_factory=list)
 
 
 def _design_path(out_dir: Path, i: int) -> Path:
@@ -177,10 +185,13 @@ def _load_cached(path: Path | None, resume: bool, stamp: str):
     return None
 
 
+BACKENDS = ("local", "sharded", "bucketed", "bucketed-sharded")
+
+
 def validate_backend(backend: str) -> None:
-    if backend not in ("local", "bucketed"):
-        raise ValueError(f"backend must be 'local' or 'bucketed', got "
-                         f"{backend!r}")
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {', '.join(BACKENDS)}; "
+                         f"got {backend!r}")
 
 
 def validate_fused(fused: str, backend: str) -> None:
@@ -293,11 +304,12 @@ def _group(rows: list[_Row], merged: bool) -> list[list[_Row]]:
 
 
 def _dispatch(gcfg: GridConfig, bk: _Bucket, master: torch.Tensor,
-              dev) -> torch.Tensor:
+              dev, devices=None) -> torch.Tensor:
     """Enqueue one bucket's work without reading anything back: returns
     its (12, points · b) detail on the device. The keys of every point,
     ``rep_keys(design_key(master, i), b)`` concatenated, come from one
-    key-tree call for the whole bucket."""
+    key-tree call for the whole bucket. ``devices``: the shards of a
+    ``bucketed-sharded`` grid."""
     b, cfg, to_run = gcfg.b, bk.cfg, bk.to_run
     with sim_mod.stage("rep_keys"):
         design = rng.design_key(master, _on_device([r.i for r in to_run],
@@ -321,12 +333,18 @@ def _dispatch(gcfg: GridConfig, bk: _Bucket, master: torch.Tensor,
             _per_rep([r.eps2 for r in to_run], b, dev), bk.k_pad)
     else:
         cfg_norho = dataclasses.replace(cfg, rho=0.0, seed=0)
-        raw = sim_mod._run_detail_flat(cfg_norho, keys, rhos)
+        if gcfg.backend == "bucketed-sharded":
+            from dpcorr_torch.parallel.backend import run_detail_flat_sharded
+
+            raw = run_detail_flat_sharded(cfg_norho, keys, rhos, devices)
+        else:
+            raw = sim_mod._run_detail_flat(cfg_norho, keys, rhos)
     return torch.stack(raw)
 
 
 def _run_grid_bucketed(gcfg: GridConfig, rows: list[_Row],
-                       master: torch.Tensor, out_dir: Path | None, dev):
+                       master: torch.Tensor, out_dir: Path | None, dev,
+                       devices=None):
     """All design points of one (n, ε) bucket in one call over the
     flattened (point × replication) axis, ρ per replication, in three
     phases: scan every bucket's cache, dispatch every bucket without a
@@ -387,7 +405,8 @@ def _run_grid_bucketed(gcfg: GridConfig, rows: list[_Row],
         dsp = tr.start_span("grid.dispatch", n=bk.rows[0].n,
                             points=len(bk.rows))
         try:
-            raw = _dispatch(gcfg, bk, master, dev) if bk.to_run else None
+            raw = (_dispatch(gcfg, bk, master, dev, devices) if bk.to_run
+                   else None)
         except Exception as e:
             fail(bk.rows, "dispatch", e)
             dsp.set(error=type(e).__name__)
@@ -448,9 +467,11 @@ def _run_grid_bucketed(gcfg: GridConfig, rows: list[_Row],
 
 
 def _run_grid_local(gcfg: GridConfig, rows: list[_Row],
-                    master: torch.Tensor, out_dir: Path | None, dev):
-    """One design point at a time through ``run_sim_one``, each persisted
-    before the next runs."""
+                    master: torch.Tensor, out_dir: Path | None, dev,
+                    devices=None):
+    """One design point at a time through ``run_sim_one``, or with the
+    ``sharded`` backend ``parallel.run_detail_sharded`` over ``devices``,
+    each persisted before the next runs."""
     details, timings, failures = {}, [], []
     tr = obs_trace.tracer()
     for row in rows:
@@ -463,9 +484,15 @@ def _run_grid_local(gcfg: GridConfig, rows: list[_Row],
             detail = _load_cached(path, gcfg.resume, stamp)
             cached = detail is not None
             if not cached:
-                res = sim_mod.run_sim_one(cfg, key=rng.design_key(master,
-                                                                  row.i),
-                                          device=dev)
+                key = rng.design_key(master, row.i)
+                if gcfg.backend == "sharded":
+                    from dpcorr_torch.parallel.backend import (
+                        run_detail_sharded,
+                    )
+
+                    res = run_detail_sharded(cfg, key=key, devices=devices)
+                else:
+                    res = sim_mod.run_sim_one(cfg, key=key, device=dev)
                 detail = {k: v.cpu().numpy() for k, v in res.detail.items()}
                 if path is not None:
                     np.savez(path, config_stamp=stamp, **detail)
@@ -513,30 +540,55 @@ def _assemble_details(design: Mapping[str, np.ndarray], by_i: dict,
     return out
 
 
-def run_grid(gcfg: GridConfig) -> GridResult:
-    """Run the whole grid; returns replicate-level and grouped summaries.
-
-    Per-point keys fold the design index into the master key, the
-    counterpart of the reference's ``seed = 1e6 + i`` (vert-cor.R:531).
-    """
+def validate_config(gcfg: GridConfig) -> None:
+    """Every knob's fail-fast check, before any work is dispatched."""
     validate_backend(gcfg.backend)
     validate_fused(gcfg.fused, gcfg.backend)
     validate_bucket_merge(gcfg.bucket_merge, gcfg.backend, gcfg.use_subg,
                           gcfg.eps_pairs)
+
+
+def grid_devices(gcfg: GridConfig, devices=None):
+    """The shards of a sharded backend: ``devices`` as given, else every
+    card, or one CPU entry under ``device="cpu"``; None for the other
+    backends."""
+    if "sharded" not in gcfg.backend:
+        return None
+    from dpcorr_torch.parallel.mesh import rep_devices
+
+    return devices or rep_devices(device=gcfg.device)
+
+
+def run_rows(gcfg: GridConfig, rows: list[_Row], master: torch.Tensor,
+             out_dir: Path | None, dev, devices=None):
+    """``rows`` through the grid's backend: returns (detail by design
+    index, timings, failures)."""
+    run = (_run_grid_bucketed if gcfg.backend.startswith("bucketed")
+           else _run_grid_local)
+    return run(gcfg, rows, master, out_dir, dev, grid_devices(gcfg, devices))
+
+
+def run_grid(gcfg: GridConfig, devices=None) -> GridResult:
+    """Run the whole grid; returns replicate-level and grouped summaries.
+
+    Per-point keys fold the design index into the master key, the
+    counterpart of the reference's ``seed = 1e6 + i`` (vert-cor.R:531).
+    ``devices``: the shards of the sharded backends (default: every card,
+    or one CPU entry under ``device="cpu"``).
+    """
+    validate_config(gcfg)
     dev = resolve_device(gcfg.device)
     design = gcfg.design_points()
     master = rng.master_key(gcfg.seed, dev)
     out_dir = Path(gcfg.out_dir) if gcfg.out_dir else None
     if out_dir:
         out_dir.mkdir(parents=True, exist_ok=True)
-    run = (_run_grid_bucketed if gcfg.backend == "bucketed"
-           else _run_grid_local)
     # the root span of one grid run: the dispatch, fetch and point spans
     # parent under it through the thread's span stack
     with obs_trace.tracer().span("grid.run", backend=gcfg.backend,
                                  points=len(design["i"]), b=gcfg.b):
-        by_i, timings, failures = run(gcfg, _rows(design), master, out_dir,
-                                      dev)
+        by_i, timings, failures = run_rows(gcfg, _rows(design), master,
+                                           out_dir, dev, devices)
         _raise_if_failed(failures, len(design["i"]))
         detail_all = _assemble_details(design, by_i, gcfg.b)
         summ_all = summarize_grid(detail_all)

@@ -229,25 +229,7 @@ class _Reader:
             window *= 4
         at, ln = at[:n], ln[:n]
         self.pos = start + int(ends[n - 1])
-        return self._decode_run(start + at + 8, ln)
-
-    def _decode_run(self, offs: np.ndarray, lens: np.ndarray) -> list:
-        """Strings at byte offsets ``offs`` with lengths ``lens`` (−1 for
-        NA_character_): their bytes gathered into one NUL-separated blob
-        (R strings hold no NUL), decoded once in the header's encoding
-        and split."""
-        k = np.maximum(lens, 0)
-        total = int(k.sum())
-        first = np.cumsum(k) - k            # each string's first byte
-        owner = np.repeat(np.arange(len(k)), k)
-        within = np.arange(total) - first[owner]
-        blob = np.zeros(total + len(k), np.uint8)
-        blob[first[owner] + owner + within] = self.u8[offs[owner] + within]
-        vals = blob[:-1].tobytes().decode(self.encoding,
-                                          "replace").split("\x00")
-        for i in np.flatnonzero(lens < 0).tolist():
-            vals[i] = None
-        return vals
+        return decode_strings(self.u8, start + at + 8, ln, self.encoding)
 
     def _pairlist(self, ptype: int, has_attr: bool, has_tag: bool) -> RObj:
         """Pairlist read as a Python list of (tag, value); attributes on the
@@ -313,6 +295,35 @@ class _Reader:
         raise ValueError(f"unsupported ALTREP class {cls!r}")
 
 
+def decode_strings(u8: np.ndarray, offs: np.ndarray, lens: np.ndarray,
+                   encoding: str = "utf-8") -> list:
+    """Strings at byte offsets ``offs`` of ``u8`` with lengths ``lens``
+    (−1 for NA_character_): their bytes gathered into one blob of
+    NUL-terminated records (R strings hold no NUL) for
+    :func:`split_strings`, which also splits the native reader's blobs
+    (``dpcorr_torch.io.rds``)."""
+    if not len(lens):
+        return []
+    k = np.maximum(lens, 0)
+    total = int(k.sum())
+    first = np.cumsum(k) - k            # each string's first byte
+    owner = np.repeat(np.arange(len(k)), k)
+    within = np.arange(total) - first[owner]
+    blob = np.zeros(total + len(k), np.uint8)
+    blob[first[owner] + owner + within] = u8[offs[owner] + within]
+    return split_strings(blob.tobytes(), lens < 0, encoding)
+
+
+def split_strings(blob: bytes, na: np.ndarray,
+                  encoding: str = "utf-8") -> list:
+    """A blob of NUL-terminated records, one per element (empty for NA),
+    as the column's strings: one decode, one split, None where ``na``."""
+    vals = blob[:-1].decode(encoding, "replace").split("\x00")
+    for i in np.flatnonzero(na).tolist():
+        vals[i] = None
+    return vals
+
+
 def _altrep_payload(state: RObj) -> RObj:
     """First element of an ALTREP wrapper's state.
 
@@ -351,9 +362,9 @@ def decode_int(arr: np.ndarray) -> np.ndarray:
     return out
 
 
-def read_rds(path: str) -> RObj:
-    """Read a .rds file (gzip-, bzip2- or xz-compressed, or plain) into an
-    :class:`RObj`. All three are ``saveRDS`` compress modes."""
+def decompressed(path: str) -> bytes:
+    """The serialized stream of a .rds file, gzip-, bzip2- or
+    xz-compressed (all three are ``saveRDS`` compress modes) or plain."""
     with open(path, "rb") as f:
         head = f.read(6)
     if head.startswith(b"\x1f\x8b"):
@@ -367,8 +378,12 @@ def read_rds(path: str) -> RObj:
     else:
         opener = open
     with opener(path, "rb") as f:
-        buf = f.read()
-    rd = _Reader(buf)
+        return f.read()
+
+
+def read_rds(path: str) -> RObj:
+    """Read a .rds file into an :class:`RObj`."""
+    rd = _Reader(decompressed(path))
     rd.header()
     return rd.item()
 

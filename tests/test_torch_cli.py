@@ -40,6 +40,14 @@ def test_demo_echoes_the_reference_config(capsys):
     ["stress", "--b", "2"],
     ["hrs"],
     ["hrs-sweep", "--b", "2"],
+    ["grid", "--b", "2", "--backend", "sharded"],
+    ["grid-subg", "--b", "2", "--backend", "bucketed-sharded",
+     "--local-devices", "2"],
+    ["grid", "--b", "2", "--backend", "bucketed", "--n-hosts", "2",
+     "--out", "unused"],
+    ["grid", "--b", "2", "--n-hosts", "2", "--distributed", "--out",
+     "unused"],
+    ["stress", "--b", "2", "--backend", "sharded"],
 ])
 def test_commands_raise_without_a_card(monkeypatch, argv):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -72,11 +80,18 @@ def test_stress_and_demo_subg_run_on_the_cpu(capsys):
                              "B": 2}
 
 
-def test_grid_flags_are_validated():
+def test_grid_flags_are_validated(tmp_path):
     with pytest.raises(SystemExit):
-        main(["grid", "--device", "cpu", "--backend", "sharded"])
+        main(["grid", "--device", "cpu", "--backend", "bogus"])
+    with pytest.raises(SystemExit):
+        main(["stress", "--device", "cpu", "--backend", "bucketed"])
     with pytest.raises(SystemExit):
         main(["grid", "--device", "tpu"])
+    with pytest.raises(ValueError, match="needs --out"):
+        main(["grid", "--device", "cpu", "--n-hosts", "2"])
+    with pytest.raises(ValueError, match="needs --n-hosts"):
+        main(["grid", "--device", "cpu", "--b", "2", "--distributed",
+              "--out", str(tmp_path)])
 
 
 #: the fields ``python -m dpcorr hrs`` prints (dpcorr/__main__.py:162-173)
@@ -138,3 +153,90 @@ def test_hrs_commands_raise_without_the_panel(cmd, tmp_path, monkeypatch):
     monkeypatch.setattr(hrs, "DEFAULT_PANEL", str(tmp_path / "none.rds"))
     with pytest.raises(FileNotFoundError, match="HRS panel not found"):
         main([cmd, "--device", "cpu"])
+
+
+def test_local_devices_must_match_the_cards(monkeypatch):
+    """On the card ``--local-devices`` must name the visible card count;
+    it raises before any work."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="differs from the 1 visible"):
+        main(["grid", "--b", "2", "--backend", "sharded",
+              "--local-devices", "2"])
+
+
+def _detail(out_dir):
+    with np.load(out_dir / "detail_all.npz") as z:
+        return {k: z[k] for k in z.files}
+
+
+def test_grid_backends_and_fan_out_agree(tmp_path, capsys):
+    """``--backend bucketed-sharded --local-devices 3`` and ``--n-hosts 2
+    --distributed`` reach the same grid as ``--backend bucketed``, bit for
+    bit, with the per-host lines printed."""
+    runs = {"bucketed": ["--backend", "bucketed"],
+            "sharded": ["--backend", "bucketed-sharded", "--local-devices",
+                        "3"],
+            "fan-out": ["--backend", "bucketed", "--n-hosts", "2",
+                        "--distributed"]}
+    out = {}
+    for name, flags in runs.items():
+        main(["grid", "--device", "cpu", "--b", "2", *flags, "--out",
+              str(tmp_path / name)])
+        out[name] = capsys.readouterr().out
+    assert "backend bucketed-sharded" in out["sharded"]
+    assert "host 0/2: 72 points, K1 launches 0, merged True" in out["fan-out"]
+    assert "host 1/2: 72 points, K1 launches 0, merged False" \
+        in out["fan-out"]
+    want = _detail(tmp_path / "bucketed")
+    for name in ("sharded", "fan-out"):
+        got = _detail(tmp_path / name)
+        for col, v in want.items():
+            np.testing.assert_array_equal(got[col], v, err_msg=(name, col))
+
+
+def test_report_from_a_finished_out_directory(panel, tmp_path, capsys):
+    """``report --from`` draws what ``grid --out`` and ``hrs-sweep --out``
+    wrote, under the JAX command's file names (``python -m dpcorr grid
+    --out`` and ``render_all``)."""
+    import pandas as pd
+
+    from dpcorr import report as jreport
+    from dpcorr_torch import report
+
+    out_dir = tmp_path / "v1"
+    main(["grid", "--device", "cpu", "--b", "2", "--backend", "bucketed",
+          "--out", str(out_dir)])
+    main(["hrs-sweep", "--device", "cpu", "--b", "2", "--out",
+          str(out_dir)])
+    assert not list(out_dir.glob("*.pdf"))
+    capsys.readouterr()
+    main(["report", "--from", str(out_dir)])
+    printed = capsys.readouterr().out
+    frames = {k: pd.DataFrame(v) for k, v in
+              report.read_tables(out_dir).items() if isinstance(v, dict)}
+    want = [p.name for p in jreport.render_all(
+        frames["detail"], frames["summ"], frames["hrs_summ"],
+        out_dir=tmp_path / "jax")]
+    assert want == ["fig1_mean_band_vs_rho.pdf",
+                    "fig2_width_coverage_vs_n.pdf", "fig3_mse_vs_n.pdf",
+                    "hrs_eps_sweep.pdf"]
+    assert printed.split()[1:] == [str(out_dir / n) for n in want]
+    assert all((out_dir / n).stat().st_size > 0 for n in want)
+    main(["report", "--from", str(out_dir), "--family", "subg"])
+    assert (out_dir / "subG_fig3_mse.pdf").exists()
+
+
+def test_stress_sharded_matches_local(capsys):
+    """``stress --backend sharded`` is the f32 partial sums of the same
+    replications: the summary within 1e-6 of the local run's."""
+    argv = ["stress", "--device", "cpu", "--n", "4096", "--n-chunk", "1024",
+            "--b", "4", "--family", "sign"]
+    out = {}
+    for backend in ("local", "sharded"):
+        main([*argv, "--backend", backend])
+        out[backend] = json.loads(capsys.readouterr().out)["summary"]
+    for meth in ("NI", "INT"):
+        for k in ("mse", "coverage", "ci_length"):
+            np.testing.assert_allclose(out["sharded"][meth][k],
+                                       out["local"][meth][k], rtol=1e-6)

@@ -306,3 +306,60 @@ def test_hrs_card_agrees_with_cpu(cuda, hrs_panel):
             ok &= np.isclose(a.runs[f], b.runs[f], rtol=0.0, atol=1e-5)
         assert ok.mean() >= 0.99
     assert boots[0].chunk == hrs.boot_chunk_size(64, on_card=True)
+
+
+ROWS = [{"n": 1000, "rho": r, "eps1": 1.0, "eps2": 1.0} for r in (0.0, 0.5)]
+
+
+@pytest.mark.cuda
+def test_r_seam_fused_bucket_and_backends_on_the_card(cuda):
+    """One fused bucket through the R bridge is one K1 launch; the
+    unfused backends are bit-equal to each other on the card."""
+    from dpcorr_torch import rbridge
+
+    fused_ni.KERNEL_LAUNCHES["fused_ni"] = 0
+    fused = rbridge.run_design_rows(ROWS, b=64, backend="bucketed",
+                                    fused="auto")
+    assert fused_ni.KERNEL_LAUNCHES["fused_ni"] == 1
+    assert np.isfinite(fused["ni_hat"]).all()
+    local = rbridge.run_design_rows(ROWS, b=64)
+    for backend in ("sharded", "bucketed"):
+        got = rbridge.run_design_rows(ROWS, b=64, backend=backend)
+        for col, v in local.items():
+            np.testing.assert_array_equal(got[col], v, err_msg=col)
+
+
+@pytest.mark.cuda
+def test_fan_out_workers_launch_k1_on_the_card(cuda, tmp_path):
+    """Two worker processes share the card; their reported K1 launches
+    cover every fused bucket once and the merge equals run_grid."""
+    from dpcorr_torch.parallel import run_grid_multihost
+
+    kw = dict(n_grid=(1000, 1500), rho_grid=(0.0, 0.5),
+              eps_pairs=((1.0, 1.0),), b=64, backend="bucketed",
+              fused="auto")
+    want = grid.run_grid(grid.GridConfig(**kw))
+    res = run_grid_multihost(grid.GridConfig(**kw, out_dir=str(tmp_path)),
+                             n_hosts=2)
+    assert sum(h["launches"] for h in res.hosts) == 2
+    for col, v in want.detail_all.items():
+        np.testing.assert_array_equal(res.detail_all[col], v, err_msg=col)
+
+
+@pytest.mark.cuda
+def test_native_reader_builds_and_agrees_on_the_cards_host(cuda, tmp_path):
+    from dpcorr_torch.io import rds, rds_py
+
+    cols = perf_hrs.synthetic_panel(9, 16 * 2000)
+    path = tmp_path / "panel.rds"
+    perf_hrs.write_panel(str(path), cols)
+    nat, py = rds.read_native(path), rds_py.read_rds_table(str(path))
+    assert list(nat) == list(py)
+    for name, want in py.items():
+        got = nat[name]
+        assert (got.kind, got.levels, got.labels, got.label) == \
+            (want.kind, want.levels, want.labels, want.label)
+        if want.kind == "string":
+            assert got.values == want.values
+        else:
+            np.testing.assert_array_equal(got.values, want.values)

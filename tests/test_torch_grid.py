@@ -228,7 +228,7 @@ def test_retired_and_unknown_knobs_raise():
         grid.run_grid(grid.GridConfig(**SIGN, backend="bucketed",
                                       fused="all", device="cpu"))
     with pytest.raises(ValueError, match="backend"):
-        grid.run_grid(grid.GridConfig(**SIGN, backend="sharded",
+        grid.run_grid(grid.GridConfig(**SIGN, backend="bogus",
                                       device="cpu"))
 
 

@@ -377,3 +377,148 @@ def test_both_readers_refuse_alike(tmp_path):
     for read in (rds_py.read_rds, jrds.read_rds):
         with pytest.raises(EOFError):
             read(str(path))
+
+
+# ---- the native reader (dpcorr_torch/csrc/rdsread.cpp) ----------------------
+
+#: bytes before the first item of a W stream: "X\n", four ints, "UTF-8"
+_HEADER = 2 + 4 * 4 + 5
+
+
+def _as_frame(name: str) -> bytes:
+    """A fixture as a table: frames as they are, a vector as the one
+    column ``v`` of a data.frame, a list as a column no reader takes."""
+    if name == "factor_frame":
+        return FIXTURES[name]
+    w = W()
+    w.data_frame([("v", lambda: w.out.extend(FIXTURES[name][_HEADER:]))])
+    return w.bytes()
+
+
+def _native_and_python(path):
+    """(native, port Python, JAX Python) tables of one file."""
+    return (rds.read_native(path), rds_py.read_rds_table(str(path)),
+            jrds.read_rds_table(str(path)))
+
+
+LIST_FIXTURES = ("list_of_long_strings_and_reals", "symbol_reference")
+
+
+@pytest.mark.parametrize("name", sorted(set(FIXTURES) - set(LIST_FIXTURES)))
+def test_native_reader_agrees_on_each_fixture(name, tmp_path):
+    path = tmp_path / f"{name}.rds"
+    path.write_bytes(gzip.compress(_as_frame(name)))
+    ours, py, theirs = _native_and_python(path)
+    assert list(ours) == list(py) == list(theirs)
+    for col in theirs:
+        _same_column(ours[col], theirs[col])
+        _same_column(py[col], theirs[col])
+
+
+@pytest.mark.parametrize("name", LIST_FIXTURES)
+def test_native_reader_refuses_list_columns_alike(name, tmp_path):
+    path = tmp_path / f"{name}.rds"
+    path.write_bytes(gzip.compress(_as_frame(name)))
+    with pytest.raises(ValueError, match="unsupported type 19"):
+        rds.read_native(path)
+    for read in (rds_py.read_rds_table, jrds.read_rds_table):
+        with pytest.raises(ValueError, match="unsupported type 19"):
+            read(str(path))
+
+
+@pytest.mark.parametrize("compress", [gzip.compress, bz2.compress,
+                                      lzma.compress, bytes])
+def test_native_reader_reads_each_compression(compress, tmp_path):
+    path = tmp_path / "frame.rds"
+    path.write_bytes(compress(FIXTURES["factor_frame"]))
+    ours, _, theirs = _native_and_python(path)
+    for name in theirs:
+        _same_column(ours[name], theirs[name])
+
+
+def test_native_reader_on_the_synthetic_panel(tmp_path):
+    cols = perf_hrs.synthetic_panel(8, 16 * 500)
+    path = tmp_path / "panel.rds"
+    perf_hrs.write_panel(str(path), cols)
+    ours, py, theirs = _native_and_python(path)
+    assert list(ours) == list(perf_hrs.COLUMNS)
+    for name in cols:
+        _same_column(ours[name], theirs[name])
+        _same_column(ours[name], py[name])
+
+
+def test_deferred_strings_print_numbers_as_python_does(tmp_path):
+    """The deferred_string expansion prints each number as the Python
+    readers do: integral values as integers, others in the shortest
+    round-trip digits, exponent form below 1e-4."""
+    nums = [0.1, 1e-05, 123.456, -2.5, 1e20, float("inf"), float("-inf"),
+            3.0, -0.0, 1.5e-07, 2500000000000000.5, 0.0001, None]
+    w = W()
+
+    def state():
+        w.flags(rds_py.LISTSXP)
+        w.realsxp(nums)
+        w.flags(rds_py.LISTSXP)
+        w.intsxp([0])
+        w.nil()
+
+    w.data_frame([("v", lambda: w.altrep("deferred_string", 16, state))])
+    path = tmp_path / "d.rds"
+    path.write_bytes(w.bytes())
+    ours, py, theirs = _native_and_python(path)
+    assert ours["v"].values == py["v"].values == theirs["v"].values
+    assert ours["v"].values[:3] == ["0.1", "1e-05", "123.456"]
+
+
+def test_read_rds_table_prefers_native(monkeypatch, tmp_path):
+    path = tmp_path / "frame.rds"
+    path.write_bytes(gzip.compress(FIXTURES["factor_frame"]))
+    calls = []
+    real = rds.read_native
+    monkeypatch.setattr(rds, "read_native",
+                        lambda p: calls.append(p) or real(p))
+    rds.read_rds_table(path)
+    assert calls == [str(path)]
+    monkeypatch.setenv("DPCORR_NO_NATIVE", "1")
+    monkeypatch.setattr(rds, "read_native", lambda p: pytest.fail("native"))
+    got = rds.read_rds_table(path)
+    _same_column(got["cenreg"], jrds.read_rds_table(str(path))["cenreg"])
+
+
+def test_corrupt_file_raises_alike(tmp_path, caplog):
+    """The native reader refuses a cut stream; ``read_rds_table`` logs it,
+    falls back and raises what both Python readers raise."""
+    path = tmp_path / "cut.rds"
+    path.write_bytes(_as_frame("long_strings")[:-40])
+    with pytest.raises(ValueError, match="truncated RDS"):
+        rds.read_native(path)
+    with caplog.at_level("WARNING", logger="dpcorr_torch.io.rds"):
+        with pytest.raises(EOFError):
+            rds.read_rds_table(path)
+    assert "falling back" in caplog.text
+    with pytest.raises(EOFError):
+        jrds.read_rds_table(str(path))
+
+
+def test_build_failure_falls_back_with_a_warning(monkeypatch, tmp_path,
+                                                 caplog):
+    path = tmp_path / "frame.rds"
+    path.write_bytes(gzip.compress(FIXTURES["factor_frame"]))
+    monkeypatch.setattr(rds, "_lib", None)
+    monkeypatch.setattr(rds, "_lib_error", RuntimeError("no compiler"))
+    with pytest.raises(RuntimeError, match="no compiler"):
+        rds.native_reader()
+    with caplog.at_level("WARNING", logger="dpcorr_torch.io.rds"):
+        got = rds.read_rds_table(path)
+    assert "unavailable" in caplog.text
+    _same_column(got["x"], jrds.read_rds_table(str(path))["x"])
+
+
+def test_native_build_is_digest_named():
+    from dpcorr_torch.ops import _build
+
+    assert _build.source_path("rdsread").suffix == ".cpp"
+    lib = _build.library_path("rdsread")
+    assert lib.parent == _build.BUILD_DIR and lib.name.startswith("rdsread-")
+    rds.native_reader()
+    assert lib.exists()

@@ -122,26 +122,49 @@ def test_pipeline_marks_its_stages():
         assert inside is None
 
 
-def _imports(path: pathlib.Path):
+def _imports(path: pathlib.Path, in_functions: bool = True):
+    """Modules ``path`` imports; with ``in_functions=False`` only those
+    imported outside any function body."""
     tree = ast.parse(path.read_text(), filename=str(path))
+    skip = set()
+    if not in_functions:
+        for fn in ast.walk(tree):
+            if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                skip.update(id(n) for n in ast.walk(fn))
     for node in ast.walk(tree):
+        if id(node) in skip:
+            continue
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.module:
             yield node.module
 
 
+#: the one exemption: the figures import matplotlib inside the functions
+#: that draw (the card's machine has none and draws nothing)
+FIGURES = REPO / "dpcorr_torch" / "report.py"
+
+
 def test_port_imports_neither_jax_nor_dpcorr():
-    """Nor pandas or matplotlib, which the card's machine does not have."""
+    """Nor pandas or matplotlib, which the card's machine does not have;
+    ``report.py`` may import matplotlib inside a function only."""
     files = sorted((REPO / "dpcorr_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py",
+              REPO / "r" / "validate_bridge_torch_helper.py"]
     assert len(files) > 10
     assert REPO / "dpcorr_torch" / "grid.py" in files
+    assert FIGURES in files
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "dpcorr", "pandas",
-                               "matplotlib"), (path, mod)
+            assert top not in ("jax", "jaxlib", "dpcorr", "pandas"), \
+                (path, mod)
+            if path != FIGURES:
+                assert top != "matplotlib", (path, mod)
+        if path == FIGURES:
+            assert "matplotlib" in {m.split(".")[0] for m in _imports(path)}
+            assert "matplotlib" not in {
+                m.split(".")[0] for m in _imports(path, in_functions=False)}
 
 
 def test_entry_points_raise_without_a_device(monkeypatch):
