@@ -121,7 +121,38 @@ north-star workload (n = 10⁴ Gaussian pair → NI sign-batch estimate + CI →
         arm beside the single-process grid's;
     (d) the tables ``report --from`` reads (``detail_all.npz``,
         ``summ_all.npz``, ``hrs_sweep_summary.npz``) reload equal; the
-        card's machine has no matplotlib, so nothing is drawn.
+        card's machine has no matplotlib, so nothing is drawn;
+12. the online serving stack (``dpcorr_torch.serve``; no kernel of its
+    own: the estimators' torch ops, as the JAX package serves through
+    XLA), driven with the launch counts set to 0 just before it and read
+    just after (K1 must not launch):
+    (a) the exact engine in process: 4 families × 256 pinned requests at
+        n = 10⁴, ε = (1.0, 0.5), from 32 client threads through
+        ``InProcessClient`` (``max_batch`` 64, ``max_delay`` 5 ms):
+        every response bit-equal to the direct single call on the card,
+        mean flush size > 1; req/s and p50/p99 latency;
+    (b) the vector engine: 1024 ``ni_sign`` requests at n = 10⁴ ((a)'s
+        256 and 768 more), every lane within the registry's card
+        contract against the direct call (1e-5; lanes bit-equal and the
+        largest distance in ulps printed), and lanes at widths 2 and 5
+        within it against the same lanes at width 64; req/s, p50/p99;
+    (c) the HRS wave-2 width: 64 ``ni_sign`` and 64 ``int_sign`` requests
+        at n = 19,433 through (a)'s server, in the 32,768 n-bucket with
+        exact-n kernel keys, bit-equal to the direct call;
+    (d) the HTTP front end on port 0 with a warm set: ``/readyz`` 503
+        until it is resident, then 200; 64 of (a)'s requests through
+        ``HttpEstimateClient`` bit-equal to the direct call;
+        ``/healthz``, ``/stats`` and ``/metrics`` served and agreeing; an
+        over-budget request gets 403 and spends nothing; a full queue
+        (``max_queue`` 2) gets 429 with its charge refunded;
+    (e) the ledger and the trail: the spend equals Σ ``request_charges``
+        of the admitted requests, and the audit trail replays to the
+        ledger's state (in memory for (a)-(c), the JSONL file for (d));
+    (f) 16 requests per family through a CPU server and a card server:
+        within 1e-5 on ≥ 99% of them (phase 8a's tolerance);
+    (g) the cost of request-key derivation per admission, the launches
+        of one flush per engine and family (``torch.profiler``), and the
+        phase's seconds.
 
 Every failure raises. The last line is the device record; before it come
 the per-kernel JSON record and the card line. Run from the repository
@@ -136,8 +167,10 @@ import json
 import math
 import re
 import sys
+import threading
 import time
 
+import numpy as np
 import torch
 
 N, EPS, RHO, ALPHA = 10_000, (1.0, 1.0), 0.5, 0.05
@@ -247,6 +280,16 @@ HRS_PARITY_SWEEP_REPS, HRS_PARITY_BOOT_REPS = 64, 256
 #: replications at the north-star point
 FANOUT_HOSTS = 2
 SUMMARY_REPS = 1 << 14
+
+#: phase 12: the serving stack at the north-star width, the JAX package's
+#: load-generator ε pair (benchmarks/serve_load.py), and the HRS wave-2
+#: width
+SERVE_N, SERVE_EPS = 10_000, (1.0, 0.5)
+SERVE_FAMILIES = ("ni_sign", "int_sign", "ni_subg", "int_subg")
+SERVE_PER_FAMILY, SERVE_VECTOR_REQS, SERVE_CLIENTS = 256, 1024, 32
+SERVE_HRS_PER_FAMILY, SERVE_HTTP_REQS, SERVE_PARITY_PER_FAMILY = 64, 64, 16
+SERVE_MAX_BATCH, SERVE_MAX_DELAY_S = 64, 0.005
+SERVE_HRS_BUCKET = 32_768
 
 #: the JAX package's committed coverage at B = 1,015,808 for the sign
 #: acceptance points (dpcorr/acceptance.py:89-108), copied from
@@ -1236,6 +1279,442 @@ def report_tables(card: str, fan, sweep) -> None:
           flush=True)
 
 
+def serve_requests(family: str, count: int, n: int, seed0: int,
+                   **kw) -> list:
+    """``count`` pinned requests of one family: a ρ = 0.5 Gaussian pair of
+    length n per request, from numpy seeds ``seed0 + i`` (also each
+    request's pinned noise seed)."""
+    from dpcorr_torch.serve import EstimateRequest
+
+    out = []
+    for i in range(count):
+        z = np.random.default_rng(seed0 + i).standard_normal(
+            (2, n), dtype=np.float32)
+        y = (0.5 * z[0] + math.sqrt(0.75) * z[1]).astype(np.float32)
+        out.append(EstimateRequest(family, z[0], y, *SERVE_EPS,
+                                   seed=seed0 + i, **kw))
+    return out
+
+
+def drive(client, reqs: list, threads: int) -> tuple:
+    """Closed loop: ``threads`` client threads, each sending its share of
+    ``reqs`` one after another through ``client.estimate``. Returns the
+    responses as an (N, 3) float64 array, their server-side latencies
+    and the wall seconds."""
+    out = [None] * len(reqs)
+    errors = []
+
+    def worker(c):
+        try:
+            for i in range(c, len(reqs), threads):
+                out[i] = client.estimate(reqs[i], timeout=600)
+        except BaseException as e:  # re-raised on the driving thread
+            errors.append(e)
+    ts = [threading.Thread(target=worker, args=(c,)) for c in range(threads)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=900)
+    dt = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in ts) or any(r is None for r in out):
+        raise RuntimeError("serving drive: a client thread did not finish")
+    vals = np.array([[r.rho_hat, r.ci_low, r.ci_high] for r in out])
+    return vals, np.array([r.latency_s for r in out]), dt
+
+
+def direct_answers(reqs: list, device) -> np.ndarray:
+    """The reference: the port's direct single call on each request's
+    pinned key-tree address, (N, 3) float64."""
+    from dpcorr_torch.models.estimators.registry import serving_entry
+    from dpcorr_torch.serve import pinned_request_key
+    from dpcorr_torch.utils import rng
+
+    master = rng.master_key(rng.MASTER_SEED)
+    singles, out = {}, []
+    for r in reqs:
+        single = singles.get(r.family)
+        if single is None:
+            single = singles[r.family] = serving_entry(
+                r.family, r.eps1, r.eps2, device=device)
+        out.append(torch.stack(single(
+            pinned_request_key(master, r, r.seed), torch.from_numpy(r.x),
+            torch.from_numpy(r.y))))
+    return torch.stack(out).cpu().double().numpy()
+
+
+def load_line(label: str, lat: np.ndarray, dt: float) -> dict:
+    from dpcorr_torch.serve.stats import percentiles
+
+    p = percentiles(lat.tolist())
+    line = {"requests": len(lat), "seconds": dt, "req_per_s": len(lat) / dt,
+            "p50_ms": p["p50"] * 1e3, "p99_ms": p["p99"] * 1e3}
+    print(f"{label}: {json.dumps(line)}", flush=True)
+    return line
+
+
+def bit_equal(label: str, got: np.ndarray, want: np.ndarray) -> None:
+    bad = np.flatnonzero(~(got == want).all(1))
+    print(f"{label}: {len(got) - len(bad)} of {len(got)} responses "
+          f"bit-equal to the direct call", flush=True)
+    if len(bad):
+        raise RuntimeError(f"{label}: rows {bad[:8].tolist()} differ from "
+                           f"the direct call: {got[bad[0]]} vs "
+                           f"{want[bad[0]]}")
+
+
+def vector_contract(label: str, got: np.ndarray, want: np.ndarray) -> dict:
+    """The vector engine's card contract (estimators.registry): within
+    1e-5 of the reference on ρ̂ and the CI ends, beyond that on at most
+    1% of lanes (a centered value within an ulp of 0 flipping sign).
+    Returns the lanes bit-equal and the largest distances in f32 ulps."""
+    d = np.abs(got - want)
+    bad = ~(d <= 1e-5).all(1)
+    ulps = d / np.spacing(np.abs(want).astype(np.float32))
+    out = {"lanes": len(got), "bit_equal": int((got == want).all(1).sum()),
+           "rho_bit_equal": int((got[:, 0] == want[:, 0]).sum()),
+           "max_abs": float(d[~bad].max(initial=0.0)),
+           "max_ulps_rho": float(ulps[~bad, 0].max(initial=0.0)),
+           "max_ulps_ci": float(ulps[~bad, 1:].max(initial=0.0)),
+           "beyond_1e-5": int(bad.sum())}
+    print(f"{label}: {json.dumps(out)}", flush=True)
+    if bad.sum() > 0.01 * len(got):
+        raise RuntimeError(f"{label}: {int(bad.sum())} lanes beyond 1e-5 "
+                           f"of the reference (> 1%)")
+    return out
+
+
+def ledger_matches(label: str, srv, admitted: list, events) -> None:
+    """(e): the spend equals Σ request_charges of the admitted requests,
+    and the audit trail replays to the ledger's state."""
+    from dpcorr_torch.obs.audit import replay
+    from dpcorr_torch.serve import request_charges
+
+    want: dict = {}
+    for r in admitted:
+        for party, eps in request_charges(r).items():
+            want[party] = want.get(party, 0.0) + eps
+    parties = srv.ledger.snapshot()["parties"]
+    spent = {p: v["spent"] for p, v in parties.items()}
+    replayed = {p: v for p, v in replay(events).items() if v or p in spent}
+    print(f"{label}: ledger spend {json.dumps(spent)}; Σ request_charges "
+          f"{json.dumps(want)}; trail replay {json.dumps(replayed)}",
+          flush=True)
+    for p in set(want) | set(spent):
+        if not math.isclose(spent.get(p, 0.0), want.get(p, 0.0),
+                            rel_tol=1e-12, abs_tol=1e-9):
+            raise RuntimeError(f"{label}: party {p} spent "
+                               f"{spent.get(p)} != Σ charges {want.get(p)}")
+        if replayed.get(p, 0.0) != spent.get(p, 0.0):
+            raise RuntimeError(f"{label}: the audit trail replays party {p}"
+                               f" to {replayed.get(p)}, ledger "
+                               f"{spent.get(p)}")
+
+
+def launches_of(fn) -> int:
+    """CUDA activities (kernels, copies, sets) ``torch.profiler`` records
+    for one call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type.name == "CUDA")
+
+
+def serving_exact(card: str, device, work: str) -> dict:
+    """Phase 12 (a), (c), (e) and (g) on one exact-engine server."""
+    from dpcorr_torch.obs.audit import AuditTrail
+    from dpcorr_torch.serve import (
+        DpcorrServer,
+        InProcessClient,
+        KernelCache,
+        pinned_request_key,
+    )
+    from dpcorr_torch.serve.request import bucket_key, kernel_key
+    from dpcorr_torch.utils import rng
+
+    reqs = [r for j, fam in enumerate(SERVE_FAMILIES)
+            for r in serve_requests(fam, SERVE_PER_FAMILY, SERVE_N,
+                                    1_000_000 * (j + 1))]
+    hrs = [r for j, fam in enumerate(("ni_sign", "int_sign"))
+           for r in serve_requests(fam, SERVE_HRS_PER_FAMILY, HRS_COMPLETE,
+                                   7_000_000 + 100_000 * j)]
+    master = rng.master_key(rng.MASTER_SEED)
+    t0 = time.perf_counter()
+    for r in reqs:
+        pinned_request_key(master, r, r.seed)
+    key_us = (time.perf_counter() - t0) / len(reqs) * 1e6
+    print(f"[{card}] 12g request-key derivation on the host: {key_us:.1f} "
+          f"µs per admission at n={SERVE_N} (SHA-256 of the request and ten "
+          f"fold_ins in Python ints; no device launch)", flush=True)
+    trail = AuditTrail()
+    srv = DpcorrServer(budget=1e12, max_batch=SERVE_MAX_BATCH,
+                       max_delay_s=SERVE_MAX_DELAY_S, audit=trail,
+                       device=device)
+    try:
+        got, lat, dt = drive(InProcessClient(srv), reqs, SERVE_CLIENTS)
+        snap = srv.stats_snapshot()
+        line = load_line(f"[{card}] 12a exact engine, {len(reqs)} requests "
+                         f"(4 families), {SERVE_CLIENTS} clients", lat, dt)
+        line["mean_flush"] = snap["batch_fill_ratio"]
+        line["flush_size_max"] = snap["flush_size_max"]
+        print(f"[{card}] 12a flushes {snap['batches_flushed']}, mean flush "
+              f"size {snap['batch_fill_ratio']:.2f}, largest "
+              f"{snap['flush_size_max']}", flush=True)
+        if not snap["batch_fill_ratio"] > 1.0:
+            raise RuntimeError("12a: mean flush size <= 1, no coalescing")
+        t0 = time.perf_counter()
+        want = direct_answers(reqs, device)
+        line["direct_s"] = time.perf_counter() - t0
+        bit_equal(f"[{card}] 12a exact engine", got, want)
+        ni = [i for i, r in enumerate(reqs) if r.family == "ni_sign"]
+        ni_reqs, ni_want = [reqs[i] for i in ni], want[ni]
+        # (c) the HRS wave-2 width through the same server
+        if {bucket_key(r).n_pad for r in hrs} != {SERVE_HRS_BUCKET}:
+            raise RuntimeError(f"12c: n = {HRS_COMPLETE} did not land in "
+                               f"the {SERVE_HRS_BUCKET} n-bucket")
+        hgot, hlat, hdt = drive(InProcessClient(srv), hrs, SERVE_CLIENTS)
+        line["hrs"] = load_line(f"[{card}] 12c n={HRS_COMPLETE}, "
+                                f"{len(hrs)} requests", hlat, hdt)
+        bit_equal(f"[{card}] 12c exact engine at n={HRS_COMPLETE}", hgot,
+                  direct_answers(hrs, device))
+        ns = {e["n"] for e in srv.cache.manifest()
+              if e["family"] in ("ni_sign", "int_sign")}
+        if HRS_COMPLETE not in ns:
+            raise RuntimeError(f"12c: no exact-n kernel key at n = "
+                               f"{HRS_COMPLETE} in the cache ({ns})")
+        ledger_matches(f"[{card}] 12e exact server", srv, reqs + hrs,
+                       trail.events())
+        # (g) launches of one flush: a 64-lane vector call and a 4-lane
+        # exact call per family (exact launches grow with the lanes)
+        launches = {}
+        for fam in SERVE_FAMILIES:
+            fr = [r for r in reqs if r.family == fam][:SERVE_MAX_BATCH]
+            keys = torch.stack([pinned_request_key(master, r, r.seed)
+                                for r in fr])
+            xs = np.stack([r.x for r in fr])
+            ys = np.stack([r.y for r in fr])
+            kk = kernel_key(fr[0])
+            vec = KernelCache(mode="vector", device=device)
+            vec.run_batch(kk, keys, xs, ys)
+            launches[fam] = {
+                "vector_64": launches_of(
+                    lambda: vec.run_batch(kk, keys, xs, ys)),
+                "exact_4": launches_of(
+                    lambda: srv.cache.run_batch(kk, keys[:4], xs[:4],
+                                                ys[:4]))}
+        print(f"[{card}] 12g launches per flush (CUDA activities): "
+              f"{json.dumps(launches)}", flush=True)
+        line["launches"] = launches
+        line["key_us"] = key_us
+    finally:
+        srv.close()
+    return line, ni_reqs, ni_want
+
+
+def serving_vector(card: str, device, ni_reqs: list,
+                   ni_want: np.ndarray) -> dict:
+    """Phase 12 (b): the vector engine, on (a)'s ``ni_sign`` requests (whose
+    direct answers (a) computed) and new ones up to 1024."""
+    from dpcorr_torch.serve import DpcorrServer, InProcessClient, KernelCache
+    from dpcorr_torch.serve import pinned_request_key
+    from dpcorr_torch.serve.request import kernel_key
+    from dpcorr_torch.utils import rng
+
+    new = serve_requests("ni_sign", SERVE_VECTOR_REQS - len(ni_reqs),
+                         SERVE_N, 20_000_000)
+    reqs = list(ni_reqs) + new
+    srv = DpcorrServer(budget=1e12, max_batch=SERVE_MAX_BATCH,
+                       max_delay_s=SERVE_MAX_DELAY_S, batch_mode="vector",
+                       device=device)
+    try:
+        got, lat, dt = drive(InProcessClient(srv), reqs, SERVE_CLIENTS)
+        snap = srv.stats_snapshot()
+    finally:
+        srv.close()
+    line = load_line(f"[{card}] 12b vector engine, {len(reqs)} ni_sign "
+                     f"requests, {SERVE_CLIENTS} clients", lat, dt)
+    line["mean_flush"] = snap["batch_fill_ratio"]
+    print(f"[{card}] 12b flushes {snap['batches_flushed']}, mean flush size "
+          f"{snap['batch_fill_ratio']:.2f}", flush=True)
+    t0 = time.perf_counter()
+    want = np.concatenate([ni_want, direct_answers(new, device)])
+    line["direct_s"] = time.perf_counter() - t0
+    line["contract"] = vector_contract(
+        f"[{card}] 12b vector engine against the direct call", got, want)
+    # lanes across widths: 2 and 5 against the same lanes of a 64-wide call
+    master = rng.master_key(rng.MASTER_SEED)
+    fr = reqs[:SERVE_MAX_BATCH]
+    keys = torch.stack([pinned_request_key(master, r, r.seed) for r in fr])
+    xs, ys = np.stack([r.x for r in fr]), np.stack([r.y for r in fr])
+    cache = KernelCache(mode="vector", device=device)
+    kk = kernel_key(fr[0])
+    full = np.stack(cache.run_batch(kk, keys, xs, ys), 1).astype(np.float64)
+    for w in (2, 5):
+        part = np.stack(cache.run_batch(kk, keys[:w], xs[:w], ys[:w]), 1)
+        line[f"width_{w}_vs_{len(fr)}"] = vector_contract(
+            f"[{card}] 12b vector lanes at width {w} against width "
+            f"{len(fr)}", part.astype(np.float64), full[:w])
+    return line
+
+
+def _http_status(url: str) -> tuple:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def serving_http(card: str, device, work: str, reqs: list,
+                 want: np.ndarray) -> dict:
+    """Phase 12 (d) and (e) over the HTTP front end, on requests whose
+    direct answers ``want`` holds (a fresh server: no idempotency hit)."""
+    from dpcorr_torch.obs.audit import AuditTrail, read_events
+    from dpcorr_torch.obs.metrics import parse_exposition
+    from dpcorr_torch.serve import (
+        BudgetExceededError,
+        DpcorrServer,
+        HttpEstimateClient,
+        ServerClosedError,
+        ServerOverloadedError,
+        make_http_server,
+    )
+
+    audit = f"{work}/serve_audit.jsonl"
+    srv = DpcorrServer(budget=1e12, ledger_path=f"{work}/serve_ledger.json",
+                       audit=audit, per_party_budget={"tiny": 1.0},
+                       warmup=f"ni_sign:{SERVE_N}:{SERVE_EPS[0]}:"
+                              f"{SERVE_EPS[1]}:auto",
+                       warmup_autostart=False, max_batch=SERVE_MAX_BATCH,
+                       max_delay_s=SERVE_MAX_DELAY_S, device=device)
+    httpd = make_http_server(srv, host="127.0.0.1", port=0)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        cold = _http_status(f"{base}/readyz")[0]
+        srv.start_warmup()
+        if not srv.wait_ready(120):
+            raise RuntimeError("12d: the warm set never became resident")
+        warm, body = _http_status(f"{base}/readyz")
+        print(f"[{card}] 12d /readyz {cold} before the warm set, {warm} after"
+              f" ({body})", flush=True)
+        if (cold, warm) != (503, 200):
+            raise RuntimeError(f"12d: /readyz {cold} then {warm}, expected "
+                               f"503 then 200")
+        if _http_status(f"{base}/healthz") != (200, '{"ok": true}'):
+            raise RuntimeError("12d: /healthz is not 200 {ok: true}")
+        client = HttpEstimateClient(base, timeout_s=300.0)
+        got, lat, dt = drive(client, reqs, 8)
+        line = load_line(f"[{card}] 12d HTTP, {len(reqs)} requests, 8 "
+                         f"clients", lat, dt)
+        bit_equal(f"[{card}] 12d HTTP front end", got, want)
+        tiny = serve_requests("ni_sign", 1, SERVE_N, 31_000_000,
+                              party_x="tiny")[0]
+        try:
+            client.estimate(tiny)
+        except BudgetExceededError as e:
+            print(f"[{card}] 12d over-budget request: 403 ({e}); party tiny"
+                  f" spent {srv.ledger.spent('tiny')}", flush=True)
+        else:
+            raise RuntimeError("12d: an over-budget request was answered")
+        if srv.ledger.spent("tiny") != 0.0:
+            raise RuntimeError("12d: the refused request spent budget")
+        code, stats_body = _http_status(f"{base}/stats")
+        snap = json.loads(stats_body)
+        code_m, text = _http_status(f"{base}/metrics")
+        series = parse_exposition(text)
+        pairs = {
+            "dpcorr_serve_requests_total": snap["requests_total"],
+            "dpcorr_serve_batches_flushed_total": snap["batches_flushed"],
+            "dpcorr_serve_kernel_compiles_total": snap["kernel_compiles"],
+            'dpcorr_serve_requests_refused_total{reason="budget"}':
+                snap["requests_refused_budget"],
+            "dpcorr_serve_latency_seconds_count":
+                snap["batched_requests"] + snap["unbatched_requests"],
+            'dpcorr_ledger_spent_eps{party="party-x"}':
+                snap["ledger"]["parties"]["party-x"]["spent"]}
+        off = {k: (series.get(k), v) for k, v in pairs.items()
+               if series.get(k) != v}
+        print(f"[{card}] 12d /stats {code} and /metrics {code_m} agree on "
+              f"{len(pairs) - len(off)} of {len(pairs)} series", flush=True)
+        if code != 200 or code_m != 200 or off:
+            raise RuntimeError(f"12d: /metrics disagrees with /stats: {off}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.close()
+    ledger_matches(f"[{card}] 12e HTTP server (file trail)", srv, reqs,
+                   read_events(audit))
+    # backpressure: a queue of 2 that never flushes; the third gets 429
+    trail = AuditTrail()
+    bp = DpcorrServer(budget=1e12, max_batch=1024, max_delay_s=30.0,
+                      max_queue=2, audit=trail, device=device)
+    httpd = make_http_server(bp, host="127.0.0.1", port=0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    held = serve_requests("ni_sign", 3, SERVE_N, 32_000_000)
+    try:
+        futs = [bp.submit(r) for r in held[:2]]
+        spent = bp.ledger.spent("party-x")
+        client = HttpEstimateClient(
+            f"http://127.0.0.1:{httpd.server_address[1]}", timeout_s=60.0)
+        try:
+            client.estimate(held[2])
+        except ServerOverloadedError as e:
+            print(f"[{card}] 12d full queue: 429 ({e}, Retry-After "
+                  f"{e.retry_after_s})", flush=True)
+        else:
+            raise RuntimeError("12d: a full queue answered a request")
+        if bp.ledger.spent("party-x") != spent:
+            raise RuntimeError("12d: the 429'd request was not refunded")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        bp.close()
+    for f in futs:
+        try:
+            f.result(timeout=60)
+        except ServerClosedError:
+            continue
+        raise RuntimeError("12d: a drained request was answered")
+    ledger_matches(f"[{card}] 12e backpressure server", bp, [],
+                   trail.events())
+    return line
+
+
+def serving_card_against_cpu(card: str) -> None:
+    """Phase 12 (f): the same requests through a CPU and a card server."""
+    from dpcorr_torch.serve import DpcorrServer, InProcessClient
+
+    reqs = [r for j, fam in enumerate(SERVE_FAMILIES)
+            for r in serve_requests(fam, SERVE_PARITY_PER_FAMILY, SERVE_N,
+                                    40_000_000 + 100_000 * j)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        srv = DpcorrServer(budget=1e12, max_batch=SERVE_MAX_BATCH,
+                           max_delay_s=SERVE_MAX_DELAY_S, device=dev)
+        try:
+            out[dev] = drive(InProcessClient(srv), reqs, 8)[0]
+        finally:
+            srv.close()
+    ok = np.isclose(out["cuda"], out["cpu"], rtol=0.0, atol=1e-5).all(1)
+    print(f"[{card}] 12f card against CPU: {int(ok.sum())} of {len(reqs)} "
+          f"requests within 1e-5, max |Δ| "
+          f"{float(np.abs(out['cuda'] - out['cpu']).max()):.3g}", flush=True)
+    if ok.mean() < 0.99:
+        raise RuntimeError(f"12f: card and CPU agree on only "
+                           f"{ok.mean():.4f} of the requests")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -1469,9 +1948,37 @@ def main() -> int:
     if seam_launches != V1_BUCKETS or phase11_launches != 3 * V1_BUCKETS:
         raise RuntimeError(f"phase 11: {phase11_launches} K1 launches, "
                            f"expected {3 * V1_BUCKETS}")
-    work.cleanup()
     print(f"phase 11: {time.perf_counter() - t11:.1f} s "
           f"{json.dumps({k: round(v, 1) for k, v in parts.items()})}",
+          flush=True)
+
+    # ---- 12. the serving stack, driven with the launch counts set to 0
+    # just before it and read just after
+    t12 = time.perf_counter()
+    parts = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    parts["12a,c,e,g"], ni_reqs, ni_want = serving_exact(card, "cuda",
+                                                        work.name)
+    parts["12a,c,e,g s"] = time.perf_counter() - t0
+    for label, fn in (
+            ("12b", lambda: serving_vector(card, "cuda", ni_reqs, ni_want)),
+            ("12d,e", lambda: serving_http(
+                card, "cuda", work.name, ni_reqs[:SERVE_HTTP_REQS],
+                ni_want[:SERVE_HTTP_REQS])),
+            ("12f", lambda: serving_card_against_cpu(card))):
+        t0 = time.perf_counter()
+        parts[label] = fn()
+        parts[label + " s"] = time.perf_counter() - t0
+    serve_launches = fused_ni.KERNEL_LAUNCHES["fused_ni"]
+    print(f"launches in the serving run: {dict(fused_ni.KERNEL_LAUNCHES)}",
+          flush=True)
+    if serve_launches:
+        raise RuntimeError(f"phase 12: {serve_launches} K1 launches; the "
+                           f"serving path has no kernel of its own")
+    work.cleanup()
+    print(f"phase 12: {time.perf_counter() - t12:.1f} s "
+          f"{json.dumps({k: round(v, 1) for k, v in parts.items() if k.endswith(' s')})}",
           flush=True)
     bucket_ms = [v["ms"] for v in buckets.values()]
 
@@ -1506,6 +2013,7 @@ def main() -> int:
         "grid_bucket_ms_min": min(bucket_ms),
         "grid_bucket_ms_max": max(bucket_ms),
         "grid_bucket_ms_sum": sum(bucket_ms),
+        "serve_launches": serve_launches,
     }]}
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(record), flush=True)

@@ -12,6 +12,8 @@ Counterpart of the simulation commands of ``python -m dpcorr``:
 - ``acceptance``  the B ≥ 10⁶ coverage campaign (``dpcorr_torch.acceptance``)
 - ``report``      the paper's figures from the tables a finished ``--out``
   directory holds (``dpcorr_torch.report``)
+- ``serve``       the online DP-correlation server: micro-batched queries
+  behind a per-party ε ledger, over HTTP (``dpcorr_torch.serve``)
 
 Every command but ``report`` runs on the card (``--device cuda``, the
 default) and raises without one unless ``--device cpu`` is given. Grids
@@ -254,6 +256,184 @@ def cmd_report(args):
     print("figures:", *(str(p) for p in paths))
 
 
+def cmd_serve(args):
+    """Online serving (counterpart of ``python -m dpcorr serve``): binds
+    first, so ``--port 0`` resolves before the server is built, prints
+    the ``{"serving": …}`` banner and serves until interrupted."""
+    import signal
+    import socket
+
+    from dpcorr_torch import chaos
+    from dpcorr_torch.obs import trace as obs_trace
+    from dpcorr_torch.obs.recorder import FlightRecorder
+    from dpcorr_torch.serve.server import DpcorrServer, make_http_server
+
+    sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    sock.bind((args.host, args.port))
+    sock.listen(128)
+    bound_port = sock.getsockname()[1]
+    if args.instance is None:
+        args.instance = f"serve-{bound_port}"
+    subst = {"instance": args.instance, "port": str(bound_port)}
+    for attr in ("trace", "audit", "flight_recorder", "ledger",
+                 "warmup_manifest"):
+        val = getattr(args, attr)
+        if val:
+            for k, v in subst.items():
+                val = val.replace("{%s}" % k, v)
+            setattr(args, attr, val)
+    if args.trace:
+        obs_trace.configure(args.trace)
+    for spec in args.fault or ():
+        # chaos faults at boot (testing only): drilling the breaker and
+        # brownout on a replica
+        chaos.install_fault(chaos.fault_from_spec(spec))
+    rec = None
+    if args.flight_recorder:
+        # the handler goes in before the server build, so a USR2 during
+        # the build dumps empty rings instead of killing the process
+        rec = FlightRecorder(args.flight_recorder)
+        signal.signal(signal.SIGUSR2,
+                      lambda signum, frame: rec.dump("sigusr2"))
+    server = DpcorrServer(
+        budget=args.budget, ledger_path=args.ledger, seed=args.seed,
+        max_batch=args.max_batch, max_delay_s=args.max_delay_ms / 1000.0,
+        max_queue=args.max_queue, shard=args.shard,
+        batch_mode=args.batch_mode, max_kernels=args.max_kernels,
+        audit=args.audit, warmup=args.warmup,
+        warmup_manifest=args.warmup_manifest,
+        breaker_threshold=args.breaker_threshold,
+        breaker_reset_s=args.breaker_reset_s,
+        shed_queue_frac=args.shed_queue_frac,
+        flush_slo_s=(args.flush_slo_ms / 1000.0
+                     if args.flush_slo_ms is not None else None),
+        brownout_enter_s=args.brownout_enter_s,
+        brownout_exit_s=args.brownout_exit_s,
+        brownout_min_priority=args.brownout_min_priority,
+        instance=args.instance, device=_device(args))
+    if rec is not None:
+        server.attach_recorder(rec)
+    httpd = make_http_server(server, host=args.host, port=args.port,
+                             sock=sock)
+    print(json.dumps({"serving": {
+        "host": args.host, "port": bound_port, "instance": args.instance,
+        "device": str(server.device), "budget": args.budget,
+        "ledger": args.ledger, "max_batch": args.max_batch,
+        "max_delay_ms": args.max_delay_ms, "batch_mode": args.batch_mode,
+        "trace": args.trace, "audit": args.audit,
+        "warmup": server.readiness(),
+        "warmup_manifest": args.warmup_manifest,
+        "flight_recorder": args.flight_recorder,
+        "breaker": {"threshold": args.breaker_threshold,
+                    "reset_s": args.breaker_reset_s},
+        "brownout": {"queue_frac": args.shed_queue_frac,
+                     "flush_slo_ms": args.flush_slo_ms,
+                     "enter_s": args.brownout_enter_s,
+                     "exit_s": args.brownout_exit_s,
+                     "min_priority": args.brownout_min_priority},
+        "faults": args.fault}}), flush=True)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+
+
+def _add_serve(sub) -> None:
+    p = sub.add_parser("serve", help="online micro-batched DP-correlation "
+                       "service with a per-party privacy-budget ledger")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where to run: the card (default; raises without "
+                        "one) or the CPU")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8321,
+                   help="HTTP port (0 = ephemeral; the bound port is "
+                        "printed in the banner line)")
+    p.add_argument("--instance", default=None,
+                   help="instance name labelling /stats and /metrics "
+                        "(default serve-<port>)")
+    p.add_argument("--budget", type=float, default=100.0,
+                   help="default per-party ε budget (basic composition)")
+    p.add_argument("--ledger", default=None,
+                   help="ledger persistence path (JSON, the JAX package's "
+                        "format); restarts resume the spend table")
+    p.add_argument("--max-batch", dest="max_batch", type=int, default=64,
+                   help="flush a bucket at this many live requests")
+    p.add_argument("--max-delay-ms", dest="max_delay_ms", type=float,
+                   default=5.0,
+                   help="flush a bucket once its oldest request has "
+                        "waited this long")
+    p.add_argument("--max-queue", dest="max_queue", type=int, default=4096,
+                   help="backpressure: refuse admissions beyond this many "
+                        "pending requests")
+    p.add_argument("--shard", default="auto", choices=["auto", "off"],
+                   help="shard wide flushes over the visible cards")
+    p.add_argument("--batch-mode", dest="batch_mode", default="exact",
+                   choices=["exact", "vector"],
+                   help="batch engine: 'exact' (lane by lane; bit-equal "
+                        "to direct calls) or 'vector' (one call over the "
+                        "lanes; estimators.registry states its contract)")
+    p.add_argument("--max-kernels", dest="max_kernels", type=int,
+                   default=128, help="LRU cap on live kernel-cache entries")
+    p.add_argument("--seed", type=int, default=2025)
+    p.add_argument("--trace", default=None,
+                   help="span JSONL path (also DPCORR_TRACE)")
+    p.add_argument("--audit", default=None,
+                   help="privacy-budget audit-trail JSONL path")
+    p.add_argument("--warmup", default=None,
+                   help="warm signature spec, entries "
+                        "family:n:eps1:eps2[:bpads[:alpha[:normalise]]] "
+                        "separated by ';' (bpads: comma list or 'auto' = "
+                        "every pow2 up to --max-batch), built in the "
+                        "background behind GET /readyz")
+    p.add_argument("--warmup-manifest", dest="warmup_manifest",
+                   default=None,
+                   help="kernel-manifest JSON path: replayed as warmup on "
+                        "boot, rewritten with the resident set on shutdown")
+    p.add_argument("--breaker-threshold", dest="breaker_threshold",
+                   type=int, default=5,
+                   help="circuit breaker: consecutive kernel failures in "
+                        "one bucket before it opens")
+    p.add_argument("--breaker-reset-s", dest="breaker_reset_s",
+                   type=float, default=30.0,
+                   help="circuit breaker: cooldown before an open bucket "
+                        "admits one half-open probe")
+    p.add_argument("--shed-queue-frac", dest="shed_queue_frac",
+                   type=float, default=0.75,
+                   help="brownout: queue fraction counted as pressure")
+    p.add_argument("--flush-slo-ms", dest="flush_slo_ms", type=float,
+                   default=None,
+                   help="brownout: flush-latency EWMA above this also "
+                        "counts as pressure (default: queue-only)")
+    p.add_argument("--brownout-enter-s", dest="brownout_enter_s",
+                   type=float, default=0.5,
+                   help="brownout: sustained-pressure seconds before "
+                        "entering")
+    p.add_argument("--brownout-exit-s", dest="brownout_exit_s",
+                   type=float, default=2.0,
+                   help="brownout: calm seconds before exiting")
+    p.add_argument("--brownout-min-priority", dest="brownout_min_priority",
+                   type=int, default=0,
+                   help="brownout: reject requests below this priority "
+                        "while active")
+    p.add_argument("--fault", action="append", default=None,
+                   metavar="SPEC",
+                   help="install a chaos fault before serving, e.g. "
+                        "'point=serve.kernel,mode=fail,times=3' "
+                        "(repeatable; testing only)")
+    p.add_argument("--flight-recorder", dest="flight_recorder",
+                   default=None, metavar="PATH",
+                   help="flight-recorder dump path: recent spans, audit "
+                        "events, logs and metrics, dumped on chaos "
+                        "crashes, breaker trips, brownout transitions and "
+                        "SIGUSR2")
+    p.set_defaults(fn=cmd_serve)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="dpcorr_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -312,6 +492,7 @@ def main(argv=None):
     p.add_argument("--family", choices=["v1", "subg"], default="v1",
                    help="the grid's figure family")
     p.set_defaults(fn=cmd_report)
+    _add_serve(sub)
     args = ap.parse_args(argv)
     args.fn(args)
 

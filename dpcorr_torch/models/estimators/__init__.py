@@ -15,6 +15,7 @@ from dpcorr_torch.models.estimators.common import (
     k_pad_for,
     sample_sd,
 )
+from dpcorr_torch.models.estimators.families import FAMILIES
 from dpcorr_torch.models.estimators.int_sign import (
     ci_int_signflip,
     correlation_int_signflip,
@@ -26,6 +27,7 @@ from dpcorr_torch.models.estimators.ni_sign import (
     correlation_ni_signbatch,
 )
 from dpcorr_torch.models.estimators.ni_subg import correlation_ni_subg
+from dpcorr_torch.models.estimators.registry import serving_entry
 from dpcorr_torch.models.estimators.streaming import (
     array_chunk_fn,
     choose_n_chunk,

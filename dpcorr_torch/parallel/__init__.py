@@ -12,6 +12,7 @@ reference's ``mclapply`` layer, vert-cor.R:534-554):
 """
 
 from dpcorr_torch.parallel.backend import (  # noqa: F401
+    make_serve_batch_sharded,
     run_detail_flat_sharded,
     run_detail_sharded,
     run_summary_sharded,

@@ -10,6 +10,8 @@ away), split into contiguous shards, and each shard runs the port's own
 bucket body, ``sim._run_detail_flat``, on its device. Summaries are f32
 partial sums per shard, added in shard order. Replication ``j`` keeps its
 key, so the detail is bit-equal to the unsharded path at any width.
+The serving layer's flushed lane axis shards the same way
+(:func:`make_serve_batch_sharded`).
 """
 
 from __future__ import annotations
@@ -119,3 +121,26 @@ def run_summary_sharded(cfg: SimConfig, key=None, devices=None,
             "ci_length": s["sum_len"] / b,
         }
     return out
+
+
+def make_serve_batch_sharded(single, devices=None, engine: str = "exact"):
+    """Sharded twin of the serving layer's batched callable
+    (serve.kernels): the flushed lane axis split into contiguous shards,
+    one per entry of ``devices`` (default: every card), each shard run by
+    ``engine`` (estimators.registry.batch_engine) on its device and the
+    results gathered on the lanes' device in lane order. Each engine's
+    lane contract holds per shard, so ``exact`` lanes stay bit-equal to
+    the direct call on their device."""
+    from dpcorr_torch.models.estimators.registry import batch_engine
+
+    body = batch_engine(single, engine)
+    devices = list(devices or rep_devices())
+
+    def run(keys, xs, ys):
+        parts = [body(k.to(d), x.to(d), y.to(d)) for d, k, x, y in zip(
+            devices, keys.tensor_split(len(devices)),
+            xs.tensor_split(len(devices)), ys.tensor_split(len(devices)))
+            if x.shape[0]]
+        return tuple(torch.cat([p[j].to(xs.device) for p in parts])
+                     for j in range(3))
+    return run

@@ -12,8 +12,8 @@ when ``out`` is given). Grouped means are pandas' (``grid._group_mean``),
 so the points drawn are the JAX package's.
 
 matplotlib is imported inside the drawing functions (the card's machine
-has none, and draws nothing); :func:`read_tables` and
-:func:`write_hrs_tables` need only numpy.
+has none, and draws nothing); :func:`read_tables`,
+:func:`write_hrs_tables` and :func:`serve_stats_frame` need only numpy.
 """
 
 from __future__ import annotations
@@ -417,3 +417,26 @@ def render_from(src_dir: str | Path, family: str = "v1",
     return render_all(t["detail"], t["summ"], t["hrs_summ"], out_dir,
                       fig1_n=fig1_n, fig1_eps=fig1_eps,
                       hrs_rho_np=t["hrs_rho_np"])
+
+
+def serve_stats_frame(snapshot: dict) -> dict:
+    """Flatten a serving stats snapshot (``serve.ServeStats.snapshot``) into
+    a tidy (metric, value) table, as a dict of two numpy object columns
+    (counterpart of ``dpcorr.report.serve_stats_frame``'s DataFrame).
+    Nested groups flatten with dotted keys (``latency_s.p99``,
+    ``ledger.parties.<p>.spent``)."""
+    rows = []
+
+    def walk(prefix, obj):
+        if isinstance(obj, dict):
+            for k, v in obj.items():
+                walk(f"{prefix}.{k}" if prefix else str(k), v)
+        else:
+            rows.append((prefix, obj))
+
+    walk("", snapshot)
+    metric = np.empty(len(rows), dtype=object)
+    value = np.empty(len(rows), dtype=object)
+    for i, (m, v) in enumerate(rows):
+        metric[i], value[i] = m, v
+    return {"metric": metric, "value": value}

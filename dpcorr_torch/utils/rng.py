@@ -52,7 +52,12 @@ def threefry2x32(key: torch.Tensor, x0: torch.Tensor,
     """The Threefry-2x32 block cipher (20 rounds), as ``jax.random``
     evaluates it. ``key`` is ``(..., 2)``; ``x0``/``x1`` broadcast against
     ``key[..., 0]``. Returns the two output words."""
-    k0, k1 = key[..., 0], key[..., 1]
+    return _threefry_words(key[..., 0], key[..., 1], x0, x1)
+
+
+def _threefry_words(k0, k1, x0, x1):
+    """Threefry-2x32 on the key's two words, which may be tensors or host
+    ints: the arithmetic is the same, masked to 32 bits either way."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _M32
     x1 = (x1 + ks[1]) & _M32
@@ -91,6 +96,15 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     data = data.to(key.device, torch.int64) & _M32
     y0, y1 = threefry2x32(key, torch.zeros_like(data), data)
     return torch.stack([y0, y1], dim=-1)
+
+
+def fold_in_words(words: tuple[int, int], data: int) -> tuple[int, int]:
+    """:func:`fold_in` on a key held as two host ints, for key chains
+    short enough that device launches would cost more than the
+    arithmetic (the serving layer's per-request keys). Bit-equal to
+    :func:`fold_in` on the same words."""
+    return _threefry_words(int(words[0]) & _M32, int(words[1]) & _M32, 0,
+                           int(data) & _M32)
 
 
 def design_key(key: torch.Tensor, design_index) -> torch.Tensor:

@@ -363,3 +363,86 @@ def test_native_reader_builds_and_agrees_on_the_cards_host(cuda, tmp_path):
             assert got.values == want.values
         else:
             np.testing.assert_array_equal(got.values, want.values)
+
+
+# ---------------------------------------------------------- serving ----
+SERVE_FAMILIES = ("ni_sign", "int_sign", "ni_subg", "int_subg")
+SERVE_N, SERVE_WIDTHS = 10_000, (1, 2, 5, 64)
+
+
+@pytest.fixture(scope="module")
+def serve_lanes():
+    """64 lanes of a ρ = 0.5 Gaussian pair at n = 10⁴, and their keys."""
+    g = np.random.default_rng(12)
+    z = g.standard_normal((2, 64, SERVE_N), dtype=np.float32)
+    ys = (0.5 * z[0] + np.sqrt(0.75) * z[1]).astype(np.float32)
+    keys = rng.design_key(rng.master_key(12)[None], torch.arange(64))
+    return keys, z[0], ys
+
+
+def _serve_run(mode, family, b, lanes):
+    from dpcorr_torch.models.estimators.registry import serving_entry
+    from dpcorr_torch.serve import KernelCache
+    from dpcorr_torch.serve.request import KernelKey
+
+    keys, xs, ys = lanes
+    cache = KernelCache(shard="off", mode=mode)
+    assert cache.device.type == "cuda"
+    kk = KernelKey(family, SERVE_N, 1.0, 0.5, 0.05, True)
+    got = np.stack(cache.run_batch(kk, keys[:b], xs[:b], ys[:b]), 1)
+    single = serving_entry(family, 1.0, 0.5)
+    want = np.stack([torch.stack(single(
+        keys[i], torch.from_numpy(xs[i]).cuda(),
+        torch.from_numpy(ys[i]).cuda())).cpu().numpy() for i in range(b)])
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", SERVE_WIDTHS)
+@pytest.mark.parametrize("family", SERVE_FAMILIES)
+def test_serve_exact_lanes_bit_equal_on_the_card(cuda, serve_lanes,
+                                                 family, b):
+    """The exact engine on ``cuda``: every lane bit-equal to the direct
+    single call on the card."""
+    got, want = _serve_run("exact", family, b, serve_lanes)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", SERVE_WIDTHS)
+@pytest.mark.parametrize("family", SERVE_FAMILIES)
+def test_serve_vector_lane_contract_on_the_card(cuda, serve_lanes,
+                                                family, b):
+    """The vector engine's card contract (estimators.registry): within
+    1e-5 of the direct call, beyond it on at most 1% of lanes, and the
+    same of its lanes at width b against the same lanes at width 64."""
+    got, want = _serve_run("vector", family, b, serve_lanes)
+    bad = ~np.isclose(got, want, rtol=0.0, atol=1e-5).all(1)
+    assert bad.sum() <= 0.01 * b
+    wide, _ = _serve_run("vector", family, 64, serve_lanes)
+    bad = ~np.isclose(got, wide[:b], rtol=0.0, atol=1e-5).all(1)
+    assert bad.sum() <= 0.01 * b
+
+
+@pytest.mark.cuda
+def test_serve_server_defaults_to_the_card(cuda):
+    from dpcorr_torch.models.estimators.registry import serving_entry
+    from dpcorr_torch.serve import DpcorrServer, EstimateRequest
+    from dpcorr_torch.serve import pinned_request_key
+
+    g = np.random.default_rng(5)
+    req = EstimateRequest("int_sign", g.standard_normal(500, np.float32),
+                          g.standard_normal(500, np.float32), 1.0, 0.5,
+                          seed=5)
+    srv = DpcorrServer(budget=1e6, max_delay_s=0.001)
+    try:
+        assert srv.device.type == "cuda"
+        resp = srv.estimate(req, timeout=120)
+    finally:
+        srv.close()
+    single = serving_entry("int_sign", 1.0, 0.5)
+    want = single(pinned_request_key(rng.master_key(), req, 5),
+                  torch.from_numpy(req.x), torch.from_numpy(req.y))
+    assert want[0].device.type == "cuda"
+    assert (resp.rho_hat, resp.ci_low, resp.ci_high) == \
+        tuple(float(v) for v in want)

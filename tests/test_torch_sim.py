@@ -153,6 +153,8 @@ def test_port_imports_neither_jax_nor_dpcorr():
               REPO / "r" / "validate_bridge_torch_helper.py"]
     assert len(files) > 10
     assert REPO / "dpcorr_torch" / "grid.py" in files
+    assert REPO / "dpcorr_torch" / "serve" / "server.py" in files
+    assert REPO / "dpcorr_torch" / "chaos.py" in files
     assert FIGURES in files
     for path in files:
         for mod in _imports(path):
