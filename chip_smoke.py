@@ -154,6 +154,35 @@ north-star workload (n = 10⁴ Gaussian pair → NI sign-batch estimate + CI →
         of one flush per engine and family (``torch.profiler``), and the
         phase's seconds.
 
+13. the two-party protocol and the N-party federation
+    (``dpcorr_torch.protocol``; no kernel of its own: the estimators'
+    torch ops, as the JAX parties compute through XLA), at the HRS wave-2
+    width (n = 19,433 complete cases of phase 10a's panel, age for X and
+    BMI for Y, DP-standardized), driven with the launch counts set to 0
+    just before it and read just after (K1 must not launch):
+    (a) all four families at ε = (1.0, 0.5) and (0.5, 2.0) in process,
+        over loopback TCP and over TCP with faults (drop 0.10, delay
+        50 ms, duplicate 0.05, benchmarks/protocol_load.py's): every
+        result bit-equal across arms, roles and repeats and to
+        ``serving_entry`` on the card on the same master key; the faulted
+        arm retransmits; ``"hardened"`` keys give finite results unlike
+        replay's; session latency p50/p90 per arm and family;
+    (b) two ``python -m dpcorr_torch party`` processes (int_sign, y
+        sends), each with its journal, ledger, audit trail and
+        transcript: bit-equal to (a), every transcript clean and its
+        ledger balanced;
+    (c) a second pair (ni_sign) whose y is killed at ``gate.post_charge``
+        (``DPCORR_CHAOS``, exit 42) and restarted with the same command
+        line: bit-equal to (a), each role's ε charged once;
+    (d) the 3-party, 4-column federation of benchmarks/protocol_load.py
+        --matrix for all four families, in process and over TCP: every
+        cell bit-equal to its two-party run on the card, ε spent at
+        ``optimal_eps``, a crash at ``federation.pre_release`` resumed
+        with ε spent once; cells/s;
+    (e) each session on the CPU within 1e-5 of the card's (subG also
+        2.5e-7 relative; a sign family beyond it only at a tie);
+    (f) CUDA activities per session (``torch.profiler``).
+
 Every failure raises. The last line is the device record; before it come
 the per-kernel JSON record and the card line. Run from the repository
 root:
@@ -290,6 +319,17 @@ SERVE_PER_FAMILY, SERVE_VECTOR_REQS, SERVE_CLIENTS = 256, 1024, 32
 SERVE_HRS_PER_FAMILY, SERVE_HTTP_REQS, SERVE_PARITY_PER_FAMILY = 64, 64, 16
 SERVE_MAX_BATCH, SERVE_MAX_DELAY_S = 64, 0.005
 SERVE_HRS_BUCKET = 32_768
+
+#: phase 13: the two-party protocol and the federation at the HRS wave-2
+#: width, both ε orders (the second makes y the INT sender); the fault
+#: arm at benchmarks/protocol_load.py's rates and ack timeout
+PROTO_N, PROTO_SEED = HRS_COMPLETE, 2025
+PROTO_EPS = ((1.0, 0.5), (0.5, 2.0))
+PROTO_FAULT = {"drop": 0.10, "delay_s": 0.050, "duplicate": 0.05}
+PROTO_FAULT_TIMEOUT_S = 0.5
+PROTO_REPEATS = {"inproc": 3, "tcp": 3, "tcp+faults": 1}
+FED_PARTIES = [("p0", ["a", "b"]), ("p1", ["c"]), ("p2", ["d"])]
+PARTY_TIMEOUT_S = 300
 
 #: the JAX package's committed coverage at B = 1,015,808 for the sign
 #: acceptance points (dpcorr/acceptance.py:89-108), copied from
@@ -1715,6 +1755,408 @@ def serving_card_against_cpu(card: str) -> None:
                            f"{ok.mean():.4f} of the requests")
 
 
+# ------------------------------------------------------------ phase 13 ----
+def proto_columns(card: str, cols) -> tuple:
+    """Phase 13's pair: wave 2's complete cases of the synthetic panel
+    (phase 10a's, seed 0), age for X and BMI for Y, DP-standardized on the
+    card as ``hrs.standardize`` does it (real-data-sims.R:273-287), then
+    held on the host as f32 columns, one per party."""
+    from dpcorr_torch import hrs
+
+    _ids, age, bmi = hrs.extract_wave(cols)
+    std = hrs.standardize(age, bmi, hrs.HrsConfig(), device="cuda")
+    x = std.age_z.cpu().numpy().astype(np.float32)
+    y = std.bmi_z.cpu().numpy().astype(np.float32)
+    print(f"[{card}] 13 columns: wave 2 complete cases n = {len(x)}, age "
+          f"and BMI z-scores (DP standardisation on the card)", flush=True)
+    if len(x) != PROTO_N:
+        raise RuntimeError(f"phase 13: n = {len(x)}, expected {PROTO_N}")
+    return x, y
+
+
+def session_bits(res) -> tuple:
+    """Both roles' (ρ̂, lo, hi); raises when the roles disagree."""
+    bx = (res["x"].rho_hat, res["x"].ci_low, res["x"].ci_high)
+    by = (res["y"].rho_hat, res["y"].ci_low, res["y"].ci_high)
+    if bx != by:
+        raise RuntimeError(f"the roles disagree: x {bx}, y {by}")
+    return bx
+
+
+def direct_bits(family: str, eps, x, y, device) -> tuple:
+    """The port's monolithic estimator on the session's master key."""
+    from dpcorr_torch.models.estimators.registry import serving_entry
+    from dpcorr_torch.utils import rng
+
+    out = serving_entry(family, *eps, device=device)(
+        rng.master_key(PROTO_SEED), torch.from_numpy(x),
+        torch.from_numpy(y))
+    return tuple(float(v) for v in torch.stack(out).cpu().numpy())
+
+
+def protocol_sessions(card: str, x, y) -> dict:
+    """Phase 13a: every family at both ε orders through the three arms,
+    each result bit-equal across arms, roles, repeats and to the direct
+    call on the card; the faulted arm retransmits; hardened keys give
+    finite results unlike replay's."""
+    from dpcorr_torch.protocol import ProtocolSpec, run_inproc, run_tcp
+
+    arms = {"inproc": (run_inproc, None, 10.0),
+            "tcp": (run_tcp, None, 10.0),
+            "tcp+faults": (run_tcp, PROTO_FAULT, PROTO_FAULT_TIMEOUT_S)}
+    lat = {arm: {f: [] for f in SERVE_FAMILIES} for arm in arms}
+    want, retries = {}, 0
+    for family in SERVE_FAMILIES:
+        for eps in PROTO_EPS:
+            spec = ProtocolSpec(family=family, n=PROTO_N, eps1=eps[0],
+                                eps2=eps[1], seed=PROTO_SEED)
+            ref = direct_bits(family, eps, x, y, "cuda")
+            want[(family, eps)] = ref
+            for arm, (run, fault, timeout_s) in arms.items():
+                for _ in range(PROTO_REPEATS[arm]):
+                    t0 = time.perf_counter()
+                    res = run(spec, x, y, fault=fault, timeout_s=timeout_s)
+                    lat[arm][family].append(time.perf_counter() - t0)
+                    got = session_bits(res)
+                    if got != ref:
+                        raise RuntimeError(
+                            f"13a {family} ε={eps} {arm}: {got}, the "
+                            f"direct call on the card gives {ref}")
+                    if fault is not None:
+                        retries += sum(r.stats["total_retries"]
+                                       for r in res.values())
+        hard = session_bits(run_inproc(
+            ProtocolSpec(family=family, n=PROTO_N, eps1=1.0, eps2=0.5,
+                         seed=PROTO_SEED, noise_mode="hardened"), x, y))
+        # the estimates differ; a CI end clamped at ±1 may coincide
+        if not np.isfinite(hard).all() \
+                or hard[0] == want[(family, (1.0, 0.5))][0]:
+            raise RuntimeError(f"13a {family} hardened: {hard} against "
+                               f"replay's {want[(family, (1.0, 0.5))]}")
+    if retries <= 0:
+        raise RuntimeError("13a: the faulted arm never retransmitted")
+    table = {arm: {f: {"sessions": len(v),
+                       "p50_ms": float(np.percentile(v, 50)) * 1e3,
+                       "p90_ms": float(np.percentile(v, 90)) * 1e3}
+                   for f, v in per.items()} for arm, per in lat.items()}
+    n_sessions = sum(len(v) for per in lat.values() for v in per.values())
+    print(f"[{card}] 13a: {n_sessions} sessions, every result bit-equal "
+          f"across arms, roles, repeats and to serving_entry on the card; "
+          f"faulted arm retransmits {retries}; hardened finite and unlike "
+          f"replay in all 4 families", flush=True)
+    for arm, per in table.items():
+        print(f"[{card}] 13a latency {arm}: {json.dumps(per)}", flush=True)
+    return {"want": want, "latency": table, "retries": retries}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _party_cmd(role: str, family: str, eps, port: int, d: str) -> list:
+    return [sys.executable, "-m", "dpcorr_torch", "party", "--role", role,
+            "--port", str(port), "--n", str(PROTO_N), "--family", family,
+            "--eps1", str(eps[0]), "--eps2", str(eps[1]),
+            "--seed", str(PROTO_SEED), "--data", f"{d}/{role}.npy",
+            "--ledger", f"{d}/ledger.{role}.json",
+            "--audit", f"{d}/audit.{role}.jsonl",
+            "--journal", f"{d}/journal.{role}.json",
+            "--transcript", f"{d}/transcript.{role}.jsonl",
+            "--connect-timeout", "180", "--recv-timeout", "180",
+            "--timeout", "1.0"]
+
+
+def _party_result(label: str, proc) -> tuple:
+    out, err = proc.communicate(timeout=PARTY_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{label}: rc {proc.returncode}: {err[-2000:]}")
+    res = json.loads(out.split("\n", 1)[1])["result"]
+    return res["rho_hat"], res["ci_low"], res["ci_high"]
+
+
+def party_processes(card: str, x, y, want: dict, work: str) -> dict:
+    """Phase 13b and 13c: real ``python -m dpcorr_torch party`` processes
+    on the card, two sessions at once. (b) int_sign at ε = (0.5, 2.0),
+    where y sends; (c) ni_sign at (1.0, 0.5) with y killed at
+    ``gate.post_charge`` (exit 42) and restarted with the same command
+    line. Each result bit-equal to 13a's; every transcript scans clean and
+    balances; each role's ε charged exactly once."""
+    import os
+    import subprocess
+
+    from dpcorr_torch import chaos
+    from dpcorr_torch.obs.audit import read_events
+    from dpcorr_torch.protocol import ProtocolSpec
+    from dpcorr_torch.protocol.scan import ledger_balance, scan_transcript
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    cases = {"b": ("int_sign", (0.5, 2.0), None),
+             "c": ("ni_sign", (1.0, 0.5), "point=gate.post_charge,hit=1")}
+    t0 = time.perf_counter()
+    procs, cmds = {}, {}
+    for case, (family, eps, kill) in cases.items():
+        d = f"{work}/13{case}"
+        os.makedirs(d)
+        np.save(f"{d}/x.npy", x)
+        np.save(f"{d}/y.npy", y)
+        port = _free_port()
+        for role in ("y", "x"):
+            cmds[(case, role)] = _party_cmd(role, family, eps, port, d)
+            role_env = dict(env)
+            if kill and role == "y":
+                role_env["DPCORR_CHAOS"] = kill
+            procs[(case, role)] = subprocess.Popen(
+                cmds[(case, role)], cwd=root, env=role_env, text=True,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    victim = procs[("c", "y")]
+    _out, err = victim.communicate(timeout=PARTY_TIMEOUT_S)
+    if victim.returncode != chaos.EXIT_CODE:
+        raise RuntimeError(f"13c: the victim exited {victim.returncode}, "
+                           f"not {chaos.EXIT_CODE}: {err[-2000:]}")
+    killed_s = time.perf_counter() - t0
+    procs[("c", "y")] = subprocess.Popen(
+        cmds[("c", "y")], cwd=root, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    bits = {key: _party_result(f"13{key[0]} {key[1]}", p)
+            for key, p in procs.items()}
+    wall = time.perf_counter() - t0
+    for case, (family, eps, _kill) in cases.items():
+        ref = want[(family, eps)]
+        spec = ProtocolSpec(family=family, n=PROTO_N, eps1=eps[0],
+                            eps2=eps[1], seed=PROTO_SEED)
+        d = f"{work}/13{case}"
+        for role in ("x", "y"):
+            if bits[(case, role)] != ref:
+                raise RuntimeError(f"13{case} {role}: {bits[(case, role)]}"
+                                   f", 13a gives {ref}")
+            path = f"{d}/transcript.{role}.jsonl"
+            rep = scan_transcript(path, raw_x=x, raw_y=y)
+            bal = ledger_balance(path, read_events(f"{d}/audit.{role}.jsonl"))
+            if not rep["ok"] or not bal["ok"]:
+                raise RuntimeError(f"13{case} {role}: scan {rep['violations']}"
+                                   f", balance {bal}")
+            with open(f"{d}/ledger.{role}.json") as fh:
+                spent = json.load(fh)["spent"]
+            for party, eps_role in spec.charges_for(role).items():
+                if abs(spent.get(party, 0.0) - eps_role) > 1e-12:
+                    raise RuntimeError(
+                        f"13{case} {role}: ledger spent {spent}, the "
+                        f"session charges {party} {eps_role} once")
+    print(f"[{card}] 13b,c: 5 party processes (2 sessions, one victim "
+          f"killed at gate.post_charge after {killed_s:.1f} s, exit 42, "
+          f"restarted) in {wall:.1f} s; results bit-equal to 13a, each "
+          f"transcript clean (schema, no raw columns) and balanced, each "
+          f"role's ε charged once", flush=True)
+    return {"seconds": wall, "killed_after_s": killed_s}
+
+
+def _fed_data(x, y) -> dict:
+    """The federation's four columns at n = 19,433: a = age and b = BMI
+    (13's pair, both at p0), c and d equicorrelated at 0.3 with a numpy
+    generator."""
+    z = np.random.default_rng(PROTO_SEED).standard_normal((3, PROTO_N))
+    c = (np.sqrt(0.3) * z[0] + np.sqrt(0.7) * z[1]).astype(np.float32)
+    d = (np.sqrt(0.3) * z[0] + np.sqrt(0.7) * z[2]).astype(np.float32)
+    return {"a": x, "b": y, "c": c, "d": d}
+
+
+def _cells(results) -> dict:
+    cells: dict = {}
+    for res in results.values():
+        for key, val in res.cells.items():
+            if key in cells and cells[key] != val:
+                raise RuntimeError(f"parties disagree on cell {key}")
+            cells[key] = val
+    return cells
+
+
+def federation_runs(card: str, x, y) -> dict:
+    """Phase 13d: the 3-party, 4-column plan of benchmarks/protocol_load.py
+    --matrix for each family, in process and over TCP: every cell
+    bit-equal to its independent two-party run on the card, ε spent at
+    ``optimal_eps``; a raise-mode crash of p0 at
+    ``federation.pre_release`` resumes with ε spent once."""
+    import tempfile
+    import threading
+
+    from dpcorr_torch import chaos
+    from dpcorr_torch.protocol import InProcTransport, run_inproc
+    from dpcorr_torch.protocol.federation import (
+        make_federation_parties,
+        run_federation_inproc,
+        run_federation_tcp,
+    )
+    from dpcorr_torch.protocol.matrix import FederationPlan
+    from dpcorr_torch.serve.ledger import PrivacyLedger
+
+    data = _fed_data(x, y)
+    rates = {}
+    for family in SERVE_FAMILIES:
+        plan = FederationPlan(family=family, n=PROTO_N, eps=1.0,
+                              parties=FED_PARTIES, seed=PROTO_SEED)
+        ledgers = {p: PrivacyLedger(1e6) for p, _ in FED_PARTIES}
+        t0 = time.perf_counter()
+        cells = _cells(run_federation_inproc(plan, data, ledgers=ledgers))
+        dt = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tcp = _cells(run_federation_tcp(plan, data))
+        dt_tcp = time.perf_counter() - t0
+        if tcp != cells:
+            raise RuntimeError(f"13d {family}: TCP cells differ")
+        for i, j in plan.cells():
+            ref = run_inproc(plan.cell_spec(i, j), data[plan.label(i)],
+                             data[plan.label(j)])["x"]
+            got = cells[f"{i},{j}"]
+            if (got["rho_hat"], got["ci_low"], got["ci_high"]) != (
+                    ref.rho_hat, ref.ci_low, ref.ci_high):
+                raise RuntimeError(f"13d {family} cell {i},{j}: {got}, its "
+                                   f"two-party run gives {ref}")
+        spent = {p: led.spent(p) for p, led in ledgers.items()}
+        if any(abs(spent[p] - e) > 1e-9
+               for p, e in plan.party_eps().items()) \
+                or not sum(spent.values()) < plan.naive_eps():
+            raise RuntimeError(f"13d {family}: spent {spent}, the plan's "
+                               f"optimum {plan.party_eps()}")
+        rates[family] = {"cells": len(cells), "inproc_s": dt,
+                         "tcp_s": dt_tcp,
+                         "cells_per_s": len(cells) / dt,
+                         "tcp_cells_per_s": len(cells) / dt_tcp,
+                         "optimal_eps": plan.optimal_eps(),
+                         "naive_eps": plan.naive_eps()}
+    plan = FederationPlan(family="ni_sign", n=PROTO_N, eps=1.0,
+                          parties=FED_PARTIES, seed=PROTO_SEED)
+    ref = _cells(run_federation_inproc(plan, data))
+    with tempfile.TemporaryDirectory(prefix="fed_resume_") as d:
+        def ledgers():
+            return {p: PrivacyLedger(1e6, path=f"{d}/ledger.{p}.json")
+                    for p, _ in FED_PARTIES}
+
+        endpoints = {lk: InProcTransport() for lk in plan.links()}
+        fast = dict(timeout_s=0.1, max_retries=400)
+        parties = make_federation_parties(plan, data, ledgers=ledgers(),
+                                          endpoints=endpoints,
+                                          journal_dir=d, **fast)
+        results, errors = {}, {}
+
+        def run(name, party):
+            try:
+                results[name] = party.run()
+            except BaseException as e:  # SimulatedCrash is one
+                errors[name] = e
+
+        chaos.install(chaos.ChaosPlan("federation.pre_release", mode="raise",
+                                      thread_name="party-p0"))
+        threads = {n: threading.Thread(target=run, args=(n, p),
+                                       name=f"party-{n}")
+                   for n, p in parties.items()}
+        try:
+            for t in threads.values():
+                t.start()
+            threads["p0"].join(timeout=120)
+        finally:
+            chaos.clear()
+        if not isinstance(errors.pop("p0", None), chaos.SimulatedCrash):
+            raise RuntimeError("13d: p0 did not crash at "
+                               "federation.pre_release")
+        fresh = make_federation_parties(plan, data, ledgers=ledgers(),
+                                        endpoints=endpoints, journal_dir=d,
+                                        **fast)
+        rerun = threading.Thread(target=run, args=("p0", fresh["p0"]),
+                                 name="party-p0")
+        rerun.start()
+        rerun.join(timeout=120)
+        for n, t in threads.items():
+            t.join(timeout=120)
+        final = ledgers()
+        if errors or _cells(results) != ref or any(
+                abs(final[p].spent(p) - e) > 1e-9
+                for p, e in plan.party_eps().items()):
+            raise RuntimeError(f"13d resume: errors {errors}, spent "
+                               f"{ {p: final[p].spent(p) for p in final} }")
+    print(f"[{card}] 13d: 4 families x {len(plan.cells())} cells in "
+          f"process and over TCP, every cell bit-equal to its two-party run"
+          f" on the card, ε at optimal_eps {plan.optimal_eps()} (naive "
+          f"{plan.naive_eps()}); crash at federation.pre_release resumed "
+          f"with ε once: {json.dumps(rates)}", flush=True)
+    return rates
+
+
+def protocol_card_against_cpu(card: str, x, y, want: dict) -> None:
+    """Phase 13e: each family's session on the CPU against 13a's card bits:
+    1e-5 absolute (subG also 2.5e-7 relative); a sign family may miss only
+    where a privately centered value lies within 1e-5 of 0."""
+    from dpcorr_torch.models.estimators.ni_sign import l_clip_for
+    from dpcorr_torch.ops.standardize import priv_center
+    from dpcorr_torch.protocol import ProtocolSpec, run_inproc
+    from dpcorr_torch.utils import rng
+
+    worst = 0.0
+    for (family, eps), ref in want.items():
+        spec = ProtocolSpec(family=family, n=PROTO_N, eps1=eps[0],
+                            eps2=eps[1], seed=PROTO_SEED)
+        got = session_bits(run_inproc(spec, x, y, device="cpu"))
+        rtol = 2.5e-7 if family.endswith("subg") else 0.0
+        diff = float(np.max(np.abs(np.subtract(got, ref))))
+        if np.isclose(got, ref, rtol=rtol, atol=1e-5).all():
+            worst = max(worst, diff)
+            continue
+        tie = False
+        if family.endswith("sign"):
+            key = rng.master_key(PROTO_SEED)
+            for role, col, e in (("x", x, eps[0]), ("y", y, eps[1])):
+                c = priv_center(rng.stream(key, f"{family}/std_{role}"),
+                                torch.from_numpy(col), e, l_clip_for(PROTO_N))
+                tie |= bool((c.abs() < 1e-5).any())
+        if not tie:
+            raise RuntimeError(f"13e {family} ε={eps}: CPU {got}, card "
+                               f"{ref}")
+    print(f"[{card}] 13e: 8 sessions on the CPU within tolerance of the "
+          f"card's (largest difference {worst:.3g})", flush=True)
+
+
+def protocol_launch_counts(card: str, x, y) -> dict:
+    """Phase 13f: CUDA activities (kernels, copies, sets) of one in-process
+    session per family at ε = (1.0, 0.5)."""
+    from dpcorr_torch.protocol import ProtocolSpec, run_inproc
+
+    out = {}
+    for family in SERVE_FAMILIES:
+        spec = ProtocolSpec(family=family, n=PROTO_N, eps1=1.0, eps2=0.5,
+                            seed=PROTO_SEED)
+        out[family] = launches_of(lambda: run_inproc(spec, x, y))
+    print(f"[{card}] 13f CUDA activities per session: {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def protocol_phase(card: str, cols, work: str) -> dict:
+    """Phase 13 (a)-(f); the caller sets the launch counts to 0 before."""
+    parts = {}
+    t0 = time.perf_counter()
+    x, y = proto_columns(card, cols)
+    a = protocol_sessions(card, x, y)
+    parts["13a s"] = time.perf_counter() - t0
+    for label, fn in (
+            ("13b,c", lambda: party_processes(card, x, y, a["want"], work)),
+            ("13d", lambda: federation_runs(card, x, y)),
+            ("13e", lambda: protocol_card_against_cpu(card, x, y,
+                                                      a["want"])),
+            ("13f", lambda: protocol_launch_counts(card, x, y))):
+        t0 = time.perf_counter()
+        parts[label] = fn()
+        parts[label + " s"] = time.perf_counter() - t0
+    parts["13a"] = a
+    return parts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -1976,10 +2418,25 @@ def main() -> int:
     if serve_launches:
         raise RuntimeError(f"phase 12: {serve_launches} K1 launches; the "
                            f"serving path has no kernel of its own")
-    work.cleanup()
     print(f"phase 12: {time.perf_counter() - t12:.1f} s "
           f"{json.dumps({k: round(v, 1) for k, v in parts.items() if k.endswith(' s')})}",
           flush=True)
+
+    # ---- 13. the two-party protocol and the federation, driven with the
+    # launch counts set to 0 just before it and read just after
+    t13 = time.perf_counter()
+    reset_launches()
+    parts = protocol_phase(card, cols, work.name)
+    protocol_launches = fused_ni.KERNEL_LAUNCHES["fused_ni"]
+    print(f"launches in the protocol run: {dict(fused_ni.KERNEL_LAUNCHES)}",
+          flush=True)
+    if protocol_launches:
+        raise RuntimeError(f"phase 13: {protocol_launches} K1 launches; the "
+                           f"protocol path has no kernel of its own")
+    work.cleanup()
+    seconds = {k: round(v, 1) for k, v in parts.items() if k.endswith(" s")}
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s "
+          f"{json.dumps(seconds)}", flush=True)
     bucket_ms = [v["ms"] for v in buckets.values()]
 
     record = {"kernels": [{
@@ -2014,6 +2471,7 @@ def main() -> int:
         "grid_bucket_ms_max": max(bucket_ms),
         "grid_bucket_ms_sum": sum(bucket_ms),
         "serve_launches": serve_launches,
+        "protocol_launches": protocol_launches,
     }]}
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(record), flush=True)

@@ -14,9 +14,16 @@ Counterpart of the simulation commands of ``python -m dpcorr``:
   directory holds (``dpcorr_torch.report``)
 - ``serve``       the online DP-correlation server: micro-batched queries
   behind a per-party ε ledger, over HTTP (``dpcorr_torch.serve``)
+- ``party``       one side of the two-party protocol over TCP
+  (``dpcorr_torch.protocol``)
+- ``protocol``    ``run``: both roles in one process; ``scan``: the
+  transcript auditor
+- ``federation``  ``plan | run | party | scan``: the N-party k×k matrix
 
-Every command but ``report`` runs on the card (``--device cuda``, the
-default) and raises without one unless ``--device cpu`` is given. Grids
+Every command but ``report``, ``protocol scan``, ``federation plan`` and
+``federation scan`` (which compute nothing and need no torch) runs on the
+card (``--device cuda``, the default) and raises without one unless
+``--device cpu`` is given. Grids
 persist per-design-point ``.npz`` caches and the merged tables
 (``detail_all.npz``, ``summ_all.npz``, ``detail_all.rds``) into
 ``--out`` and resume from them; they draw no figures (``report --from
@@ -32,9 +39,15 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 
 import numpy as np
+
+#: ``grid.BACKENDS``, named here so that building the parser imports no
+#: torch (the torch-free commands run where torch is not installed;
+#: tests/test_torch_cli.py holds the two equal)
+GRID_BACKENDS = ("local", "sharded", "bucketed", "bucketed-sharded")
 
 
 def _device(args):
@@ -434,12 +447,708 @@ def _add_serve(sub) -> None:
     p.set_defaults(fn=cmd_serve)
 
 
+# ------------------------------------------------ protocol and federation
+def _party_columns(args, n: int):
+    """Synthetic bivariate-normal columns, derived identically in both
+    party processes from the public spec seed (a numpy Generator, not the
+    estimators' key-tree), as ``python -m dpcorr`` derives them. Each
+    process keeps only its own column."""
+    rng = np.random.default_rng(args.seed)
+    cov = [[1.0, args.rho], [args.rho, 1.0]]
+    xy = rng.multivariate_normal([0.0, 0.0], cov, size=n)
+    return (np.asarray(xy[:, 0], np.float32),
+            np.asarray(xy[:, 1], np.float32))
+
+
+def _protocol_spec(args):
+    from dpcorr_torch.protocol.party import ProtocolSpec
+
+    return ProtocolSpec(family=args.family, n=args.n, eps1=args.eps1,
+                        eps2=args.eps2, alpha=args.alpha,
+                        normalise=args.normalise == "on",
+                        seed=args.seed, noise_mode=args.noise_mode,
+                        session=args.session or "")
+
+
+def _result_json(res) -> dict:
+    return {"role": res.role, "session": res.session,
+            "rho_hat": res.rho_hat, "ci_low": res.ci_low,
+            "ci_high": res.ci_high, "trace_id": res.trace_id,
+            "stats": res.stats}
+
+
+def _fault(args) -> dict | None:
+    fault = None
+    if args.fault_drop or args.fault_delay_ms or args.fault_duplicate:
+        fault = {"drop": args.fault_drop,
+                 "delay_s": args.fault_delay_ms / 1000.0,
+                 "duplicate": args.fault_duplicate}
+    if args.fault_seed is not None:
+        # one knob reproducing every side's fault stream; the runner
+        # stamps it into each transcript header
+        fault = dict(fault or {})
+        fault["seed"] = args.fault_seed
+    return fault
+
+
+def _arm_chaos(args):
+    """The crash plan of ``--chaos`` or ``DPCORR_CHAOS``, armed; a plan on
+    a point this package cannot reach yet is refused
+    (``chaos.check_reachable``)."""
+    from dpcorr_torch import chaos
+
+    plan = (chaos.plan_from_spec(args.chaos) if args.chaos
+            else chaos.plan_from_env())
+    if plan is not None:
+        try:
+            chaos.install(plan)
+        except ValueError as e:
+            raise SystemExit(f"chaos plan refused: {e}") from e
+    return plan
+
+
+def cmd_party(args):
+    """One side of the two-party protocol over TCP (counterpart of
+    ``python -m dpcorr party``): role y listens, role x connects; each
+    process holds one column and computes on ``--device``.
+
+    With ``--journal`` the session is crash-safe: state journals durably
+    as the session goes, the TCP link redials through peer restarts, and
+    rerunning the same command after a crash resumes the session. A
+    ``--chaos`` plan (or ``DPCORR_CHAOS``) arms a kill at a named crash
+    point."""
+    import os
+
+    from dpcorr_torch.obs import trace as obs_trace
+    from dpcorr_torch.obs.audit import AuditTrail
+    from dpcorr_torch.protocol.journal import SessionJournal
+    from dpcorr_torch.protocol.messages import Transcript
+    from dpcorr_torch.protocol.party import Party
+    from dpcorr_torch.protocol.transport import (
+        ReconnectingTcpLink,
+        ReliableChannel,
+        tcp_accept,
+        tcp_connect,
+        tcp_listen,
+    )
+    from dpcorr_torch.serve.ledger import PrivacyLedger
+
+    device = _device(args)
+    plan = _arm_chaos(args)
+    if args.trace:
+        obs_trace.configure(args.trace)
+    spec = _protocol_spec(args)
+    if args.data:
+        col = np.asarray(np.load(args.data), np.float32)
+        if col.shape != (spec.n,):
+            raise SystemExit(f"--data has shape {col.shape}, spec says "
+                             f"({spec.n},)")
+    else:
+        cols = _party_columns(args, spec.n)
+        col = cols[0] if args.role == "x" else cols[1]
+    srv = None
+    # a journaled restart must not block on a live peer before the
+    # session logic runs: when the peer already finished and left, the
+    # bounded resume handshake concludes peer-gone and the session
+    # completes from the journal, so the first accept/connect goes
+    # lazily through the reconnecting link
+    resuming = bool(args.journal) and os.path.exists(args.journal)
+    if args.role == "y":
+        srv, bound = tcp_listen(args.host, args.port)
+        print(json.dumps({"party": {"role": "y", "session": spec.session,
+                                    "instance": args.instance,
+                                    "listening": [args.host, bound],
+                                    "device": str(device)}}), flush=True)
+        if args.journal:
+            # keep the server socket: a crashed peer's restart redials
+            # the same port and the reconnecting link re-accepts it
+            first = (None if resuming
+                     else tcp_accept(srv, timeout_s=args.connect_timeout))
+            link = ReconnectingTcpLink(
+                lambda: tcp_accept(srv, timeout_s=5.0), link=first,
+                max_outage_s=args.connect_timeout)
+        else:
+            link = tcp_accept(srv, timeout_s=args.connect_timeout)
+            srv.close()
+            srv = None
+    else:
+        print(json.dumps({"party": {"role": "x", "session": spec.session,
+                                    "instance": args.instance,
+                                    "connecting": [args.host, args.port],
+                                    "device": str(device)}}), flush=True)
+        if args.journal:
+            first = (None if resuming
+                     else tcp_connect(args.host, args.port,
+                                      timeout_s=args.connect_timeout))
+            link = ReconnectingTcpLink(
+                lambda: tcp_connect(args.host, args.port, timeout_s=5.0),
+                link=first, max_outage_s=args.connect_timeout)
+        else:
+            link = tcp_connect(args.host, args.port,
+                               timeout_s=args.connect_timeout)
+    audit = AuditTrail(args.audit) if args.audit else None
+    ledger = PrivacyLedger(args.budget, path=args.ledger, audit=audit)
+    channel = ReliableChannel(link, timeout_s=args.timeout,
+                              max_retries=args.max_retries)
+    transcript = Transcript(args.transcript)
+    if args.instance:
+        transcript.meta(instance=args.instance)
+    if plan is not None:
+        # the kill plan is in the transcript header, so a chaos run
+        # replays from its own log
+        transcript.meta(chaos=plan.to_dict(), session=spec.session)
+    journal = SessionJournal(args.journal) if args.journal else None
+    party = Party(args.role, col, spec, channel, ledger,
+                  transcript=transcript, recv_timeout_s=args.recv_timeout,
+                  journal=journal, device=device)
+    try:
+        res = party.run()
+    finally:
+        link.close()
+        if srv is not None:
+            srv.close()
+    print(json.dumps({"result": _result_json(res)}, indent=2))
+
+
+def cmd_protocol_run(args):
+    """Both roles in one process (threads) over the chosen transport, on
+    ``--device`` (counterpart of ``python -m dpcorr protocol run``)."""
+    from dpcorr_torch.protocol.party import ProtocolError
+    from dpcorr_torch.protocol.runner import run_inproc, run_tcp
+
+    device = _device(args)
+    spec = _protocol_spec(args)
+    x, y = _party_columns(args, spec.n)
+    run = run_tcp if args.transport == "tcp" else run_inproc
+    try:
+        results = run(spec, x, y, fault=_fault(args),
+                      transcript_dir=args.transcript_dir,
+                      timeout_s=args.timeout, max_retries=args.max_retries,
+                      device=device)
+    except ProtocolError as e:
+        raise SystemExit(f"protocol aborted: {e}") from e
+    out = {"spec": spec.to_public(), "session": spec.session,
+           "device": str(device),
+           "results": {r: _result_json(res)
+                       for r, res in sorted(results.items())}}
+    agree = (results["x"].rho_hat == results["y"].rho_hat
+             and results["x"].ci_low == results["y"].ci_low
+             and results["x"].ci_high == results["y"].ci_high)
+    out["roles_agree"] = agree
+    print(json.dumps(out, indent=2))
+    if not agree:
+        raise SystemExit("role results diverged")
+
+
+def cmd_protocol_scan(args):
+    """Offline transcript audit (``protocol.scan``): message schema and no
+    raw columns, and with ``--audit`` the ε balance. Needs no torch;
+    exits 1 on any violation."""
+    from dpcorr_torch.obs.audit import read_events
+    from dpcorr_torch.protocol.scan import ledger_balance, scan_transcript
+
+    rep = scan_transcript(args.transcript)
+    out = {"scan": rep}
+    ok = rep["ok"]
+    if args.audit:
+        bal = ledger_balance(args.transcript, read_events(args.audit))
+        out["balance"] = bal
+        ok = ok and bal["ok"]
+    print(json.dumps(out, indent=2))
+    if not ok:
+        sys.exit(1)
+
+
+def _federation_plan(args):
+    """The public federation plan a subcommand runs under: from a
+    ``--plan`` JSON file (the document every party process of one
+    federation must share) or inline ``--party`` flags (their order is
+    the plan order)."""
+    from dpcorr_torch.protocol.matrix import FederationPlan
+
+    if args.plan:
+        with open(args.plan, encoding="utf-8") as fh:
+            doc = json.load(fh)
+        return FederationPlan.from_public(doc.get("plan", doc))
+    if not args.party:
+        raise SystemExit("pass --party NAME=LAB1[,LAB2...] (repeatable; "
+                         "order is the plan order) or --plan FILE")
+    parties = []
+    for spec in args.party:
+        name, sep, labs = spec.partition("=")
+        labels = [s for s in labs.split(",") if s]
+        if not sep or not name or not labels:
+            raise SystemExit(f"--party {spec!r}: expected "
+                             "NAME=LAB1[,LAB2...]")
+        parties.append((name, labels))
+    return FederationPlan(family=args.family, n=args.n, eps=args.eps,
+                          parties=parties, alpha=args.alpha,
+                          normalise=args.normalise == "on",
+                          seed=args.seed, noise_mode=args.noise_mode,
+                          max_cells_per_round=args.max_cells_per_round)
+
+
+def _federation_columns(plan, rho: float) -> dict:
+    """Synthetic equicorrelated columns for all k labels, from the public
+    plan seed (a numpy Generator), as ``python -m dpcorr`` derives them:
+    every party process re-derives the same draw and keeps only its own
+    labels."""
+    k = plan.k
+    if not -1.0 / max(k - 1, 1) < rho < 1.0:
+        raise SystemExit(f"--rho {rho} is not a valid equicorrelation "
+                         f"for k={k} (need -1/(k-1) < rho < 1)")
+    cov = np.full((k, k), float(rho))
+    np.fill_diagonal(cov, 1.0)
+    xy = np.random.default_rng(plan.seed).multivariate_normal(
+        np.zeros(k), cov, size=plan.n)
+    return {label: np.asarray(xy[:, idx], np.float32)
+            for idx, (_owner, label) in enumerate(plan.columns())}
+
+
+def cmd_federation_plan(args):
+    """Compile and print the federation schedule: cells, links, rounds,
+    artifact charge venues and the ε arithmetic (optimal against naive
+    per cell). Plan arithmetic only; needs no torch."""
+    print(json.dumps(_federation_plan(args).describe(), indent=2))
+
+
+def cmd_federation_run(args):
+    """The whole federation in one process, every party on a thread over
+    queue-pair or loopback-TCP wires, on ``--device``."""
+    from dpcorr_torch.protocol.federation import (
+        run_federation_inproc,
+        run_federation_tcp,
+    )
+    from dpcorr_torch.protocol.party import ProtocolError
+
+    device = _device(args)
+    plan = _federation_plan(args)
+    data = _federation_columns(plan, args.rho)
+    run = (run_federation_tcp if args.transport == "tcp"
+           else run_federation_inproc)
+    try:
+        results = run(plan, data, fault=_fault(args),
+                      transcript_dir=args.transcript_dir,
+                      timeout_s=args.timeout,
+                      max_retries=args.max_retries, engine=args.engine,
+                      device=device)
+    except ProtocolError as e:
+        raise SystemExit(f"federation aborted: {e}") from e
+    # every cell two parties both see must agree bitwise: the wire result
+    # is the finisher's result, so disagreement means corruption
+    cells: dict = {}
+    agree = True
+    for _name, res in sorted(results.items()):
+        for key, val in res.cells.items():
+            if key in cells and cells[key] != val:
+                agree = False
+            cells.setdefault(key, val)
+    out = {"fed": plan.fed, "fed_hash": plan.fed_hash(),
+           "plan": plan.to_public(), "device": str(device),
+           "cells": {key: cells[key] for key in sorted(cells)},
+           "eps": {"optimal": plan.optimal_eps(),
+                   "naive_per_cell": plan.naive_eps(),
+                   "per_party": plan.party_eps()},
+           "parties": {name: {"cells": res.cells, "eps": res.eps,
+                              "stats": res.stats}
+                       for name, res in sorted(results.items())},
+           "parties_agree": agree}
+    print(json.dumps(out, indent=2))
+    if not agree:
+        raise SystemExit("parties diverged on a shared cell")
+
+
+def cmd_federation_party(args):
+    """One real party process of a multi-process federation over TCP, on
+    ``--device``: for each pair link the lower party dials (``--peer
+    NAME=HOST:PORT``) and the higher listens (``--listen``, the bound
+    port announced in the banner). With ``--journal-dir`` every link is
+    crash-safe: rerun the same command after a crash and the matrix
+    resumes."""
+    import os
+
+    from dpcorr_torch.obs import trace as obs_trace
+    from dpcorr_torch.obs.audit import AuditTrail
+    from dpcorr_torch.protocol.federation import serve_federation_party
+    from dpcorr_torch.serve.ledger import PrivacyLedger
+
+    device = _device(args)
+    _arm_chaos(args)
+    fed = _federation_plan(args)
+    name = args.name
+    instance = args.instance or name
+    if args.trace:
+        # a directory spools per instance (trace.<instance>.jsonl), so k
+        # parties can share one --trace value
+        trace_path = (os.path.join(args.trace, f"trace.{instance}.jsonl")
+                      if os.path.isdir(args.trace) else args.trace)
+        obs_trace.configure(trace_path)
+    my_idx = fed.party_index(name)
+    columns = {lab: col for lab, col
+               in _federation_columns(fed, args.rho).items()
+               if lab in fed.party_labels(name)}
+    listen = None
+    if args.listen:
+        host, sep, port = args.listen.rpartition(":")
+        if not sep:
+            raise SystemExit(f"--listen {args.listen!r}: expected "
+                             "HOST:PORT")
+        listen = (host, int(port))
+    peers = {}
+    for spec in args.peer or []:
+        peer, sep, addr = spec.partition("=")
+        host, sep2, port = addr.rpartition(":")
+        if not sep or not sep2:
+            raise SystemExit(f"--peer {spec!r}: expected NAME=HOST:PORT")
+        peers[peer] = (host, int(port))
+    accepts = any(fed.party_index(q if p == name else p) < my_idx
+                  for p, q in fed.party_links(name))
+
+    def banner(**extra):
+        doc = {"federation": fed.fed, "name": name, "instance": instance,
+               "device": str(device)}
+        doc.update(extra)
+        print(json.dumps({"party": doc}), flush=True)
+
+    def on_listening(host, port):
+        banner(listening=[host, port])
+
+    if not accepts:
+        # pure dialers print a banner too: a script that starts the
+        # parties reads every party's stdout alike (banners, then result)
+        banner(dialing=sorted(peers))
+    audit = AuditTrail(args.audit) if args.audit else None
+    ledger = PrivacyLedger(args.budget, path=args.ledger, audit=audit)
+    res = serve_federation_party(
+        name, fed, columns, ledger=ledger, listen=listen, peers=peers,
+        transcript_dir=args.transcript_dir,
+        journal_dir=args.journal_dir, timeout_s=args.timeout,
+        max_retries=args.max_retries,
+        connect_timeout_s=args.connect_timeout,
+        recv_timeout_s=args.recv_timeout, engine=args.engine,
+        on_listening=on_listening, instance=args.instance, device=device)
+    print(json.dumps({"result": {"party": res.party, "fed": res.fed,
+                                 "cells": res.cells, "eps": res.eps,
+                                 "stats": res.stats}}, indent=2))
+
+
+def cmd_federation_scan(args):
+    """Offline federation audit (needs no torch): each transcript's schema
+    scan, the cross-pair correlation-leak gate (a reused column release
+    must be byte-identical in every pair session; exit 1 names the
+    offending pair), and with ``--audit NAME=PATH`` each party's
+    whole-matrix ε balance against its plan-derived local spend."""
+    import glob as globmod
+    import os
+
+    from dpcorr_torch.obs import recorder as obs_recorder
+    from dpcorr_torch.obs.audit import read_events
+    from dpcorr_torch.protocol.matrix import FederationPlan
+    from dpcorr_torch.protocol.scan import (
+        federation_balance,
+        scan_federation,
+        scan_transcript,
+    )
+
+    transcripts = list(args.transcript or [])
+    if args.transcript_dir:
+        for path in sorted(globmod.glob(
+                os.path.join(args.transcript_dir, "*.jsonl"))):
+            base = os.path.basename(path)
+            if not base.startswith(("audit.", "trace.")):
+                transcripts.append(path)
+    if not transcripts:
+        raise SystemExit("pass --transcript (repeatable) or "
+                         "--transcript-dir")
+    plan = None
+    if args.plan:
+        with open(args.plan, encoding="utf-8") as fh:
+            doc = json.load(fh)
+        plan = FederationPlan.from_public(doc.get("plan", doc))
+    per = {t: scan_transcript(t) for t in transcripts}
+    cross = scan_federation(transcripts)
+    ok = all(r["ok"] for r in per.values()) and cross["ok"]
+    out = {"transcripts": per, "cross_pair": cross}
+    balances = {}
+    for spec in args.audit or []:
+        pname, sep, path = spec.partition("=")
+        if not sep:
+            raise SystemExit(f"--audit {spec!r}: expected NAME=PATH")
+        mine = [t for t in transcripts
+                if os.path.basename(t).split(".")[-2] == pname]
+        expected = (sum(plan.local_charges(pname)["charges"].values())
+                    if plan is not None else 0.0)
+        bal = federation_balance(mine, read_events(path),
+                                 expected_local_eps=expected)
+        balances[pname] = bal
+        ok = ok and bal["ok"]
+    if balances:
+        out["balance"] = balances
+    print(json.dumps(out, indent=2))
+    if not ok:
+        obs_recorder.trigger(
+            "federation_scan_violation", violations=cross["violations"],
+            transcripts=sorted(os.path.basename(t) for t in transcripts))
+        sys.exit(1)
+
+
+def _add_device(p) -> None:
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where to run: the card (default; raises without "
+                        "one) or the CPU")
+
+
+def _add_spec_flags(p) -> None:
+    p.add_argument("--family", default="ni_sign",
+                   choices=["ni_sign", "int_sign", "ni_subg", "int_subg"])
+    p.add_argument("--n", type=int, default=4000)
+    p.add_argument("--eps1", type=float, default=1.0)
+    p.add_argument("--eps2", type=float, default=0.5)
+    p.add_argument("--alpha", type=float, default=0.05)
+    p.add_argument("--normalise", default="on", choices=["on", "off"])
+    p.add_argument("--seed", type=int, default=2025)
+    p.add_argument("--session", default=None,
+                   help="session id (default: derived from the spec hash, "
+                        "so both parties agree without coordination)")
+    p.add_argument("--noise-mode", dest="noise_mode", default="replay",
+                   choices=["replay", "hardened"],
+                   help="key layout (utils.rng.party_root): 'replay' is "
+                        "bit-equal to the monolithic estimators; "
+                        "'hardened' gives each party a disjoint key "
+                        "subtree")
+    p.add_argument("--rho", type=float, default=0.6,
+                   help="synthetic-data correlation (ignored with --data)")
+    p.add_argument("--timeout", type=float, default=10.0,
+                   help="per-message ack timeout (seconds)")
+    p.add_argument("--max-retries", dest="max_retries", type=int,
+                   default=10)
+    _add_device(p)
+
+
+def _add_fault_flags(p, seed_help: str) -> None:
+    p.add_argument("--fault-drop", dest="fault_drop", type=float,
+                   default=0.0, help="fault injection: drop rate")
+    p.add_argument("--fault-delay-ms", dest="fault_delay_ms", type=float,
+                   default=0.0, help="fault injection: per-frame delay")
+    p.add_argument("--fault-duplicate", dest="fault_duplicate", type=float,
+                   default=0.0, help="fault injection: duplicate rate")
+    p.add_argument("--fault-seed", dest="fault_seed", type=int,
+                   default=None, help=seed_help)
+
+
+def _add_protocol(sub) -> None:
+    """``party`` and ``protocol run | scan``, with the JAX package's flags
+    (``--device`` in place of ``--platform``; the per-user budget flags
+    ``--user*`` wait for the budget directory's port)."""
+    pp_ = sub.add_parser("party", help="one side of the two-party DP "
+                         "protocol over TCP: role y listens, role x "
+                         "connects; each process holds one column")
+    pp_.add_argument("--role", required=True, choices=["x", "y"])
+    pp_.add_argument("--instance", default=None,
+                     help="instance name, stamped into the banner and the "
+                          "transcript header")
+    pp_.add_argument("--host", default="127.0.0.1")
+    pp_.add_argument("--port", type=int, required=True)
+    pp_.add_argument("--connect-timeout", dest="connect_timeout",
+                     type=float, default=30.0,
+                     help="seconds to keep dialing (x) or await the peer "
+                          "(y)")
+    pp_.add_argument("--data", default=None,
+                     help="this party's column as a .npy file (shape "
+                          "(n,)); default: synthetic from --rho/--seed")
+    pp_.add_argument("--budget", type=float, default=100.0,
+                     help="this party's ε budget (basic composition)")
+    pp_.add_argument("--ledger", default=None,
+                     help="ledger persistence path (JSON), the format of "
+                          "serve --ledger and of the JAX package")
+    pp_.add_argument("--transcript", default=None,
+                     help="JSONL wire transcript path (audit it with "
+                          "`protocol scan`)")
+    pp_.add_argument("--trace", default=None,
+                     help="span-trace JSONL path; the trace ID crosses "
+                          "the wire, so both parties' logs join")
+    pp_.add_argument("--audit", default=None,
+                     help="budget audit-trail JSONL path")
+    pp_.add_argument("--journal", default=None,
+                     help="session journal path (JSON): rerun the same "
+                          "command after a crash and the session resumes")
+    pp_.add_argument("--chaos", default=None,
+                     help="crash plan 'point=NAME[,hit=K][,mode=exit|"
+                          "raise]' or 'seed=N' (dpcorr_torch.chaos); "
+                          "default: $DPCORR_CHAOS; recorded in the "
+                          "transcript header")
+    pp_.add_argument("--recv-timeout", dest="recv_timeout", type=float,
+                     default=30.0,
+                     help="seconds to wait for the peer's next message "
+                          "(raise it when the peer may restart)")
+    _add_spec_flags(pp_)
+    pp_.set_defaults(fn=cmd_party)
+
+    pr_ = sub.add_parser("protocol", help="two-party protocol tooling: "
+                         "both roles in one process, and the torch-free "
+                         "transcript auditor")
+    pr_sub = pr_.add_subparsers(dest="protocol_cmd", required=True)
+    prr = pr_sub.add_parser("run", help="drive both roles in-process over "
+                            "queue-pair or loopback-TCP transport")
+    prr.add_argument("--transport", default="inproc",
+                     choices=["inproc", "tcp"])
+    prr.add_argument("--transcript-dir", dest="transcript_dir",
+                     default=None,
+                     help="write each party's wire transcript JSONL here")
+    _add_fault_flags(prr, "base seed for both sides' fault injectors "
+                          "(stamped into the transcript headers)")
+    _add_spec_flags(prr)
+    prr.set_defaults(fn=cmd_protocol_run)
+    prs = pr_sub.add_parser("scan", help="audit a party transcript: "
+                            "schema and no raw columns, and with --audit "
+                            "the transcript-ledger ε balance; exit 1 on "
+                            "violations (needs no torch)")
+    prs.add_argument("--transcript", required=True,
+                     help="party transcript JSONL")
+    prs.add_argument("--audit", default=None,
+                     help="that party's audit-trail JSONL; enables the ε "
+                          "balance check")
+    prs.set_defaults(fn=cmd_protocol_scan)
+
+
+def _add_federation(sub) -> None:
+    """``federation plan | run | party | scan``, with the JAX package's
+    flags (``--device`` in place of ``--platform``; ``party --obs-port``
+    waits for the obs endpoint's port)."""
+    pf_ = sub.add_parser("federation", help="N-party federation: the k×k "
+                         "DP correlation matrix over multiplexed pair "
+                         "sessions, at the release-reuse ε optimum")
+    pf_sub = pf_.add_subparsers(dest="federation_cmd", required=True)
+
+    def fed_flags(p):
+        p.add_argument("--plan", default=None,
+                       help="federation plan JSON file (the document "
+                            "`federation plan` prints, or its inner "
+                            "public dict); overrides --party and the spec "
+                            "flags")
+        p.add_argument("--party", action="append", default=None,
+                       metavar="NAME=LAB1[,LAB2...]",
+                       help="one party and its column labels (repeatable; "
+                            "order is the plan order)")
+        p.add_argument("--family", default="ni_sign",
+                       choices=["ni_sign", "int_sign", "ni_subg",
+                                "int_subg"])
+        p.add_argument("--n", type=int, default=4000)
+        p.add_argument("--eps", type=float, default=1.0,
+                       help="the federation's shared per-column ε")
+        p.add_argument("--alpha", type=float, default=0.05)
+        p.add_argument("--normalise", default="on", choices=["on", "off"])
+        p.add_argument("--seed", type=int, default=2025)
+        p.add_argument("--noise-mode", dest="noise_mode",
+                       default="replay", choices=["replay", "hardened"])
+        p.add_argument("--max-cells-per-round",
+                       dest="max_cells_per_round", type=int, default=0,
+                       help="chunk a link's cells into rounds of this size "
+                            "(0: all of a link's cells in one round)")
+
+    def run_flags(p):
+        p.add_argument("--rho", type=float, default=0.6,
+                       help="synthetic-data equicorrelation across the k "
+                            "columns")
+        p.add_argument("--engine", default="exact",
+                       choices=["exact", "vector"],
+                       help="batched finish engine "
+                            "(split_reference.finish_batch): 'exact' is "
+                            "the bit-identity contract, 'vector' one call "
+                            "over the round's cells")
+        p.add_argument("--timeout", type=float, default=10.0,
+                       help="per-message ack timeout (seconds)")
+        p.add_argument("--max-retries", dest="max_retries", type=int,
+                       default=10)
+        _add_device(p)
+
+    pfp = pf_sub.add_parser("plan", help="compile and print the schedule: "
+                            "cells, links, rounds, artifact charge venues "
+                            "and the ε arithmetic (needs no torch)")
+    fed_flags(pfp)
+    pfp.set_defaults(fn=cmd_federation_plan)
+
+    pfr = pf_sub.add_parser("run", help="the whole federation in one "
+                            "process over queue-pair or loopback-TCP "
+                            "transport")
+    fed_flags(pfr)
+    run_flags(pfr)
+    pfr.add_argument("--transport", default="inproc",
+                     choices=["inproc", "tcp"])
+    pfr.add_argument("--transcript-dir", dest="transcript_dir",
+                     default=None,
+                     help="write every pair link's per-party transcript "
+                          "JSONL here (audit with `federation scan`)")
+    _add_fault_flags(pfr, "base seed for every endpoint's fault injector")
+    pfr.set_defaults(fn=cmd_federation_run)
+
+    pft = pf_sub.add_parser("party", help="one real party process of a "
+                            "multi-process federation over TCP; with "
+                            "--journal-dir the matrix is crash-safe")
+    fed_flags(pft)
+    run_flags(pft)
+    pft.add_argument("--name", required=True,
+                     help="this process's party name in the plan")
+    pft.add_argument("--listen", default=None, metavar="HOST:PORT",
+                     help="bind here for peers that dial this party (port "
+                          "0: ephemeral, announced in the banner)")
+    pft.add_argument("--peer", action="append", default=None,
+                     metavar="NAME=HOST:PORT",
+                     help="where to dial a higher-indexed link peer "
+                          "(repeatable)")
+    pft.add_argument("--budget", type=float, default=100.0,
+                     help="this party's ε budget (basic composition)")
+    pft.add_argument("--ledger", default=None,
+                     help="ledger persistence path (JSON)")
+    pft.add_argument("--audit", default=None,
+                     help="budget audit-trail JSONL path")
+    pft.add_argument("--trace", default=None,
+                     help="span-trace JSONL path, or a directory that "
+                          "spools to trace.<instance>.jsonl")
+    pft.add_argument("--instance", default=None,
+                     help="instance name for the banner and the span "
+                          "spool; default: --name")
+    pft.add_argument("--transcript-dir", dest="transcript_dir",
+                     default=None, help="per-link transcript directory")
+    pft.add_argument("--journal-dir", dest="journal_dir", default=None,
+                     help="per-link session journal directory: every "
+                          "pair session crash-safe")
+    pft.add_argument("--chaos", default=None,
+                     help="crash plan 'point=NAME[,hit=K][,mode=exit|"
+                          "raise]' or 'seed=N'; default: $DPCORR_CHAOS")
+    pft.add_argument("--connect-timeout", dest="connect_timeout",
+                     type=float, default=30.0,
+                     help="seconds to keep dialing or await each peer")
+    pft.add_argument("--recv-timeout", dest="recv_timeout", type=float,
+                     default=30.0,
+                     help="seconds to wait for a peer's next message")
+    pft.set_defaults(fn=cmd_federation_party)
+
+    pfs = pf_sub.add_parser("scan", help="audit a federation's pair "
+                            "transcripts: schema and no raw columns, the "
+                            "cross-pair correlation-leak gate and each "
+                            "party's ε balance (needs no torch)")
+    pfs.add_argument("--transcript", action="append", default=None,
+                     help="pair-link transcript JSONL (repeatable)")
+    pfs.add_argument("--transcript-dir", dest="transcript_dir",
+                     default=None,
+                     help="scan every *.jsonl here (audit. and trace. "
+                          "prefixes skipped)")
+    pfs.add_argument("--audit", action="append", default=None,
+                     metavar="NAME=PATH",
+                     help="party NAME's audit-trail JSONL: enables its "
+                          "whole-matrix ε balance check (repeatable)")
+    pfs.add_argument("--plan", default=None,
+                     help="the federation plan JSON, from which the "
+                          "balance check derives each party's local-cell "
+                          "ε (default: 0)")
+    pfs.set_defaults(fn=cmd_federation_scan)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="dpcorr_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    from dpcorr_torch.grid import BACKENDS
-
-    backends_by_cmd = {"grid": BACKENDS, "grid-subg": BACKENDS,
+    backends_by_cmd = {"grid": GRID_BACKENDS, "grid-subg": GRID_BACKENDS,
                        "stress": ("local", "sharded")}
     for name, fn in [("demo", cmd_demo), ("demo-subg", cmd_demo_subg),
                      ("grid", cmd_grid), ("grid-subg", cmd_grid_subg),
@@ -493,6 +1202,8 @@ def main(argv=None):
                    help="the grid's figure family")
     p.set_defaults(fn=cmd_report)
     _add_serve(sub)
+    _add_protocol(sub)
+    _add_federation(sub)
     args = ap.parse_args(argv)
     args.fn(args)
 

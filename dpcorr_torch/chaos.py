@@ -1,10 +1,10 @@
-"""Named crash points and fault sites of the serving stack.
+"""Named crash points, seeded kill plans and fault sites.
 
-Counterpart of the parts of ``dpcorr/chaos.py`` the serving stack calls:
-code with a durability boundary declares it (``chaos.point``), code that
-can limp declares a fault site (``chaos.fault``), and a plan installed by
-a test or the CLI (``python -m dpcorr_torch serve --fault``) makes the
-process die or degrade there.
+Counterpart of ``dpcorr/chaos.py``: code with a durability boundary
+declares it (``chaos.point``), code that can limp declares a fault site
+(``chaos.fault``), and a plan installed by a test, the CLI (``party
+--chaos``, ``serve --fault``) or the ``DPCORR_CHAOS`` environment
+variable makes the process die or degrade there.
 
 - **Crash points** model the process dying at a boundary: a
   :class:`ChaosPlan` kills on a chosen traversal of a chosen point,
@@ -15,14 +15,19 @@ process die or degrade there.
   :class:`SimulatedFault` (a plain ``Exception``, caught like a real
   kernel error) or sleeps, over a range of traversals.
 
-Both are one ``is None`` or emptiness check when nothing is armed. The
-protocol's crash points and its seeded kill matrix belong to the
-protocol slice and are not here.
+Both are one ``is None`` or emptiness check when nothing is armed.
+:data:`KNOWN_POINTS` and :data:`MATRIX_POINTS` are the JAX package's
+tuples in its order, because :func:`plan_from_seed` indexes into them.
+The points of modules not ported yet (the per-user budget directory, the
+stream service, the fleet lease) are in :data:`UNREACHABLE_POINTS`:
+:func:`install` refuses a plan on one, since no code here would ever
+traverse it and the kill would never come.
 """
 
 from __future__ import annotations
 
 import os
+import random
 import threading
 import time
 
@@ -30,16 +35,78 @@ import time
 #: never mistaken for the plan.
 EXIT_CODE = 42
 
-#: The crash points the serving stack traverses, with the JAX package's
-#: names.
+#: Every registered crash point. Static, ordered, and append-only by
+#: convention: seed-derived plans index into this list, so reordering
+#: would silently change what historical seeds reproduce.
 KNOWN_POINTS = (
-    # ledger durability windows (serve/ledger.py)
+    # protocol session (party.py / gate.py / journal consumers)
+    "party.post_handshake",   # handshake done, nothing journaled yet
+    "journal.post_prepare",   # outbound slot durable, not charged/sent
+    "gate.post_charge",       # eps durably charged, release not sent
+    "gate.post_send",         # release acked, journal not marked
+    "party.post_gated",       # journal marked acked, transcript pending
+    # ledger durability windows (serve/ledger.py; also traversed by the
+    # protocol parties — the gate charges the same ledger)
     "ledger.pre_persist",     # spend mutated in memory, file untouched
     "ledger.post_persist",    # spend on disk, audit event not written
     # serve flush pipeline (serve/coalescer.py)
     "coalescer.pre_flush",    # batch popped, kernel not dispatched
     "coalescer.post_flush",   # responses resolved, stats published
+    # budget-directory persist windows (serve/budget_dir.py) — every
+    # durability boundary of a sharded per-user charge
+    "budget.pre_journal",     # admitted, WAL line not yet appended
+    "budget.post_journal",    # WAL line fsynced, not applied in memory
+    "budget.mid_compaction",  # snapshot gen+1 renamed, WAL still gen
+    "budget.mid_eviction",    # cold spill appended, user still resident
+    # federation matrix sessions (protocol/federation.py)
+    "federation.pre_release",  # column artifacts built, round not charged
+    "federation.mid_matrix",   # some pair links finished, others pending
+    "federation.pre_finish",   # round validated, finish kernel not run
+    # stream window release sequence (stream/service.py) — NOT in
+    # MATRIX_POINTS: the two-party chaos matrix never traverses them;
+    # the JAX package's stream service does
+    "stream.pre_release",      # window closable, nothing charged yet
+    "stream.mid_window",       # ingest batch in the WAL, not acked
+    "stream.post_journal",     # release journaled, window not closed
+    # fleet lease takeover (serve/fleet/lease.py) — NOT in
+    # MATRIX_POINTS: the two-party chaos matrix never traverses it;
+    # the JAX package's fleet tests do
+    "fleet.pre_lease_commit",  # claim file won, lease not committed
 )
+
+#: The step-kill matrix the JAX package's ``chaos`` command sweeps: the
+#: points every protocol role traverses exactly once per session (the
+#: ledger windows fire inside the role's own gated charge). The coalescer
+#: points are serve-side and are exercised by the serve/ledger crash tests
+#: instead.
+MATRIX_POINTS = (
+    "party.post_handshake",
+    "journal.post_prepare",
+    "gate.post_charge",
+    "ledger.post_persist",
+    "gate.post_send",
+    "party.post_gated",
+    # budget-directory windows: traversed once per gated charge when
+    # the party wraps its ledger in a CompositeLedger (the chaos command
+    # arms the directory with compact-every=1 / max-resident=0 so the
+    # compaction and eviction windows fire on that same charge)
+    "budget.pre_journal",
+    "budget.post_journal",
+    "budget.mid_compaction",
+    "budget.mid_eviction",
+    # federation points: two-party sessions never traverse these; the
+    # chaos CLI routes them to a 3-party matrix case instead (and the
+    # two-party crash-resume matrix test filters them out)
+    "federation.pre_release",
+    "federation.mid_matrix",
+    "federation.pre_finish",
+)
+
+#: Points no module of this package traverses yet (their modules are
+#: still to be ported): a plan on one would never fire.
+UNREACHABLE_POINTS = frozenset(
+    p for p in KNOWN_POINTS
+    if p.startswith(("budget.", "stream.", "fleet.")))
 
 _MODES = ("exit", "raise")
 _KNOWN = frozenset(KNOWN_POINTS)
@@ -62,9 +129,15 @@ class SimulatedCrash(BaseException):
 
 class ChaosPlan:
     """One planned kill: die on the ``hit``-th traversal of ``point``.
-    ``thread_name`` scopes an in-process plan to one victim thread."""
+
+    ``role`` names the party process that receives the plan;
+    ``thread_name`` scopes an in-process plan to one victim thread so the
+    surviving party thread in a two-threads-one-process test sails past
+    the same point untouched. ``seed`` records how the plan was derived,
+    for the transcript header."""
 
     def __init__(self, point: str, hit: int = 1, mode: str = "exit",
+                 role: str | None = None, seed: int | None = None,
                  thread_name: str | None = None):
         if point not in _KNOWN:
             raise ValueError(f"unknown chaos point {point!r}; "
@@ -76,7 +149,83 @@ class ChaosPlan:
         self.point = point
         self.hit = int(hit)
         self.mode = mode
+        self.role = role
+        self.seed = seed
         self.thread_name = thread_name
+
+    def to_dict(self) -> dict:
+        """Transcript-header form: everything needed to reproduce."""
+        out = {"point": self.point, "hit": self.hit, "mode": self.mode}
+        if self.role is not None:
+            out["role"] = self.role
+        if self.seed is not None:
+            out["seed"] = self.seed
+        return out
+
+    def to_spec(self) -> str:
+        """The ``--chaos``/``DPCORR_CHAOS`` string form of this plan."""
+        parts = [f"point={self.point}", f"hit={self.hit}",
+                 f"mode={self.mode}"]
+        if self.role is not None:
+            parts.append(f"role={self.role}")
+        return ",".join(parts)
+
+
+def plan_from_seed(seed: int, mode: str = "exit") -> ChaosPlan:
+    """Derive a matrix kill deterministically from one integer: which
+    point, which traversal (always the first: each matrix point fires
+    once per session) and which role is the victim. stdlib RNG over the
+    static matrix, so a seed names the same kill as in the JAX package."""
+    r = random.Random(int(seed))
+    point = r.choice(MATRIX_POINTS)
+    role = r.choice(("x", "y"))
+    return ChaosPlan(point, hit=1, mode=mode, role=role, seed=int(seed))
+
+
+def plan_from_spec(spec: str) -> ChaosPlan:
+    """Parse ``"point=gate.post_charge,hit=1,mode=exit"`` or
+    ``"seed=123"`` (seed-derived matrix kill)."""
+    fields: dict[str, str] = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise ValueError(f"bad chaos spec field {part!r} "
+                             "(want key=value)")
+        k, v = part.split("=", 1)
+        fields[k.strip()] = v.strip()
+    if "seed" in fields:
+        plan = plan_from_seed(int(fields["seed"]),
+                              mode=fields.get("mode", "exit"))
+        if "role" in fields:
+            plan.role = fields["role"]
+        return plan
+    if "point" not in fields:
+        raise ValueError(f"chaos spec {spec!r} names neither point= "
+                         "nor seed=")
+    return ChaosPlan(fields["point"], hit=int(fields.get("hit", "1")),
+                     mode=fields.get("mode", "exit"),
+                     role=fields.get("role"))
+
+
+def plan_from_env(env: str = "DPCORR_CHAOS") -> ChaosPlan | None:
+    """The subprocess hook: a victim process started with
+    ``DPCORR_CHAOS=point=...,hit=...`` installs its own kill."""
+    spec = os.environ.get(env)
+    return plan_from_spec(spec) if spec else None
+
+
+def check_reachable(plan: ChaosPlan) -> None:
+    """Raise on a plan whose point no module of this package traverses
+    yet (:data:`UNREACHABLE_POINTS`): the case could never crash, and a
+    run of it must not pass as if it had survived one."""
+    if plan.point in UNREACHABLE_POINTS:
+        raise ValueError(
+            f"chaos point {plan.point!r} is not reachable in dpcorr_torch "
+            "yet: the module that traverses it (the per-user budget "
+            "directory, the stream service or the fleet lease) is not "
+            "ported, so the planned kill would never fire")
 
 
 _lock = threading.Lock()
@@ -105,8 +254,11 @@ def remove_crash_hook(fn) -> None:
 
 def install(plan: ChaosPlan | None) -> None:
     """Arm ``plan`` process-wide (traversal counters reset). ``None``
-    disarms — same as :func:`clear`."""
+    disarms — same as :func:`clear`. A plan on an unreachable point is
+    refused (:func:`check_reachable`)."""
     global _plan
+    if plan is not None:
+        check_reachable(plan)
     with _lock:
         _plan = plan
         _counts.clear()

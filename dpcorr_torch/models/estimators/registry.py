@@ -53,7 +53,7 @@ from dpcorr_torch.models.estimators.ni_subg import correlation_ni_subg
 from dpcorr_torch.utils.device import resolve_device
 
 
-def _place(v, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
+def place(v, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """``v`` as a ``dtype`` tensor on a device of ``dev``'s type: a tensor
     already on such a device (a shard on another card) stays there."""
     t = torch.as_tensor(v)
@@ -92,8 +92,8 @@ def serving_entry(family: str, eps1: float, eps2: float,
             return ci_int_subg(k, x, y, eps1, eps2, alpha=alpha)
 
     def single(key, x, y):
-        r = est(_place(key, dev, torch.int64), _place(x, dev, torch.float32),
-                _place(y, dev, torch.float32))
+        r = est(place(key, dev, torch.int64), place(x, dev, torch.float32),
+                place(y, dev, torch.float32))
         return r.rho_hat, r.ci_low, r.ci_high
     return single
 

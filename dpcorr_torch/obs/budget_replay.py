@@ -5,12 +5,19 @@ the per-party ledger (:mod:`dpcorr_torch.serve.ledger`) uses: the
 stale-``.tmp`` sweep and the ``.corrupt`` quarantine. An unparseable
 durable file is moved aside whole and refused loudly, never
 half-applied. The budget directory's shard reader, which shares them in
-the JAX package, is not ported yet.
+the JAX package, is not ported yet; its reserved principal prefixes are
+here because the protocol's auditor filters them.
 """
 
 from __future__ import annotations
 
 import os
+
+#: reserved principal namespaces of the JAX package's per-user budget
+#: directory: party names never collide with them, and the protocol's
+#: ledger balance (``protocol.scan.ledger_balance``) leaves them out when
+#: it matches wire ε, which is party-leg-only.
+RESERVED_PREFIXES = ("user/", "global/")
 
 
 def sweep_stale_tmp(path: str) -> None:

@@ -42,6 +42,24 @@ from dpcorr_torch.obs.metrics import LATENCY_BUCKETS
 _local_ids = itertools.count()
 
 
+def split_exact(total, n: int) -> list:
+    """Divide a batched launch's ``total`` (seconds or bytes) across its
+    ``n`` riders so the parts sum back to exactly the total (the
+    federation's per-cell cost records). Integer totals split
+    largest-remainder (the first ``total % n`` riders carry one extra
+    unit); float totals give every rider the even share and put the
+    rounding residual on the last one."""
+    if n <= 0:
+        raise ValueError(f"cannot split across {n} riders")
+    if isinstance(total, int):
+        base, extra = divmod(total, n)
+        return [base + (1 if i < extra else 0) for i in range(n)]
+    share = float(total) / n
+    parts = [share] * n
+    parts[-1] = float(total) - share * (n - 1)
+    return parts
+
+
 class CostRecord:
     """One request's accumulating cost. Mutated from the admission
     (client) thread and the flush thread, so every update takes the

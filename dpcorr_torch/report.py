@@ -13,7 +13,9 @@ so the points drawn are the JAX package's.
 
 matplotlib is imported inside the drawing functions (the card's machine
 has none, and draws nothing); :func:`read_tables`,
-:func:`write_hrs_tables` and :func:`serve_stats_frame` need only numpy.
+:func:`write_hrs_tables`, :func:`serve_stats_frame`,
+:func:`protocol_transcript_frame` and :func:`correlation_matrix_frame`
+need only numpy.
 """
 
 from __future__ import annotations
@@ -440,3 +442,85 @@ def serve_stats_frame(snapshot: dict) -> dict:
     for i, (m, v) in enumerate(rows):
         metric[i], value[i] = m, v
     return {"metric": metric, "value": value}
+
+
+def _column(values: list) -> np.ndarray:
+    """A list as a numpy column: numeric when every value is a number,
+    else an object column (strings, ``None``)."""
+    if values and all(isinstance(v, (int, float)) and not isinstance(v, bool)
+                      for v in values):
+        return np.asarray(values)
+    col = np.empty(len(values), dtype=object)
+    col[:] = values
+    return col
+
+
+def _table(rows: list[dict], columns: list[str]) -> dict:
+    return {c: _column([r[c] for r in rows]) for c in columns}
+
+
+def protocol_transcript_frame(transcript) -> dict:
+    """One party's wire transcript (``protocol.messages.Transcript`` JSONL,
+    or the entry list ``read_transcript`` returns) as a per-message table,
+    a dict of numpy columns (counterpart of
+    ``dpcorr.report.protocol_transcript_frame``'s DataFrame). One row per
+    frame, as logged: direction, sequence number, message type, wire
+    bytes, retries, send latency, the ε charged through the release gate
+    (0 for ungated traffic), the trace ID and the time stamp."""
+    from dpcorr_torch.protocol.messages import read_transcript
+
+    entries = (read_transcript(transcript) if isinstance(transcript, str)
+               else list(transcript))
+    rows = [{"seq": e.get("seq"), "dir": e.get("dir"),
+             "type": e.get("wire", {}).get("msg_type"),
+             "bytes": e.get("bytes"), "retries": e.get("retries"),
+             "latency_s": e.get("latency_s"), "eps": e.get("eps"),
+             "trace_id": e.get("trace_id"), "ts": e.get("ts")}
+            for e in entries]
+    return _table(rows, ["seq", "dir", "type", "bytes", "retries",
+                         "latency_s", "eps", "trace_id", "ts"])
+
+
+def correlation_matrix_frame(results, plan=None) -> dict:
+    """A completed federation matrix (``protocol.federation``) as a
+    per-cell table, a dict of numpy columns (counterpart of
+    ``dpcorr.report.correlation_matrix_frame``). ``results`` is one
+    ``FederationResult``, a ``{party: FederationResult}`` mapping (the
+    table is the union of the parties' cells), or a cells dict
+    ``{"i,j": {"rho_hat", "ci_low", "ci_high"}}``. Parties must agree
+    bitwise on every shared cell; disagreement raises. With ``plan`` each
+    row also carries the cell's column labels and venue (``local@P`` or
+    ``link P-Q``)."""
+    cells: dict = {}
+
+    def merge(d):
+        for key, val in d.items():
+            if key in cells and cells[key] != val:
+                raise ValueError(f"parties disagree on cell {key}: "
+                                 f"{cells[key]} != {val}")
+            cells.setdefault(key, val)
+
+    if hasattr(results, "cells"):
+        merge(results.cells)
+    elif isinstance(results, dict) \
+            and all(hasattr(r, "cells") for r in results.values()):
+        for r in results.values():
+            merge(r.cells)
+    else:
+        merge(dict(results))
+    rows = []
+    for key in sorted(cells,
+                      key=lambda s: tuple(int(t) for t in s.split(","))):
+        i, j = (int(t) for t in key.split(","))
+        val = cells[key]
+        row = {"i": i, "j": j, "label_x": None, "label_y": None,
+               "venue": None, "rho_hat": val["rho_hat"],
+               "ci_low": val["ci_low"], "ci_high": val["ci_high"]}
+        if plan is not None:
+            row["label_x"], row["label_y"] = plan.label(i), plan.label(j)
+            v = plan.cell_venue(i, j)
+            row["venue"] = (f"local@{v[1]}" if v[0] == "local"
+                            else f"link {v[1]}-{v[2]}")
+        rows.append(row)
+    return _table(rows, ["i", "j", "label_x", "label_y", "venue",
+                         "rho_hat", "ci_low", "ci_high"])

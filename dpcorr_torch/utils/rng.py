@@ -79,11 +79,11 @@ def _as_key(key) -> torch.Tensor:
 
 
 def master_key(seed: int = MASTER_SEED, device=None) -> torch.Tensor:
-    """Root of the key-tree, ``jax.random.key(seed)``'s words: the seed's
-    high and low 32 bits (high is 0 for a 32-bit seed)."""
-    seed = int(seed)
-    return torch.tensor([(seed >> 32) & _M32, seed & _M32],
-                        dtype=torch.int64, device=device)
+    """Root of the key-tree, ``jax.random.key(seed)``'s words as the JAX
+    package runs it (64-bit types off): high word 0, low word the seed's
+    low 32 bits, so a seed outside [0, 2³²) wraps as JAX wraps it."""
+    return torch.tensor([0, int(seed) & _M32], dtype=torch.int64,
+                        device=device)
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
@@ -135,6 +135,37 @@ def stream_index(name: str) -> int:
 def stream(key: torch.Tensor, name: str) -> torch.Tensor:
     """Named substream: stable across code movement, unlike split order."""
     return fold_in(key, stream_index(name))
+
+
+def party_root(key: torch.Tensor, role: str,
+               mode: str = "replay") -> torch.Tensor:
+    """Root key for one protocol party (:mod:`dpcorr_torch.protocol`).
+
+    ``"replay"`` hands the party the session key unchanged, so every named
+    stream it draws keeps its monolithic address and a two-party run is
+    bit-equal to the single-process estimator on the same master seed.
+    ``"hardened"`` roots the party in its own disjoint named subtree
+    (``"protocol/x"`` / ``"protocol/y"``): draws of the same distribution
+    that the peer cannot reconstruct when each party's seed is secret."""
+    if role not in ("x", "y"):
+        raise ValueError(f"role must be 'x' or 'y', got {role!r}")
+    if mode == "replay":
+        return key
+    if mode == "hardened":
+        return stream(key, f"protocol/{role}")
+    raise ValueError(f"unknown noise mode {mode!r}; "
+                     "expected 'replay' or 'hardened'")
+
+
+def column_root(key: torch.Tensor, label: str) -> torch.Tensor:
+    """Root key for one federated column (:mod:`dpcorr_torch.protocol.
+    matrix`): the named subtree ``"protocol/col/<label>"``, so a column's
+    release depends on (label, column) alone, the same bytes in every pair
+    that reuses it, and noise across distinct columns is independent.
+    :func:`party_root` applies below it."""
+    if not label:
+        raise ValueError("column label must be non-empty")
+    return stream(key, f"protocol/col/{label}")
 
 
 def key_data(keys: torch.Tensor) -> torch.Tensor:

@@ -240,3 +240,195 @@ def test_stress_sharded_matches_local(capsys):
         for k in ("mse", "coverage", "ci_length"):
             np.testing.assert_allclose(out["sharded"][meth][k],
                                        out["local"][meth][k], rtol=1e-6)
+
+
+# ------------------------------------------------ protocol and federation
+#: a child that refuses to import torch, then runs the port's CLI
+NO_TORCH = """
+import sys
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name == "torch" or name.startswith("torch."):
+            raise ImportError("torch is blocked in this process")
+
+sys.meta_path.insert(0, _Block())
+from dpcorr_torch.__main__ import main
+main(sys.argv[1:])
+assert "torch" not in sys.modules
+"""
+
+FED_PARTIES = ["--party", "p0=a,b", "--party", "p1=c", "--party", "p2=d"]
+
+
+def _no_torch(argv, cwd):
+    import subprocess
+    import sys
+
+    return subprocess.run([sys.executable, "-c", NO_TORCH, *argv],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=str(cwd), env=_child_env())
+
+
+def _child_env():
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    return env
+
+
+def test_grid_backends_named_in_the_cli_equal_the_grids():
+    from dpcorr_torch.__main__ import GRID_BACKENDS
+    from dpcorr_torch.grid import BACKENDS
+
+    assert GRID_BACKENDS == BACKENDS
+
+
+@pytest.mark.parametrize("argv", [
+    ["protocol", "run", "--n", "64"],
+    ["protocol", "run", "--transport", "tcp", "--n", "64"],
+    ["party", "--role", "y", "--port", "0", "--n", "64"],
+    ["federation", "run", *FED_PARTIES, "--n", "64"],
+    ["federation", "party", *FED_PARTIES, "--name", "p2", "--n", "64"],
+])
+def test_protocol_commands_raise_without_a_card(monkeypatch, argv):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+
+
+def test_protocol_run_echoes_the_jax_config(tmp_path, capsys):
+    argv = ["protocol", "run", "--n", "600", "--family", "int_sign",
+            "--eps1", "0.5", "--eps2", "2.0", "--transport", "tcp"]
+    main(argv + ["--device", "cpu", "--transcript-dir",
+                 str(tmp_path / "port")])
+    out = json.loads(capsys.readouterr().out)
+    jax_main(argv + ["--transcript-dir", str(tmp_path / "jax")])
+    want = json.loads(capsys.readouterr().out)
+    assert out.pop("device") == "cpu"
+    assert set(out) == set(want)
+    for key in ("spec", "session", "roles_agree"):
+        assert out[key] == want[key]
+    assert out["roles_agree"] is True
+    for role in ("x", "y"):
+        got, ref = out["results"][role], want["results"][role]
+        assert set(got) == set(ref)
+        assert got["role"] == ref["role"] and got["session"] == ref["session"]
+        assert np.allclose([got[k] for k in ("rho_hat", "ci_low", "ci_high")],
+                           [ref[k] for k in ("rho_hat", "ci_low", "ci_high")],
+                           atol=1e-5, rtol=0)
+    assert sorted(p.name for p in (tmp_path / "port").iterdir()) \
+        == sorted(p.name for p in (tmp_path / "jax").iterdir())
+
+
+def test_scan_and_plan_commands_run_without_torch(tmp_path, capsys):
+    """``protocol scan``, ``federation plan`` and ``federation scan`` in a
+    child process that cannot import torch: each prints what ``python -m
+    dpcorr`` prints and exits 0 on the port's own transcripts."""
+    main(["protocol", "run", "--device", "cpu", "--n", "600",
+          "--transcript-dir", str(tmp_path / "two")])
+    session = json.loads(capsys.readouterr().out)["session"]
+    path = str(tmp_path / "two" / f"{session}.x.jsonl")
+    proc = _no_torch(["protocol", "scan", "--transcript", path], tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    rep = json.loads(proc.stdout)["scan"]
+    assert rep["ok"] and rep["releases"] == 1
+    jax_main(["protocol", "scan", "--transcript", path])
+    assert json.loads(capsys.readouterr().out)["scan"] == rep
+
+    plan_argv = ["federation", "plan", *FED_PARTIES, "--n", "400"]
+    proc = _no_torch(plan_argv, tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    jax_main(plan_argv)
+    assert json.loads(proc.stdout) == json.loads(capsys.readouterr().out)
+
+    main(["federation", "run", "--device", "cpu", *FED_PARTIES, "--n", "400",
+          "--transcript-dir", str(tmp_path / "fed")])
+    capsys.readouterr()
+    proc = _no_torch(["federation", "scan", "--transcript-dir",
+                      str(tmp_path / "fed")], tmp_path)
+    assert proc.returncode == 0, proc.stderr
+    cross = json.loads(proc.stdout)["cross_pair"]
+    assert cross["ok"] and cross["labels"] == ["a", "b", "c"]
+
+
+def test_federation_run_echoes_the_jax_config(capsys):
+    argv = ["federation", "run", *FED_PARTIES, "--n", "400",
+            "--family", "ni_subg", "--transport", "tcp"]
+    main(argv + ["--device", "cpu"])
+    out = json.loads(capsys.readouterr().out)
+    jax_main(argv)
+    want = json.loads(capsys.readouterr().out)
+    assert out.pop("device") == "cpu"
+    assert set(out) == set(want)
+    for key in ("fed", "fed_hash", "plan", "eps", "parties_agree"):
+        assert out[key] == want[key], key
+    assert sorted(out["cells"]) == sorted(want["cells"])
+    for key, val in out["cells"].items():
+        assert np.allclose(list(val.values()),
+                           list(want["cells"][key].values()),
+                           atol=1e-5, rtol=2.5e-7)
+
+
+def test_party_processes_hold_a_session_with_jax_banners(tmp_path, capsys):
+    """``party --role y`` and ``--role x`` as two processes on the CPU,
+    each with its ledger, audit trail, journal and transcript: the
+    banners carry the JAX command's fields (and the device), both results
+    agree with ``protocol run``'s, and each transcript scans clean and
+    balances."""
+    import socket
+    import subprocess
+    import sys
+
+    from dpcorr_torch.obs.audit import read_events
+    from dpcorr_torch.protocol.scan import ledger_balance, scan_transcript
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    common = ["--port", str(port), "--n", "600", "--family", "ni_sign",
+              "--device", "cpu"]
+    procs = {}
+    for role in ("y", "x"):
+        files = [f"--{k}={tmp_path / f'{k}.{role}.json'}"
+                 for k in ("ledger", "journal")]
+        files += [f"--{k}={tmp_path / f'{k}.{role}.jsonl'}"
+                  for k in ("audit", "transcript")]
+        procs[role] = subprocess.Popen(
+            [sys.executable, "-m", "dpcorr_torch", "party", "--role", role,
+             *common, *files], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=_child_env(),
+            cwd=str(tmp_path))
+    outs = {}
+    for role, p in procs.items():
+        stdout, stderr = p.communicate(timeout=120)
+        assert p.returncode == 0, stderr
+        banner, rest = stdout.split("\n", 1)
+        outs[role] = (json.loads(banner)["party"],
+                      json.loads(rest)["result"])
+    assert set(outs["y"][0]) == {"role", "session", "instance",
+                                 "listening", "device"}
+    assert set(outs["x"][0]) == {"role", "session", "instance",
+                                 "connecting", "device"}
+    bits = {r: (o[1]["rho_hat"], o[1]["ci_low"], o[1]["ci_high"])
+            for r, o in outs.items()}
+    assert bits["x"] == bits["y"]
+    main(["protocol", "run", "--device", "cpu", "--n", "600"])
+    ref = json.loads(capsys.readouterr().out)["results"]["x"]
+    assert bits["x"] == (ref["rho_hat"], ref["ci_low"], ref["ci_high"])
+    for role in ("x", "y"):
+        path = str(tmp_path / f"transcript.{role}.jsonl")
+        assert scan_transcript(path)["ok"]
+        assert ledger_balance(path, read_events(
+            str(tmp_path / f"audit.{role}.jsonl")))["ok"]
+
+
+def test_party_refuses_an_unreachable_chaos_plan(monkeypatch):
+    monkeypatch.setenv("DPCORR_CHAOS", "point=budget.mid_eviction")
+    with pytest.raises(SystemExit, match="not reachable"):
+        main(["party", "--role", "y", "--port", "0", "--n", "64",
+              "--device", "cpu"])

@@ -446,3 +446,65 @@ def test_serve_server_defaults_to_the_card(cuda):
     assert want[0].device.type == "cuda"
     assert (resp.rho_hat, resp.ci_low, resp.ci_high) == \
         tuple(float(v) for v in want)
+
+
+#: the protocol on the card: the HRS wave-2 width, both ε orders
+PROTO_N, PROTO_EPS = 19_433, ((1.0, 0.5), (0.5, 2.0))
+
+
+@pytest.fixture(scope="module")
+def proto_columns():
+    g = np.random.default_rng(21)
+    z = g.standard_normal((2, PROTO_N), dtype=np.float32)
+    return z[0], (0.6 * z[0] + 0.8 * z[1]).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eps", PROTO_EPS)
+@pytest.mark.parametrize("family", SERVE_FAMILIES)
+def test_protocol_session_bit_equal_to_serving_entry_on_the_card(
+        cuda, proto_columns, family, eps):
+    """A two-party session with both parties on the card (replay keys) is
+    bit-equal to the port's monolithic estimator on the card."""
+    from dpcorr_torch.models.estimators.registry import serving_entry
+    from dpcorr_torch.protocol import ProtocolSpec, run_inproc
+
+    x, y = proto_columns
+    spec = ProtocolSpec(family=family, n=PROTO_N, eps1=eps[0], eps2=eps[1])
+    res = run_inproc(spec, x, y)
+    want = torch.stack(serving_entry(family, *eps)(
+        rng.master_key(2025), torch.from_numpy(x).cuda(),
+        torch.from_numpy(y).cuda())).cpu().numpy()
+    assert want.dtype == np.float32
+    for role in ("x", "y"):
+        r = res[role]
+        assert (r.rho_hat, r.ci_low, r.ci_high) == tuple(float(v)
+                                                         for v in want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", SERVE_FAMILIES)
+def test_finish_batch_exact_bitwise_per_cell_on_the_card(cuda,
+                                                         proto_columns,
+                                                         family):
+    """``finish_batch(engine="exact")`` on the card: every cell bit-equal
+    to its own ``finish``; the vector engine within 1e-5."""
+    from dpcorr_torch.models.estimators import split_reference as sr
+
+    x, y = proto_columns
+    master = rng.master_key(7, device="cuda")
+    keys = [rng.party_root(rng.column_root(master, lab), "y")
+            for lab in ("a", "b", "c")]
+    rels = [sr.party_release(family, rng.column_root(master, lab), "x",
+                             col, 1.0, 1.0)
+            for lab, col in (("a", x), ("b", y), ("c", -x))]
+    cols = [y, x, y]
+    got = torch.stack(sr.finish_batch(family, keys, rels, cols, 1.0,
+                                      1.0)).cpu().numpy()
+    for b in range(3):
+        one = torch.stack(sr.finish(family, keys[b], rels[b], cols[b], 1.0,
+                                    1.0)).cpu().numpy()
+        np.testing.assert_array_equal(got[:, b], one)
+    vec = torch.stack(sr.finish_batch(family, keys, rels, cols, 1.0, 1.0,
+                                      engine="vector")).cpu().numpy()
+    np.testing.assert_allclose(vec, got, atol=1e-5, rtol=0)

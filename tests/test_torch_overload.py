@@ -719,4 +719,8 @@ def test_crash_point_before_persist_leaves_the_ledger_file(tmp_path):
     assert hooks == ["ledger.pre_persist"]
     assert PrivacyLedger(budget=5.0, path=path).spent("a") == 1.0
     with pytest.raises(ValueError, match="unknown chaos point"):
-        chaos.ChaosPlan("gate.post_charge")
+        chaos.ChaosPlan("gate.nope")
+    # a registered point whose module is not ported cannot be armed
+    with pytest.raises(ValueError, match="not reachable"):
+        chaos.install(chaos.ChaosPlan("budget.pre_journal"))
+    assert chaos.active() is None
