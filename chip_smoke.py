@@ -330,6 +330,13 @@ PROTO_FAULT_TIMEOUT_S = 0.5
 PROTO_REPEATS = {"inproc": 3, "tcp": 3, "tcp+faults": 1}
 FED_PARTIES = [("p0", ["a", "b"]), ("p1", ["c"]), ("p2", ["d"])]
 PARTY_TIMEOUT_S = 300
+#: phase 14 (widths, ε and seed in dpcorr_torch.perf_stream): timed
+#: releases per family and width; serving with a user directory at the
+#: north-star width; the directory drill of benchmarks/serve_load.py cut
+#: from 10⁶ users to 2¹⁷
+STREAM_TIMED_REPS = 10
+SERVE_USERS, SERVE_USER_REQS = 32, 128
+DIR_USERS, DIR_SHARDS, DIR_MAX_RESIDENT = 1 << 17, 64, 256
 
 #: the JAX package's committed coverage at B = 1,015,808 for the sign
 #: acceptance points (dpcorr/acceptance.py:89-108), copied from
@@ -2157,6 +2164,671 @@ def protocol_phase(card: str, cols, work: str) -> dict:
     return parts
 
 
+# ------------------------------------------------------------ phase 14 ----
+def _post_json(url: str, payload: dict) -> tuple:
+    """POST a JSON body; (status, headers, decoded body), errors included."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type":
+                                          "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, dict(resp.headers), json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read())
+
+
+def _stream_service(workdir: str, **kw):
+    """A service at benchmarks/stream_load.py's settings (2 s tumbling
+    windows, ε = 0.4 for both parties, normalise on) over all four
+    families, on the card; the CLI's budget and seed."""
+    from dpcorr_torch.perf_stream import STREAM_EPS, STREAM_SEED, WINDOW_S
+    from dpcorr_torch.stream.service import StreamService
+    from dpcorr_torch.stream.windows import WindowSpec
+
+    args = dict(normalise=True, budget=100.0, seed=STREAM_SEED,
+                device="cuda")
+    args.update(kw)
+    return StreamService(workdir, WindowSpec(size_s=WINDOW_S),
+                         SERVE_FAMILIES, STREAM_EPS, STREAM_EPS, **args)
+
+
+def _feed_service(sv, plan) -> None:
+    """Send every batch in order, swallowing refusals as a client would;
+    a simulated crash propagates."""
+    from dpcorr_torch.stream.service import StreamOverloadedError
+    from dpcorr_torch.stream.windows import LateRecordError
+
+    for bid, ts, rows in plan:
+        try:
+            sv.ingest(bid, ts, rows)
+        except (LateRecordError, StreamOverloadedError):
+            continue
+
+
+def _spent(snapshot: dict) -> dict:
+    return {p: v["spent"] for p, v in snapshot["parties"].items()}
+
+
+def _eps_exact(label: str, spent: dict, windows: int) -> None:
+    """Each party spent ``windows`` × its per-window charge, and no
+    reserved principal beyond those asked for."""
+    from dpcorr_torch.perf_stream import stream_charges
+
+    want = {p: windows * v for p, v in stream_charges().items()}
+    parties = {p: v for p, v in spent.items()
+               if not p.startswith(("user/", "global/"))}
+    if set(parties) != set(want) or any(
+            abs(parties[p] - e) > 1e-9 for p, e in want.items()):
+        raise RuntimeError(f"{label}: party spend {parties}, expected "
+                           f"{want} ({windows} windows, each charged once)")
+
+
+def stream_assoc(card: str, xy: np.ndarray) -> dict:
+    """Phase 14a: at n = 10⁶ every partition of the chunk grid releases the
+    monolith's bytes on the card, for the four families (normalise on)
+    and ni_sign with normalise off, ε = (1.0, 0.5)."""
+    from dpcorr_torch.perf_stream import RELEASE_EPS, STREAM_SEED
+    from dpcorr_torch.stream import sketch
+    from dpcorr_torch.utils import rng
+
+    class Four:
+        device_count = 4
+
+    wkey = sketch.window_key(rng.master_key(STREAM_SEED), "0-2000")
+    configs = [(f, True) for f in SERVE_FAMILIES] + [("ni_sign", False)]
+    out = {}
+    for family, norm in configs:
+        params = sketch.ReleaseParams(family, *RELEASE_EPS, normalise=norm)
+        grid = sketch.grid_for(params, len(xy))
+        ids = list(range(grid.n_chunks))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = json.dumps(sketch.release_window(xy, params, wkey,
+                                               device="cuda"),
+                         sort_keys=True)
+        mono_ms = 1e3 * (time.perf_counter() - t0)
+        parts = {"even_odd": [ids[0::2], ids[1::2]],
+                 "head_tail": [ids[:1], ids[1:]],
+                 "singletons_reversed": [[c] for c in reversed(ids)],
+                 "placement_4": sketch.placement_shards(Four(),
+                                                        grid.n_chunks)}
+        for name, shards in parts.items():
+            got = json.dumps(sketch.release_window(xy, params, wkey,
+                                                   shards=shards,
+                                                   device="cuda"),
+                             sort_keys=True)
+            if got != ref:
+                raise RuntimeError(f"14a {family} normalise={norm}: the "
+                                   f"{name} partition released {got}, the "
+                                   f"monolith {ref}")
+        out[f"{family}{'' if norm else ' raw'}"] = {
+            "chunks": grid.n_chunks, "monolith_ms": mono_ms}
+    print(f"[{card}] 14a n = {len(xy)}: 4 partitions (even/odd, head/tail, "
+          f"16 singletons reversed, placement over 4 devices) byte-equal to "
+          f"the monolith for {len(configs)} configurations on the card: "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+def _staged_release(xy: np.ndarray, params, wkey, device,
+                    moments=None) -> tuple:
+    """``release_window`` in its stages on ``device``: pass A and the
+    window's moments (unless ``moments`` is given), the estimate pass and
+    the finisher. Returns (moments, release)."""
+    from dpcorr_torch.stream import sketch
+
+    if moments is None:
+        grid = sketch.grid_for(params, len(xy))
+        pass_a = sketch.sketch_window(xy, params, wkey, "pass_a",
+                                      device=device)
+        moments = sketch.moments_for_window(pass_a, params, grid, wkey,
+                                            device)
+    est = sketch.sketch_window(xy, params, wkey, "estimate",
+                               moments=moments, device=device)
+    return moments, sketch.release_from_sketch(est, params, wkey, device)
+
+
+def _sign_ties(xy: np.ndarray, mo: dict) -> int:
+    """Rows whose centered value (clip, minus μ, times 1/σ) lies within
+    1e-5 of 0 in either column: the only rows whose sign can follow the
+    last bits of the moments."""
+    lc = np.float32(mo["l_clip"])
+    cx = (np.clip(xy[:, 0], -lc, lc) - np.float32(mo["mu_x"])) \
+        * np.float32(mo["inv_x"])
+    cy = (np.clip(xy[:, 1], -lc, lc) - np.float32(mo["mu_y"])) \
+        * np.float32(mo["inv_y"])
+    return int(((np.abs(cx) < 1e-5) | (np.abs(cy) < 1e-5)).sum())
+
+
+def _release_diff(got: dict, want: dict, family: str) -> tuple:
+    """(ρ̂, lo, hi) of both, their largest difference, and whether it is
+    within atol 1e-5 (subG also rtol 2.5e-7)."""
+    g = np.array([got[k] for k in ("rho", "lo", "hi")])
+    w = np.array([want[k] for k in ("rho", "lo", "hi")])
+    tol = 1e-5 + (2.5e-7 * np.abs(w) if family.endswith("subg") else 0.0)
+    return g, w, float(np.abs(g - w).max()), bool((np.abs(g - w)
+                                                    <= tol).all())
+
+
+def stream_card_against_cpu(card: str, xy: np.ndarray) -> dict:
+    """Phase 14b: each family's release at n = 10⁶ on the card and on the
+    CPU, within atol 1e-5 (subG also rtol 2.5e-7). A normalised sign
+    family's signs follow the last bits of the window's moments, so for
+    it the card's moments must agree with the CPU's (1e-6 relative and
+    absolute, the tolerance of ``priv_standardize``), and the CPU's
+    release from the card's moments must agree with the card's release
+    within atol 1e-5: the CPU then takes the card's sign at every tied
+    row. Its release from its own moments may miss only where a centered
+    value lies within 1e-5 of 0. The sign families near ρ = 0.5 with ρ̂
+    inside their CI; int_subg reported only."""
+    from dpcorr_torch.perf_stream import RELEASE_EPS, STREAM_SEED
+    from dpcorr_torch.stream import sketch
+    from dpcorr_torch.utils import rng
+
+    wkey = sketch.window_key(rng.master_key(STREAM_SEED), "0-2000")
+    out = {}
+    for family in SERVE_FAMILIES:
+        params = sketch.ReleaseParams(family, *RELEASE_EPS)
+        card_rel = sketch.release_window(xy, params, wkey, device="cuda")
+        row = {}
+        if params.needs_moments:
+            mo_card, staged = _staged_release(xy, params, wkey, "cuda")
+            if json.dumps(staged, sort_keys=True) \
+                    != json.dumps(card_rel, sort_keys=True):
+                raise RuntimeError(f"14b {family}: the staged release "
+                                   f"{staged} is not release_window's "
+                                   f"{card_rel}")
+            mo_cpu, cpu_rel = _staged_release(xy, params, wkey, "cpu")
+            names = ("mu_x", "inv_x", "mu_y", "inv_y")
+            mo_diff = max(abs(mo_card[k] - mo_cpu[k]) for k in names)
+            if any(abs(mo_card[k] - mo_cpu[k]) > 1e-6 + 1e-6 * abs(mo_cpu[k])
+                   for k in names):
+                raise RuntimeError(f"14b {family}: card moments {mo_card} "
+                                   f"against CPU {mo_cpu}")
+            _mo, same_mo = _staged_release(xy, params, wkey, "cpu",
+                                           moments=mo_card)
+            _g, _w, same_diff, same_within = _release_diff(
+                card_rel, same_mo, family)
+            if not same_within:
+                raise RuntimeError(f"14b {family}: card {card_rel} against "
+                                   f"the CPU from the card's moments "
+                                   f"{same_mo}, beyond atol 1e-5")
+            row = {"moments_diff": mo_diff,
+                   "max_abs_diff_card_moments": same_diff,
+                   "sign_ties": _sign_ties(xy, mo_cpu)}
+        else:
+            cpu_rel = sketch.release_window(xy, params, wkey, device="cpu")
+        got, want, diff, within = _release_diff(card_rel, cpu_rel, family)
+        if not within and not row.get("sign_ties"):
+            raise RuntimeError(f"14b {family}: card {got} against CPU "
+                               f"{want}, beyond the tolerance with no "
+                               f"sign tie")
+        if family in ("ni_sign", "int_sign") and not (
+                abs(got[0] - 0.5) < 0.05 and got[1] <= got[0] <= got[2]):
+            raise RuntimeError(f"14b {family}: ρ̂ {got[0]} with CI "
+                               f"[{got[1]}, {got[2]}] at ρ = 0.5")
+        out[family] = {"card": got.tolist(), "cpu": want.tolist(),
+                       "max_abs_diff": diff, "within": within, **row}
+    print(f"[{card}] 14b card against CPU at n = {len(xy)}: "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+def stream_http(card: str, plan: list, work: str) -> dict:
+    """Phase 14c: a service behind its HTTP front end on an ephemeral port
+    takes the plan from one client; every release equals ``release_window``
+    on the window's rows under its key; each party spent 4 × its
+    per-window charge and the audit replay equals the ledger; a resent
+    batch spends nothing; a late batch gets 400 with the watermark; a
+    service with a small ``max_pending_rows`` answers 429 with
+    ``Retry-After``."""
+    import urllib.request
+
+    from dpcorr_torch.obs.audit import read_events, replay_levels
+    from dpcorr_torch.perf_stream import STREAM_EPS, STREAM_SEED, plan_windows
+    from dpcorr_torch.stream import sketch
+    from dpcorr_torch.stream.http import make_stream_http_server
+    from dpcorr_torch.utils import rng
+
+    workdir = f"{work}/14c"
+    sv = _stream_service(workdir)
+    httpd = make_stream_http_server(sv, host="127.0.0.1", port=0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    ingest_s = release_s = 0.0
+    ingest_rows = 0
+    try:
+        t0 = time.perf_counter()
+        for bid, ts, rows in plan:
+            t = time.perf_counter()
+            code, _h, ack = _post_json(f"{base}/ingest", {
+                "batch_id": bid, "ts": ts, "rows": rows})
+            dt = time.perf_counter() - t
+            if code != 200:
+                raise RuntimeError(f"14c: batch {bid} got {code}: {ack}")
+            if ack["released"] or ack["refused"]:
+                release_s += dt
+            else:
+                ingest_s += dt
+                ingest_rows += len(rows)
+        wall = time.perf_counter() - t0
+        with urllib.request.urlopen(f"{base}/releases?since=0",
+                                    timeout=60) as resp:
+            feed = json.loads(resp.read())["releases"]
+        spent = _spent(sv.ledger.snapshot())
+        code, _h, ack = _post_json(f"{base}/ingest", {
+            "batch_id": plan[0][0], "ts": plan[0][1], "rows": plan[0][2]})
+        if code != 200 or not ack["deduped"] \
+                or _spent(sv.ledger.snapshot()) != spent:
+            raise RuntimeError(f"14c: a resent batch gave {code} {ack} or "
+                               f"spent ε")
+        code, _h, late = _post_json(f"{base}/ingest", {
+            "batch_id": "late", "ts": 1.0, "rows": [[1.0, 2.0]]})
+        if code != 400 or late.get("refused") != "late" \
+                or late.get("watermark") != sv.manager.watermark:
+            raise RuntimeError(f"14c: a late batch gave {code} {late}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        sv.close()
+    windows = plan_windows(plan)
+    master = rng.master_key(STREAM_SEED)
+    if [e["window_id"] for e in feed] != sorted(windows, key=lambda w:
+                                                int(w.split("-")[0])):
+        raise RuntimeError(f"14c: the feed holds windows "
+                           f"{[e['window_id'] for e in feed]}")
+    for entry in feed:
+        wkey = sketch.window_key(master, entry["window_id"])
+        for family in SERVE_FAMILIES:
+            params = sketch.ReleaseParams(family, STREAM_EPS, STREAM_EPS,
+                                          normalise=True)
+            direct = sketch.release_window(windows[entry["window_id"]],
+                                           params, wkey, device="cuda")
+            if entry["releases"][family] != direct:
+                raise RuntimeError(
+                    f"14c {entry['window_id']} {family}: the service "
+                    f"released {entry['releases'][family]}, the direct call "
+                    f"{direct}")
+    _eps_exact("14c", spent, len(feed))
+    levels = replay_levels(read_events(f"{workdir}/audit.jsonl"))
+    if levels["party"] != spent or levels["user"] or levels["global"]:
+        raise RuntimeError(f"14c: the audit replay {levels} is not the "
+                           f"ledger's {spent}")
+    small = _stream_service(f"{work}/14c-small", max_pending_rows=1000)
+    httpd = make_stream_http_server(small, host="127.0.0.1", port=0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        code, headers, body = _post_json(
+            f"http://127.0.0.1:{httpd.server_address[1]}/ingest",
+            {"batch_id": plan[0][0], "ts": plan[0][1], "rows": plan[0][2]})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        small.close()
+    if code != 429 or int(headers.get("Retry-After", "0")) < 1:
+        raise RuntimeError(f"14c: a batch past max_pending_rows gave {code}"
+                           f" {headers} {body}")
+    out = {"windows": len(feed), "rows_per_window": len(next(iter(
+        windows.values()))), "batches": len(plan), "wall_s": wall,
+           "ingest_rows_per_s": ingest_rows / ingest_s,
+           "windows_per_s": len(feed) / wall,
+           "release_posts_s": release_s}
+    print(f"[{card}] 14c HTTP service: {json.dumps(out)}; every release "
+          f"equal to the direct call, ε = {len(feed)} × the per-window "
+          f"charge, audit replay = ledger, resend free, late 400 (watermark "
+          f"{late['watermark']}), small queue 429 (Retry-After "
+          f"{headers.get('Retry-After')})", flush=True)
+    return {"feed": json.dumps(feed, sort_keys=True), **out}
+
+
+def stream_crashes(card: str, plan: list, ref_feed: str, work: str) -> dict:
+    """Phase 14d in process: a raise-mode crash at each stream point at
+    hits 1 and 2, then a fresh service on the same workdir and a resend of
+    every batch: the feed byte-identical to 14c's, ε exact."""
+    from dpcorr_torch import chaos
+
+    cases = {}
+    for point in ("stream.mid_window", "stream.pre_release",
+                  "stream.post_journal"):
+        for hit in (1, 2):
+            workdir = f"{work}/14d-{point}-{hit}"
+            chaos.install(chaos.ChaosPlan(point, hit=hit, mode="raise"))
+            try:
+                sv = _stream_service(workdir)
+                try:
+                    _feed_service(sv, plan)
+                except chaos.SimulatedCrash:
+                    pass
+                else:
+                    raise RuntimeError(f"14d: {point}#{hit} never fired")
+            finally:
+                chaos.clear()
+            t0 = time.perf_counter()
+            sv2 = _stream_service(workdir)
+            _feed_service(sv2, plan)
+            feed = json.dumps(sv2.releases(), sort_keys=True)
+            spent = _spent(sv2.ledger.snapshot())
+            sv2.close()
+            if feed != ref_feed:
+                raise RuntimeError(f"14d {point}#{hit}: the recovered feed "
+                                   f"differs from 14c's")
+            _eps_exact(f"14d {point}#{hit}", spent, 4)
+            cases[f"{point}#{hit}"] = time.perf_counter() - t0
+    print(f"[{card}] 14d in process: 6 crashes (3 points × hits 1, 2) "
+          f"recovered with the feed byte-identical to 14c's and ε exact; "
+          f"recovery seconds {json.dumps(cases)}", flush=True)
+    return cases
+
+
+def stream_process(card: str, plan: list, ref_feed: str, work: str) -> dict:
+    """Phase 14d, one real process: ``python -m dpcorr_torch stream`` killed
+    at ``stream.pre_release`` (hit 2, exit 42), restarted with the same
+    command line while the client resends: the feed byte-identical to
+    14c's, ε exact. Times the restart to the first release."""
+    import os
+    import subprocess
+    import urllib.error
+    import urllib.request
+
+    from dpcorr_torch import chaos
+    from dpcorr_torch.perf_stream import STREAM_EPS, STREAM_SEED, WINDOW_S
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    env.pop("DPCORR_CHAOS", None)
+    workdir = f"{work}/14d-process"
+    cmd = [sys.executable, "-m", "dpcorr_torch", "stream",
+           "--workdir", workdir, "--port", "0",
+           "--window-s", str(WINDOW_S), "--families",
+           ",".join(SERVE_FAMILIES), "--eps1", str(STREAM_EPS),
+           "--eps2", str(STREAM_EPS), "--normalise", "on",
+           "--budget", "100", "--seed", str(STREAM_SEED)]
+
+    def start(chaos_spec):
+        e = dict(env)
+        if chaos_spec:
+            e["DPCORR_CHAOS"] = chaos_spec
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=root, env=e, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE)
+        line = proc.stdout.readline()
+        if not line:
+            raise RuntimeError(f"14d process: no banner: "
+                               f"{proc.communicate(timeout=60)[1][-2000:]}")
+        banner = json.loads(line)["streaming"]
+        return proc, banner, time.perf_counter() - t0
+
+    proc, banner, _ = start("point=stream.pre_release,hit=2,mode=exit")
+    base = f"http://127.0.0.1:{banner['port']}"
+    died = False
+    for bid, ts, rows in plan:
+        try:
+            _post_json(f"{base}/ingest", {"batch_id": bid, "ts": ts,
+                                          "rows": rows})
+        except (urllib.error.URLError, ConnectionError, OSError):
+            died = True
+            break
+    rc = proc.wait(timeout=120)
+    proc.stdout.close()
+    proc.stderr.close()
+    if not died or rc != chaos.EXIT_CODE:
+        raise RuntimeError(f"14d process: the server exited {rc} (died mid"
+                           f"-send: {died}), not {chaos.EXIT_CODE}")
+    proc, banner, restart_s = start(None)
+    base = f"http://127.0.0.1:{banner['port']}"
+    try:
+        for bid, ts, rows in plan:
+            code, _h, ack = _post_json(f"{base}/ingest", {
+                "batch_id": bid, "ts": ts, "rows": rows})
+            if code != 200:
+                raise RuntimeError(f"14d process: resend of {bid} gave "
+                                   f"{code}: {ack}")
+        with urllib.request.urlopen(f"{base}/releases?since=0",
+                                    timeout=60) as resp:
+            feed = json.dumps(json.loads(resp.read())["releases"],
+                              sort_keys=True)
+        with urllib.request.urlopen(f"{base}/stats", timeout=60) as resp:
+            stats = json.loads(resp.read())
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+        proc.stdout.close()
+        proc.stderr.close()
+    if feed != ref_feed:
+        raise RuntimeError("14d process: the feed after the kill differs "
+                           "from 14c's")
+    _eps_exact("14d process", _spent(stats["ledger"]), 4)
+    out = {"kill_rc": rc, "restart_to_first_release_s": restart_s,
+           "released_at_restart": banner["released"]}
+    print(f"[{card}] 14d process: killed at stream.pre_release#2 (exit "
+          f"{rc}), restarted with the same command line: "
+          f"{json.dumps(out)}; feed byte-identical to 14c's, ε exact",
+          flush=True)
+    return out
+
+
+def stream_budgets(card: str, plan: list, work: str) -> dict:
+    """Phase 14e on the stream: (1) a user budget of two windows' user leg
+    — the directory's clock is each window's event-time start and its
+    period the hop, so every window opens a fresh user window: all four
+    release, three renewals, lifetime 4 legs; (2) a user budget below one
+    window's leg: every window refused at the user level, no release, no
+    spend at any level; (3) a global budget of two windows: the third
+    and fourth refused at the global level, charge-free."""
+    from dpcorr_torch.obs.budget_replay import read_user_balances
+    from dpcorr_torch.perf_stream import stream_charges
+
+    leg = sum(stream_charges().values())
+    out = {}
+    for label, kw, released, level in (
+            ("user_renewing", {"user": "u1", "user_budget": 2 * leg}, 4,
+             None),
+            ("user_refused", {"user": "u1", "user_budget": 0.5 * leg}, 0,
+             "user"),
+            ("global", {"global_budget": 2 * leg}, 2, "global")):
+        workdir = f"{work}/14e-{label}"
+        sv = _stream_service(workdir, **kw)
+        _feed_service(sv, plan)
+        st = sv.stats()
+        refusals = sv.ledger.refusals_by_level()
+        spent = _spent(sv.ledger.snapshot())
+        sv.close()
+        if st["released"] != released or len(st["refused"]) != 4 - released:
+            raise RuntimeError(f"14e {label}: {st['released']} released, "
+                               f"refused {st['refused']}")
+        if level is not None and refusals[level] != 4 - released:
+            raise RuntimeError(f"14e {label}: refusals {refusals}")
+        if released:
+            _eps_exact(f"14e {label}", spent, released)
+        elif any(v != 0.0 for v in spent.values()):
+            raise RuntimeError(f"14e {label}: refused windows spent {spent}")
+        if "global_budget" in kw and spent.get("global/total") != 2 * leg:
+            raise RuntimeError(f"14e global: global spent {spent}")
+        row = {"released": st["released"], "refused": len(st["refused"]),
+               "refusals_by_level": refusals}
+        if "user" in kw:
+            bal = read_user_balances(f"{workdir}/budget_dir").get("u1", {})
+            renewals = st["budget_dir"]["counters"]["renewals"]
+            if abs(bal.get("l", 0.0) - released * leg) > 1e-9 or (
+                    released and renewals != released - 1):
+                raise RuntimeError(f"14e {label}: user balance {bal}, "
+                                   f"renewals {renewals}")
+            row.update(user_lifetime=bal.get("l", 0.0), renewals=renewals)
+        out[label] = row
+    print(f"[{card}] 14e stream budgets (per-window user leg {leg}): "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+def serve_user_budgets(card: str, work: str) -> dict:
+    """Phase 14e on serving: a server with a budget directory behind its
+    HTTP front end, 128 pinned requests at n = 10⁴ over 32 users (four
+    each, all four families, dyadic ε: each request 1.0 per party and 2.0
+    for its user, user budget 6.0): every answer bit-equal to the direct
+    call, each user's fourth request 403 at the user level, party and
+    directory spends exact, the audit replay equal to both."""
+    from dpcorr_torch.obs.audit import read_events, replay_levels
+    from dpcorr_torch.obs.budget_replay import read_user_balances
+    from dpcorr_torch.serve import (
+        BudgetExceededError,
+        DpcorrServer,
+        HttpEstimateClient,
+        make_http_server,
+    )
+
+    eps = {"ni_sign": (0.5, 0.5), "int_sign": (0.5, 0.5),
+           "ni_subg": (1.0, 1.0), "int_subg": (1.0, 1.0)}
+    reqs = []
+    for i in range(SERVE_USER_REQS):
+        fam = SERVE_FAMILIES[i % 4]
+        r = serve_requests(fam, 1, SERVE_N, 14_000_000 + i)[0]
+        reqs.append(type(r)(fam, r.x, r.y, *eps[fam], seed=r.seed,
+                            user=f"user{(i // 4) % SERVE_USERS:02d}"))
+    want = direct_answers(reqs, "cuda")
+    audit = f"{work}/14e-serve-audit.jsonl"
+    user_dir = f"{work}/14e-users"
+    srv = DpcorrServer(budget=1000.0, audit=audit, user_dir=user_dir,
+                       user_budget=6.0, user_shards=8,
+                       batch_mode="exact", max_batch=SERVE_MAX_BATCH,
+                       max_delay_s=SERVE_MAX_DELAY_S, device="cuda")
+    httpd = make_http_server(srv, host="127.0.0.1", port=0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    client = HttpEstimateClient(
+        f"http://127.0.0.1:{httpd.server_address[1]}", timeout_s=600.0)
+    got = [None] * len(reqs)
+    refused: list = []
+    errors: list = []
+
+    def worker(u0):
+        try:
+            for u in range(u0, SERVE_USERS, 8):
+                for i in range(4 * u, 4 * u + 4):
+                    try:
+                        r = client.estimate(reqs[i])
+                        got[i] = (r.rho_hat, r.ci_low, r.ci_high)
+                    except BudgetExceededError as e:
+                        refused.append((i, e.level))
+        except BaseException as e:
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(c,)) for c in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    dt = time.perf_counter() - t0
+    try:
+        if errors:
+            raise errors[0]
+        spent = _spent(srv.ledger.snapshot())
+        snap = srv.stats_snapshot()["budget_dir"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.close()
+    answered = [i for i, g in enumerate(got) if g is not None]
+    if sorted(i for i, _ in refused) != [4 * u + 3
+                                         for u in range(SERVE_USERS)] \
+            or {lv for _, lv in refused} != {"user"}:
+        raise RuntimeError(f"14e serve: refusals {sorted(refused)}")
+    bit_equal(f"[{card}] 14e serve with a user directory",
+              np.array([got[i] for i in answered]), want[answered])
+    n_ok = len(answered)
+    if spent != {"party-x": float(n_ok), "party-y": float(n_ok)}:
+        raise RuntimeError(f"14e serve: party spend {spent}, {n_ok} "
+                           f"answered")
+    bal = read_user_balances(user_dir)
+    if {u: b["l"] for u, b in bal.items()} != {
+            f"user{u:02d}": 6.0 for u in range(SERVE_USERS)}:
+        raise RuntimeError(f"14e serve: directory lifetimes {bal}")
+    levels = replay_levels(read_events(audit))
+    if levels["party"] != spent or levels["user"] != {
+            u: b["l"] for u, b in bal.items()}:
+        raise RuntimeError(f"14e serve: the audit replay {levels}")
+    out = {"requests": len(reqs), "answered": n_ok,
+           "refused_user": len(refused), "seconds": dt,
+           "req_per_s": len(reqs) / dt,
+           "refusals_by_level": snap["refusals_by_level"]}
+    print(f"[{card}] 14e serve with a user directory: {json.dumps(out)}; "
+          f"answers bit-equal to the direct call, spends exact, audit "
+          f"replay = ledger and directory", flush=True)
+    return out
+
+
+def directory_drill(card: str) -> dict:
+    """Phase 14e: benchmarks/serve_load.py's directory drill cut to 2¹⁷
+    users (64 shards, 256 resident per shard, fsync off): every gate
+    exact, evictions and rehydrations above 0."""
+    from dpcorr_torch.perf_stream import users_drill
+
+    out = users_drill(DIR_USERS, DIR_SHARDS, DIR_MAX_RESIDENT)
+    print(f"[{card}] 14e directory drill: {json.dumps(out)}", flush=True)
+    if not out["ok"]:
+        raise RuntimeError(f"14e drill: gates {out['gates']}")
+    return out
+
+
+def stream_costs(card: str, hrs_xy: np.ndarray, xy: np.ndarray) -> dict:
+    """Phase 14f: per family, ms per release, CUDA activities and host
+    syncs of one release at n = 19,433 and at n = 10⁶."""
+    from dpcorr_torch.perf_stream import RELEASE_EPS, release_cost
+
+    out = {}
+    for width, data in (("hrs", hrs_xy), ("stress", xy)):
+        for family in SERVE_FAMILIES:
+            out[f"{family} {width}"] = release_cost(data, family, "cuda",
+                                                    STREAM_TIMED_REPS)
+    print(f"[{card}] 14f release costs (ε = {RELEASE_EPS}): "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+def stream_phase(card: str, cols, work: str) -> dict:
+    """Phase 14 (a)-(f); the caller sets the launch counts to 0 before."""
+    from dpcorr_torch.perf_stream import (
+        STREAM_SEED,
+        STRESS_ROWS,
+        batch_plan,
+        gaussian_pair,
+        hrs_pair,
+    )
+
+    parts = {}
+    t0 = time.perf_counter()
+    hrs_xy = hrs_pair(cols)
+    if len(hrs_xy) != PROTO_N:
+        raise RuntimeError(f"phase 14: n = {len(hrs_xy)}, expected "
+                           f"{PROTO_N}")
+    xy = gaussian_pair(STRESS_ROWS, STREAM_SEED, "cuda")
+    plan = batch_plan(hrs_xy)
+    parts["data s"] = time.perf_counter() - t0
+    c = {}
+    for label, fn in (
+            ("14a", lambda: stream_assoc(card, xy)),
+            ("14b", lambda: stream_card_against_cpu(card, xy)),
+            ("14c", lambda: c.update(stream_http(card, plan, work)) or c),
+            ("14d", lambda: stream_crashes(card, plan, c["feed"], work)),
+            ("14d process", lambda: stream_process(card, plan, c["feed"],
+                                                   work)),
+            ("14e stream", lambda: stream_budgets(card, plan, work)),
+            ("14e serve", lambda: serve_user_budgets(card, work)),
+            ("14e drill", lambda: directory_drill(card)),
+            ("14f", lambda: stream_costs(card, hrs_xy, xy))):
+        t0 = time.perf_counter()
+        parts[label] = fn()
+        parts[label + " s"] = time.perf_counter() - t0
+    parts["14c"] = {k: v for k, v in c.items() if k != "feed"}
+    return parts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -2433,9 +3105,26 @@ def main() -> int:
     if protocol_launches:
         raise RuntimeError(f"phase 13: {protocol_launches} K1 launches; the "
                            f"protocol path has no kernel of its own")
-    work.cleanup()
     seconds = {k: round(v, 1) for k, v in parts.items() if k.endswith(" s")}
     print(f"phase 13: {time.perf_counter() - t13:.1f} s "
+          f"{json.dumps(seconds)}", flush=True)
+
+    # ---- 14. the stream service and the per-user budget directory,
+    # driven with the launch counts set to 0 just before it and read just
+    # after
+    t14 = time.perf_counter()
+    reset_launches()
+    parts = stream_phase(card, cols, work.name)
+    stream_launches = fused_ni.KERNEL_LAUNCHES["fused_ni"]
+    print(f"launches in the stream run: {dict(fused_ni.KERNEL_LAUNCHES)}",
+          flush=True)
+    if stream_launches:
+        raise RuntimeError(f"phase 14: {stream_launches} K1 launches; the "
+                           f"stream and directory paths have no kernel of "
+                           f"their own")
+    work.cleanup()
+    seconds = {k: round(v, 1) for k, v in parts.items() if k.endswith(" s")}
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s "
           f"{json.dumps(seconds)}", flush=True)
     bucket_ms = [v["ms"] for v in buckets.values()]
 
@@ -2472,6 +3161,7 @@ def main() -> int:
         "grid_bucket_ms_sum": sum(bucket_ms),
         "serve_launches": serve_launches,
         "protocol_launches": protocol_launches,
+        "stream_launches": stream_launches,
     }]}
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(record), flush=True)

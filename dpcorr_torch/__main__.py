@@ -19,6 +19,8 @@ Counterpart of the simulation commands of ``python -m dpcorr``:
 - ``protocol``    ``run``: both roles in one process; ``scan``: the
   transcript auditor
 - ``federation``  ``plan | run | party | scan``: the N-party k×k matrix
+- ``stream``      always-on windowed DP releases over an HTTP ingest
+  stream (``dpcorr_torch.stream``)
 
 Every command but ``report``, ``protocol scan``, ``federation plan`` and
 ``federation scan`` (which compute nothing and need no torch) runs on the
@@ -324,6 +326,13 @@ def cmd_serve(args):
         brownout_enter_s=args.brownout_enter_s,
         brownout_exit_s=args.brownout_exit_s,
         brownout_min_priority=args.brownout_min_priority,
+        user_dir=args.user_dir, user_budget=args.user_budget,
+        user_shards=args.user_shards,
+        user_max_resident=args.user_max_resident,
+        user_compact_every=args.user_compact_every,
+        user_renew_period_s=args.user_renew_period_s,
+        user_burst_cap=args.user_burst_cap,
+        global_budget=args.global_budget,
         instance=args.instance, device=_device(args))
     if rec is not None:
         server.attach_recorder(rec)
@@ -335,6 +344,8 @@ def cmd_serve(args):
         "ledger": args.ledger, "max_batch": args.max_batch,
         "max_delay_ms": args.max_delay_ms, "batch_mode": args.batch_mode,
         "trace": args.trace, "audit": args.audit,
+        "user_dir": args.user_dir, "user_budget": args.user_budget,
+        "global_budget": args.global_budget,
         "warmup": server.readiness(),
         "warmup_manifest": args.warmup_manifest,
         "flight_recorder": args.flight_recorder,
@@ -374,6 +385,40 @@ def _add_serve(sub) -> None:
     p.add_argument("--ledger", default=None,
                    help="ledger persistence path (JSON, the JAX package's "
                         "format); restarts resume the spend table")
+    p.add_argument("--user-dir", dest="user_dir", default=None,
+                   help="per-user budget directory root (sharded WAL + "
+                        "snapshot store, the JAX package's format): "
+                        "enables per-user admission for requests carrying "
+                        "'user'; restarts recover exact balances")
+    p.add_argument("--user-budget", dest="user_budget", type=float,
+                   default=1.0,
+                   help="per-user ε budget per renewal window")
+    p.add_argument("--user-shards", dest="user_shards", type=int,
+                   default=8,
+                   help="directory shard count (pinned in meta.json on "
+                        "first boot; reopens adopt the persisted count)")
+    p.add_argument("--user-max-resident", dest="user_max_resident",
+                   type=int, default=None,
+                   help="LRU cap on in-memory users per shard; colder "
+                        "users spill to disk and rehydrate on touch "
+                        "(default: unbounded)")
+    p.add_argument("--user-compact-every", dest="user_compact_every",
+                   type=int, default=256,
+                   help="fold the shard WAL into its snapshot every this "
+                        "many journal appends")
+    p.add_argument("--user-renew-period-s", dest="user_renew_period_s",
+                   type=float, default=86400.0,
+                   help="per-user window length: spend resets every "
+                        "period (daily ε refresh by default)")
+    p.add_argument("--user-burst-cap", dest="user_burst_cap",
+                   type=float, default=0.0,
+                   help="unspent window ε carried into the next window "
+                        "as burst credit, capped here (0 disables)")
+    p.add_argument("--global-budget", dest="global_budget", type=float,
+                   default=None,
+                   help="whole-replica ε ceiling, charged atomically with "
+                        "the per-party legs (reserved principal "
+                        "global/total)")
     p.add_argument("--max-batch", dest="max_batch", type=int, default=64,
                    help="flush a bucket at this many live requests")
     p.add_argument("--max-delay-ms", dest="max_delay_ms", type=float,
@@ -769,6 +814,8 @@ def cmd_federation_party(args):
 
     from dpcorr_torch.obs import trace as obs_trace
     from dpcorr_torch.obs.audit import AuditTrail
+    from dpcorr_torch.obs.endpoint import start_obs_server
+    from dpcorr_torch.obs.metrics import Registry
     from dpcorr_torch.protocol.federation import serve_federation_party
     from dpcorr_torch.serve.ledger import PrivacyLedger
 
@@ -803,10 +850,26 @@ def cmd_federation_party(args):
         peers[peer] = (host, int(port))
     accepts = any(fed.party_index(q if p == name else p) < my_idx
                   for p, q in fed.party_links(name))
+    registry = Registry()
+    party_box: list = []
+    obs_port = None
+    if args.obs_port is not None:
+        # the scrape surface is up before any banner, so a scraper can
+        # watch the whole run
+        _srv, obs_port = start_obs_server(
+            registry,
+            stats_fn=lambda: (party_box[0].stats_snapshot()
+                              if party_box else
+                              {"kind": "federation_party",
+                               "instance": instance, "party": name,
+                               "fed": fed.fed, "starting": True}),
+            port=args.obs_port)
 
     def banner(**extra):
         doc = {"federation": fed.fed, "name": name, "instance": instance,
                "device": str(device)}
+        if obs_port is not None:
+            doc["obs_port"] = obs_port
         doc.update(extra)
         print(json.dumps({"party": doc}), flush=True)
 
@@ -826,7 +889,8 @@ def cmd_federation_party(args):
         max_retries=args.max_retries,
         connect_timeout_s=args.connect_timeout,
         recv_timeout_s=args.recv_timeout, engine=args.engine,
-        on_listening=on_listening, instance=args.instance, device=device)
+        on_listening=on_listening, registry=registry,
+        instance=args.instance, on_party=party_box.append, device=device)
     print(json.dumps({"result": {"party": res.party, "fed": res.fed,
                                  "cells": res.cells, "eps": res.eps,
                                  "stats": res.stats}}, indent=2))
@@ -1013,8 +1077,7 @@ def _add_protocol(sub) -> None:
 
 def _add_federation(sub) -> None:
     """``federation plan | run | party | scan``, with the JAX package's
-    flags (``--device`` in place of ``--platform``; ``party --obs-port``
-    waits for the obs endpoint's port)."""
+    flags (``--device`` in place of ``--platform``)."""
     pf_ = sub.add_parser("federation", help="N-party federation: the k×k "
                          "DP correlation matrix over multiplexed pair "
                          "sessions, at the release-reuse ε optimum")
@@ -1108,6 +1171,11 @@ def _add_federation(sub) -> None:
     pft.add_argument("--instance", default=None,
                      help="instance name for the banner and the span "
                           "spool; default: --name")
+    pft.add_argument("--obs-port", dest="obs_port", type=int,
+                     default=None, metavar="PORT",
+                     help="serve /metrics + /stats + POST /obs/trigger on "
+                          "this port (0: ephemeral, announced in the "
+                          "banner)")
     pft.add_argument("--transcript-dir", dest="transcript_dir",
                      default=None, help="per-link transcript directory")
     pft.add_argument("--journal-dir", dest="journal_dir", default=None,
@@ -1143,6 +1211,158 @@ def _add_federation(sub) -> None:
                           "balance check derives each party's local-cell "
                           "ε (default: 0)")
     pfs.set_defaults(fn=cmd_federation_scan)
+
+
+# ------------------------------------------------------------- streaming
+def cmd_stream(args):
+    """Always-on windowed DP correlation over an ingest stream
+    (counterpart of ``python -m dpcorr stream``): event-time windows, one
+    atomic ε charge per window, crash-exact releases, on ``--device``.
+    Binds before the banner, so ``--port 0`` resolves first."""
+    import signal
+
+    from dpcorr_torch.stream.http import make_stream_http_server
+    from dpcorr_torch.stream.service import StreamService
+    from dpcorr_torch.stream.windows import WindowSpec
+
+    device = _device(args)
+    plan = _arm_chaos(args)
+    rec = None
+    if args.flight_recorder:
+        from dpcorr_torch.obs.recorder import FlightRecorder, install
+
+        rec = FlightRecorder(args.flight_recorder)
+        install(rec)
+        signal.signal(signal.SIGUSR2,
+                      lambda signum, frame: rec.dump("sigusr2"))
+    spec = WindowSpec(size_s=args.window_s, slide_s=args.slide_s,
+                      late_s=args.late_s)
+    service = StreamService(
+        args.workdir, spec, args.families.split(","),
+        args.eps1, args.eps2, normalise=args.normalise == "on",
+        budget=args.budget, seed=args.seed,
+        party_x=args.party_x, party_y=args.party_y,
+        stream_id=args.stream_id, user=args.user,
+        user_budget=args.user_budget, global_budget=args.global_budget,
+        max_pending_rows=args.max_pending_rows, device=device)
+    if rec is not None:
+        rec.watch_registry(service.registry)
+        rec.watch_costs(service.costs)
+    # instance identity: the self-claim gauge a scraper verifies against
+    # its target name
+    instance = args.instance or args.stream_id
+    service.registry.gauge(
+        "dpcorr_stream_instance_info",
+        "stream identity: constant 1 labelled by instance name",
+        labelnames=("instance",)).set(1, instance=instance)
+    obs_server = obs_port = None
+    if args.obs_port is not None:
+        from dpcorr_torch.obs.endpoint import start_obs_server
+
+        obs_server, obs_port = start_obs_server(
+            service.registry, stats_fn=service.stats,
+            host=args.host, port=args.obs_port)
+    httpd = make_stream_http_server(service, host=args.host,
+                                    port=args.port)
+    bound_port = httpd.server_address[1]
+    print(json.dumps({"streaming": {
+        "host": args.host, "port": bound_port,
+        "instance": instance, "obs_port": obs_port,
+        "workdir": args.workdir, "stream_id": args.stream_id,
+        "families": list(service.families),
+        "window_s": args.window_s, "slide_s": args.slide_s,
+        "late_s": args.late_s, "eps1": args.eps1, "eps2": args.eps2,
+        "normalise": args.normalise == "on", "budget": args.budget,
+        "eps_per_window": service.per_window_charges,
+        "released": len(service.journal.entries()),
+        "chaos": plan.to_dict() if plan is not None else None,
+        "flight_recorder": args.flight_recorder,
+        "device": str(service.device)}}), flush=True)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        if obs_server is not None:
+            obs_server.shutdown()
+        service.close()
+
+
+def _add_stream(sub) -> None:
+    """``stream``, with the JAX package's flags (``--device`` in place of
+    ``--platform``; ``--placement`` and ``--mesh-devices`` wait for the
+    execution plan's port)."""
+    pst = sub.add_parser("stream", help="always-on windowed DP "
+                         "correlation over an ingest stream")
+    pst.add_argument("--workdir", required=True,
+                     help="durable state directory: ingest WAL, release "
+                          "journal, ledger snapshot, audit trail "
+                          "(restart-safe — a kill -9 resumes from here)")
+    pst.add_argument("--host", default="127.0.0.1")
+    pst.add_argument("--port", type=int, default=8324,
+                     help="HTTP ingest/subscribe port (0 = ephemeral; "
+                          "read the bound port from the banner)")
+    pst.add_argument("--window-s", dest="window_s", type=float,
+                     default=10.0, help="event-time window size")
+    pst.add_argument("--slide-s", dest="slide_s", type=float,
+                     default=None,
+                     help="sliding hop (default: tumbling)")
+    pst.add_argument("--late-s", dest="late_s", type=float, default=0.0,
+                     help="bounded lateness: watermark trails the max "
+                          "event time seen by this much")
+    pst.add_argument("--families", default="ni_sign",
+                     help="comma list of estimator families released "
+                          "per window")
+    pst.add_argument("--eps1", type=float, default=1.0)
+    pst.add_argument("--eps2", type=float, default=0.5)
+    pst.add_argument("--normalise", default="on", choices=["on", "off"])
+    pst.add_argument("--budget", type=float, default=100.0,
+                     help="per-party ε budget (refuse-before-release: "
+                          "an exhausted window is refused, never noised)")
+    pst.add_argument("--seed", type=int, default=2025)
+    pst.add_argument("--party-x", dest="party_x", default="party/x")
+    pst.add_argument("--party-y", dest="party_y", default="party/y")
+    pst.add_argument("--stream-id", dest="stream_id", default="stream",
+                     help="charge-id namespace: per-window charges are "
+                          "stream:<stream-id>:<window-id>")
+    pst.add_argument("--user", default=None,
+                     help="bind every window's charge to this user in a "
+                          "per-user budget directory under the workdir "
+                          "(renewal period = the window hop)")
+    pst.add_argument("--user-budget", dest="user_budget", type=float,
+                     default=None,
+                     help="per-renewal-window user ε budget "
+                          "(default: --budget)")
+    pst.add_argument("--global-budget", dest="global_budget", type=float,
+                     default=None,
+                     help="instance-wide ε cap across every principal")
+    pst.add_argument("--max-pending-rows", dest="max_pending_rows",
+                     type=int, default=1 << 20,
+                     help="bounded ingest: refuse batches (429 + "
+                          "Retry-After) past this many buffered rows")
+    pst.add_argument("--chaos", default=None, metavar="SPEC",
+                     help="install a chaos kill plan, e.g. "
+                          "'point=stream.pre_release,hit=1,mode=exit' "
+                          "(also honoured from DPCORR_CHAOS; testing only)")
+    pst.add_argument("--flight-recorder", dest="flight_recorder",
+                     default=None, metavar="PATH",
+                     help="flight-recorder dump path (armed for "
+                          "stream_release_failed and chaos kills)")
+    pst.add_argument("--instance", default=None,
+                     help="identity claimed in the "
+                          "dpcorr_stream_instance_info gauge "
+                          "(default: --stream-id)")
+    pst.add_argument("--obs-port", dest="obs_port", type=int,
+                     default=None,
+                     help="observability endpoint port (0 = ephemeral; "
+                          "/metrics, /stats, /healthz, POST "
+                          "/obs/trigger)")
+    pst.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                     help="where window releases run: the card (default; "
+                          "raises without one) or the CPU")
+    pst.set_defaults(fn=cmd_stream)
 
 
 def main(argv=None):
@@ -1204,6 +1424,7 @@ def main(argv=None):
     _add_serve(sub)
     _add_protocol(sub)
     _add_federation(sub)
+    _add_stream(sub)
     args = ap.parse_args(argv)
     args.fn(args)
 

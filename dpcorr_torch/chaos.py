@@ -18,10 +18,9 @@ variable makes the process die or degrade there.
 Both are one ``is None`` or emptiness check when nothing is armed.
 :data:`KNOWN_POINTS` and :data:`MATRIX_POINTS` are the JAX package's
 tuples in its order, because :func:`plan_from_seed` indexes into them.
-The points of modules not ported yet (the per-user budget directory, the
-stream service, the fleet lease) are in :data:`UNREACHABLE_POINTS`:
-:func:`install` refuses a plan on one, since no code here would ever
-traverse it and the kill would never come.
+The point of the module not ported yet (the fleet lease) is in
+:data:`UNREACHABLE_POINTS`: :func:`install` refuses a plan on it, since
+no code here would ever traverse it and the kill would never come.
 """
 
 from __future__ import annotations
@@ -63,8 +62,7 @@ KNOWN_POINTS = (
     "federation.mid_matrix",   # some pair links finished, others pending
     "federation.pre_finish",   # round validated, finish kernel not run
     # stream window release sequence (stream/service.py) — NOT in
-    # MATRIX_POINTS: the two-party chaos matrix never traverses them;
-    # the JAX package's stream service does
+    # MATRIX_POINTS: the two-party chaos matrix never traverses them
     "stream.pre_release",      # window closable, nothing charged yet
     "stream.mid_window",       # ingest batch in the WAL, not acked
     "stream.post_journal",     # release journaled, window not closed
@@ -102,11 +100,10 @@ MATRIX_POINTS = (
     "federation.pre_finish",
 )
 
-#: Points no module of this package traverses yet (their modules are
+#: Points no module of this package traverses yet (the fleet lease is
 #: still to be ported): a plan on one would never fire.
 UNREACHABLE_POINTS = frozenset(
-    p for p in KNOWN_POINTS
-    if p.startswith(("budget.", "stream.", "fleet.")))
+    p for p in KNOWN_POINTS if p.startswith("fleet."))
 
 _MODES = ("exit", "raise")
 _KNOWN = frozenset(KNOWN_POINTS)
@@ -223,8 +220,7 @@ def check_reachable(plan: ChaosPlan) -> None:
     if plan.point in UNREACHABLE_POINTS:
         raise ValueError(
             f"chaos point {plan.point!r} is not reachable in dpcorr_torch "
-            "yet: the module that traverses it (the per-user budget "
-            "directory, the stream service or the fleet lease) is not "
+            "yet: the module that traverses it (the fleet lease) is not "
             "ported, so the planned kill would never fire")
 
 

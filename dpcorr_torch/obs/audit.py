@@ -167,6 +167,17 @@ def replay(events: Iterable[dict]) -> dict[str, float]:
     return spent
 
 
+def replay_levels(events: Iterable[dict]) -> dict[str, dict]:
+    """Replay split by budget level: ``{"party", "user", "global"}``
+    spend tables (user keys are bare ids, ``user/`` prefix stripped).
+    The ``user`` table must equal each user's budget-directory
+    *lifetime* spend (renewals reset only the admission window and draw
+    no audit event)."""
+    from dpcorr_torch.obs.budget_replay import fold_levels
+
+    return fold_levels(replay(events))
+
+
 def timeline(events: Iterable[dict], party: str | None = None) -> list[dict]:
     """Per-event cumulative view: each row is one event with the
     running post-event spend of every party it touched — the ε-spend

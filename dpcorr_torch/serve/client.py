@@ -183,7 +183,8 @@ def request_to_json(req: EstimateRequest) -> dict:
             "party_x": req.party_x, "party_y": req.party_y,
             "alpha": req.alpha, "normalise": req.normalise,
             "seed": req.seed, "idempotency_key": req.idempotency_key,
-            "priority": req.priority, "deadline_s": req.deadline_s}
+            "priority": req.priority, "deadline_s": req.deadline_s,
+            "user": req.user}
     return body
 
 

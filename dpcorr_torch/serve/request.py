@@ -105,6 +105,15 @@ class EstimateRequest:
     #: (DeadlineExpiredError / HTTP 504) — late answers to departed
     #: clients must not consume ε. ``None`` = no deadline.
     deadline_s: float | None = None
+    #: requesting principal for per-user budget accounting
+    #: (serve.budget_dir): when the server runs a budget directory the
+    #: request's total party ε is also charged against ``user/<user>``.
+    #: Routing metadata like priority — deliberately NOT part of the
+    #: request digest (the same query from the same user retried is the
+    #: same noise stream), but folded into the idempotency identity so
+    #: two *different* users submitting identical content each get
+    #: their own charge. ``None`` = no user leg.
+    user: str | None = None
 
     def __post_init__(self):
         if self.family not in FAMILIES:
@@ -132,6 +141,9 @@ class EstimateRequest:
         if self.deadline_s is not None and not self.deadline_s > 0.0:
             raise ValueError("deadline_s must be positive or None, "
                              f"got {self.deadline_s}")
+        if self.user is not None and not isinstance(self.user, str):
+            raise ValueError("user must be a string or None, got "
+                             f"{type(self.user).__name__}")
         object.__setattr__(self, "x", x)
         object.__setattr__(self, "y", y)
 

@@ -73,6 +73,12 @@ from dpcorr_torch.obs.audit import AuditTrail
 from dpcorr_torch.obs.cost import CostRegistry
 from dpcorr_torch.obs.metrics import CONTENT_TYPE as _PROM_CONTENT_TYPE
 from dpcorr_torch.serve import warmup as warmup_mod
+from dpcorr_torch.serve.budget_dir import (
+    BudgetDirectory,
+    CompositeLedger,
+    RenewalPolicy,
+    party_view,
+)
 from dpcorr_torch.serve.coalescer import Coalescer, ServerOverloadedError
 from dpcorr_torch.serve.kernels import KernelCache
 from dpcorr_torch.serve.ledger import BudgetExceededError, PrivacyLedger
@@ -179,6 +185,15 @@ class DpcorrServer:
                  brownout_enter_s: float = 0.5,
                  brownout_exit_s: float = 2.0,
                  brownout_min_priority: int = 0,
+                 user_dir: str | None = None,
+                 user_budget: float = 1.0,
+                 user_shards: int = 8,
+                 user_max_resident: int | None = None,
+                 user_compact_every: int | None = 256,
+                 user_renew_period_s: float = 86400.0,
+                 user_burst_cap: float = 0.0,
+                 user_fsync: bool = True,
+                 global_budget: float | None = None,
                  instance: str | None = None,
                  device=None):
         self.device = resolve_device(device)
@@ -204,6 +219,26 @@ class DpcorrServer:
                                     per_party=per_party_budget,
                                     audit=self.audit,
                                     registry=self.stats.registry)
+        # per-user budget directory: with user_dir (or a global cap) the
+        # ledger becomes a CompositeLedger — per-user + per-party +
+        # global admission as one atomic charge with one refund path.
+        # Drop-in: the coalescer's shed-refund and the overload refund
+        # below reverse every leg through the same refund() call. (The
+        # JAX server's lease_dir, a fleet sharing one directory, waits
+        # for the fleet's port.)
+        if user_dir is not None or global_budget is not None:
+            directory = None
+            if user_dir is not None:
+                directory = BudgetDirectory(
+                    user_dir, shards=user_shards,
+                    user_budget=user_budget,
+                    renewal=RenewalPolicy(period_s=user_renew_period_s,
+                                          burst_cap=user_burst_cap),
+                    max_resident=user_max_resident,
+                    compact_every=user_compact_every,
+                    fsync=user_fsync, audit=self.audit)
+            self.ledger = CompositeLedger(self.ledger, directory,
+                                          global_budget=global_budget)
         self.cache = KernelCache(stats=self.stats, shard=shard,
                                  mode=batch_mode, max_kernels=max_kernels,
                                  device=self.device)
@@ -349,6 +384,15 @@ class DpcorrServer:
                 raw = party.encode()
                 h.update(len(raw).to_bytes(4, "big"))
                 h.update(raw)
+            if req.user is not None:
+                # same reasoning as the party names: the user routes a
+                # budget leg (serve.budget_dir), so two users submitting
+                # identical content are different ledger operations.
+                # Folded only when set, so pre-user keys stay identical.
+                raw = req.user.encode()
+                h.update(b"user")
+                h.update(len(raw).to_bytes(4, "big"))
+                h.update(raw)
             return f"pinned:{req.seed}:{h.hexdigest()}"
         return None
 
@@ -470,7 +514,10 @@ class DpcorrServer:
                         charges = self.ledger.charge_request(
                             req, trace_id=root.trace_id,
                             charge_id=charge_id)
-                    cost.charge(charges)
+                    # cost attribution is party ε (what crossed into a
+                    # kernel) — the directory's derived user/global
+                    # legs are bookkeeping views of the same spend
+                    cost.charge(party_view(charges))
                 except BudgetExceededError as e:
                     self.stats.refused_budget()
                     root.set(refused="budget", refused_level=e.level)
@@ -495,7 +542,7 @@ class DpcorrServer:
                                        charge_id=charge_id,
                                        reason="overload")
                     cost.event("refused_overload")
-                    cost.refund(charges, "overload")
+                    cost.refund(party_view(charges), "overload")
                     root.set(refused="overload")
                     raise
         except Exception:
@@ -542,8 +589,12 @@ class DpcorrServer:
             raise
 
     def stats_snapshot(self) -> dict:
-        snap = self.stats.snapshot(ledger_snapshot=self.ledger.snapshot(),
-                                   cost_aggregate=self.costs.aggregate())
+        snap = self.stats.snapshot(
+            ledger_snapshot=self.ledger.snapshot(),
+            cost_aggregate=self.costs.aggregate(),
+            budget_dir=(self.ledger.directory_snapshot()
+                        if isinstance(self.ledger, CompositeLedger)
+                        else None))
         snap["breaker"] = self.breaker.snapshot()
         return snap
 
@@ -580,6 +631,8 @@ class DpcorrServer:
             chaos.remove_crash_hook(self._crash_hook)
             self._crash_hook = None
         self.coalescer.close()
+        if isinstance(self.ledger, CompositeLedger):
+            self.ledger.close()
         if self._warmup_manifest:
             # persist the working set AFTER the drain: every kernel the
             # final flushes built is in the manifest the next boot
@@ -639,7 +692,9 @@ def _request_from_json(body: dict) -> EstimateRequest:
             priority=int(body.get("priority", 0)),
             deadline_s=(float(body["deadline_s"])
                         if body.get("deadline_s") is not None
-                        else None))
+                        else None),
+            user=(str(body["user"]) if body.get("user") is not None
+                  else None))
     except KeyError as e:
         raise ValueError(f"missing required field {e.args[0]!r}") from e
 

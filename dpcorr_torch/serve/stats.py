@@ -412,7 +412,8 @@ class ServeStats:
         return {c: int(rc.value(cause=c)) for c in RECOMPILE_CAUSES}
 
     def snapshot(self, ledger_snapshot: dict | None = None,
-                 cost_aggregate: dict | None = None) -> dict:
+                 cost_aggregate: dict | None = None,
+                 budget_dir: dict | None = None) -> dict:
         done = self.batched_requests + self.unbatched_requests
         flushes = self.batches_flushed
         with self._lock:
@@ -459,4 +460,9 @@ class ServeStats:
             snap["costs"] = cost_aggregate
         if ledger_snapshot is not None:
             snap["ledger"] = ledger_snapshot
+        if budget_dir is not None:
+            # per-user budget directory block: shard count, residency,
+            # eviction/rehydration counters, refusals by level —
+            # CompositeLedger.directory_snapshot()'s shape
+            snap["budget_dir"] = budget_dir
         return snap

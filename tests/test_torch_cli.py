@@ -428,7 +428,75 @@ def test_party_processes_hold_a_session_with_jax_banners(tmp_path, capsys):
 
 
 def test_party_refuses_an_unreachable_chaos_plan(monkeypatch):
-    monkeypatch.setenv("DPCORR_CHAOS", "point=budget.mid_eviction")
+    monkeypatch.setenv("DPCORR_CHAOS", "point=fleet.pre_lease_commit")
     with pytest.raises(SystemExit, match="not reachable"):
         main(["party", "--role", "y", "--port", "0", "--n", "64",
               "--device", "cpu"])
+
+
+def _banner(argv, tmp_path, key):
+    """Start ``python -m <argv>`` with ``--port 0``, read its one-line JSON
+    banner, stop it."""
+    import subprocess
+    import sys
+
+    p = subprocess.Popen([sys.executable, "-m", *argv, "--port", "0"],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, env=_child_env(), cwd=str(tmp_path))
+    try:
+        line = p.stdout.readline()
+        assert line, p.stderr.read()
+        return json.loads(line)[key]
+    finally:
+        p.terminate()
+        p.wait(timeout=60)
+        p.stdout.close()
+        p.stderr.close()
+
+
+def test_stream_banner_equals_jax(tmp_path):
+    """``stream`` prints the JAX command's banner for the same arguments,
+    apart from the device (and the bound port and workdir)."""
+    args = ["stream", "--window-s", "2", "--slide-s", "1", "--late-s",
+            "0.5", "--families", "ni_sign,int_subg", "--eps1", "0.4",
+            "--eps2", "0.8", "--budget", "50", "--stream-id", "s1",
+            "--user", "alice", "--user-budget", "3", "--global-budget",
+            "40", "--max-pending-rows", "512"]
+    ours = _banner(["dpcorr_torch", *args, "--workdir",
+                    str(tmp_path / "p"), "--device", "cpu"], tmp_path,
+                   "streaming")
+    theirs = _banner(["dpcorr", *args, "--workdir", str(tmp_path / "j")],
+                     tmp_path, "streaming")
+    assert ours.pop("device") == "cpu"
+    for b in (ours, theirs):
+        b.pop("port")
+        b.pop("workdir")
+    assert ours == theirs
+    assert ours["eps_per_window"] == pytest.approx({"party/x": 1.2,
+                                                    "party/y": 2.4})
+
+
+def test_stream_raises_without_a_card_and_refuses_fleet_chaos(monkeypatch,
+                                                             tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["stream", "--workdir", str(tmp_path / "w"), "--port", "0"])
+    monkeypatch.setenv("DPCORR_CHAOS", "point=fleet.pre_lease_commit")
+    with pytest.raises(SystemExit, match="not reachable"):
+        main(["stream", "--workdir", str(tmp_path / "w"), "--port", "0",
+              "--device", "cpu"])
+
+
+def test_serve_user_dir_echoes_its_options_as_jax(tmp_path):
+    """``serve --user-dir`` builds a CompositeLedger and echoes the
+    per-user options in the JAX command's banner fields."""
+    args = ["serve", "--user-dir", str(tmp_path / "users"), "--user-budget",
+            "2.5", "--user-shards", "4", "--global-budget", "30",
+            "--user-max-resident", "16", "--user-compact-every", "8"]
+    ours = _banner(["dpcorr_torch", *args, "--device", "cpu"], tmp_path,
+                   "serving")
+    theirs = _banner(["dpcorr", *args], tmp_path, "serving")
+    for k in ("user_dir", "user_budget", "global_budget", "budget"):
+        assert ours[k] == theirs[k], k
+    with open(tmp_path / "users" / "meta.json") as fh:
+        assert json.load(fh) == {"version": 1, "shards": 4}

@@ -508,3 +508,88 @@ def test_finish_batch_exact_bitwise_per_cell_on_the_card(cuda,
     vec = torch.stack(sr.finish_batch(family, keys, rels, cols, 1.0, 1.0,
                                       engine="vector")).cpu().numpy()
     np.testing.assert_allclose(vec, got, atol=1e-5, rtol=0)
+
+
+# ------------------------------------------------------------ stream ----
+STREAM_FAMILIES = ("ni_sign", "ni_subg", "int_sign", "int_subg")
+
+
+@pytest.fixture(scope="module")
+def stream_rows():
+    """2¹⁸ rows of a ρ = 0.5 Gaussian pair: four chunks of 65,536."""
+    from dpcorr_torch.perf_stream import gaussian_pair
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return gaussian_pair(1 << 18, 2025, "cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,normalise",
+                         [(f, True) for f in STREAM_FAMILIES]
+                         + [("ni_sign", False)])
+def test_stream_partitions_byte_equal_on_the_card(cuda, stream_rows,
+                                                  family, normalise):
+    """Every partition of a 4-chunk window releases the monolith's bytes
+    on the card (each chunk computed alone at its fixed shape)."""
+    import json
+
+    from dpcorr_torch.stream import sketch
+
+    params = sketch.ReleaseParams(family, 1.0, 0.5, normalise=normalise)
+    grid = sketch.grid_for(params, len(stream_rows))
+    assert grid.n_chunks == 4
+    wkey = sketch.window_key(rng.master_key(2025), "0-2000")
+    ref = json.dumps(sketch.release_window(stream_rows, params, wkey,
+                                           device=cuda), sort_keys=True)
+    for shards in ([[0, 2], [1, 3]], [[0], [1, 2, 3]], [[3], [2], [1], [0]],
+                   [[1, 3, 0], [2]]):
+        assert json.dumps(sketch.release_window(
+            stream_rows, params, wkey, shards=shards, device=cuda),
+            sort_keys=True) == ref, shards
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("point,hit", [("stream.mid_window", 2),
+                                       ("stream.pre_release", 1),
+                                       ("stream.post_journal", 2)])
+def test_stream_crash_recovery_byte_identical_on_the_card(cuda, tmp_path,
+                                                          point, hit):
+    """A service on the card crashed at a stream point and resumed from
+    its workdir gives the uninterrupted run's feed byte for byte, each
+    window charged once."""
+    import json
+
+    from dpcorr_torch import chaos
+    from dpcorr_torch.stream.service import StreamService
+    from dpcorr_torch.stream.windows import WindowSpec
+
+    r = np.random.default_rng(5)
+    plan = [(f"b{i}", 0.5 + i, np.round(r.normal(size=(300, 2)), 4).tolist())
+            for i in range(8)] + [("hb", 100.0, [])]
+
+    def service(d):
+        return StreamService(str(d), WindowSpec(size_s=2.0),
+                             STREAM_FAMILIES, 0.4, 0.4, fsync=False,
+                             device=cuda)
+
+    def feed(sv):
+        for bid, ts, rows in plan:
+            sv.ingest(bid, ts, rows)
+        return json.dumps(sv.releases(), sort_keys=True), {
+            p: v["spent"] for p, v in sv.ledger.snapshot()["parties"].items()}
+
+    ref = service(tmp_path / "ref")
+    want, spent = feed(ref)
+    ref.close()
+    chaos.install(chaos.ChaosPlan(point, hit=hit, mode="raise"))
+    try:
+        with pytest.raises(chaos.SimulatedCrash):
+            feed(service(tmp_path / "crash"))
+    finally:
+        chaos.clear()
+    again = service(tmp_path / "crash")
+    got, got_spent = feed(again)
+    again.close()
+    assert got == want
+    assert got_spent == pytest.approx(spent)

@@ -722,5 +722,5 @@ def test_crash_point_before_persist_leaves_the_ledger_file(tmp_path):
         chaos.ChaosPlan("gate.nope")
     # a registered point whose module is not ported cannot be armed
     with pytest.raises(ValueError, match="not reachable"):
-        chaos.install(chaos.ChaosPlan("budget.pre_journal"))
+        chaos.install(chaos.ChaosPlan("fleet.pre_lease_commit"))
     assert chaos.active() is None

@@ -567,15 +567,16 @@ def test_chaos_points_and_seeded_plans_equal_jax():
 
 
 def test_unreachable_points_are_refused(monkeypatch):
-    """A plan on a point no port module traverses yet (budget directory,
-    stream service, fleet lease) is refused, from the environment too,
-    and never armed."""
+    """A plan on a point no port module traverses yet (the fleet lease)
+    is refused, from the environment too, and never armed; the budget
+    directory's and the stream service's points are reachable."""
     reachable = [p for p in chaos.MATRIX_POINTS
                  if p not in chaos.UNREACHABLE_POINTS]
     assert "gate.post_charge" in reachable
-    assert all(p.startswith(("budget.", "stream.", "fleet."))
-               for p in chaos.UNREACHABLE_POINTS)
-    monkeypatch.setenv("DPCORR_CHAOS", "point=budget.post_journal")
+    assert chaos.UNREACHABLE_POINTS == {
+        p for p in chaos.KNOWN_POINTS if p.startswith("fleet.")}
+    assert chaos.UNREACHABLE_POINTS == {"fleet.pre_lease_commit"}
+    monkeypatch.setenv("DPCORR_CHAOS", "point=fleet.pre_lease_commit")
     with pytest.raises(ValueError, match="not reachable"):
         chaos.install(chaos.plan_from_env())
     assert chaos.active() is None
@@ -652,6 +653,83 @@ def test_crash_resume_exactly_once(point, victim, tmp_path):
         assert JPrivacyLedger(100.0, path=paths[role]["ledger"]).spent(
             spec.party_name(role)) == pytest.approx(
                 sum(spec.charges_for(role).values()))
+
+
+@pytest.mark.parametrize("point", ["budget.pre_journal",
+                                   "budget.post_journal",
+                                   "budget.mid_compaction",
+                                   "budget.mid_eviction"])
+def test_budget_points_crash_resume_with_a_user_directory(point, tmp_path):
+    """The gate charges a CompositeLedger (a user leg in a per-user budget
+    directory, compacting and evicting on every charge, as the JAX
+    package's chaos command arms it): a raise-mode kill of y at each
+    budget point, then a fresh y on the same files, gives the
+    uninterrupted bits with y's party and user legs charged once."""
+    from dpcorr_torch.obs.budget_replay import read_user_balances
+    from dpcorr_torch.serve.budget_dir import BudgetDirectory, CompositeLedger
+
+    x, y = _columns(n=512)
+    spec = ProtocolSpec(family="ni_subg", n=len(x), eps1=1.0, eps2=0.5,
+                        session=f"bd-{point}")
+    ref = run_inproc(spec, x, y, device="cpu")
+    pair = InProcTransport()
+    links, cols = {"x": pair.a, "y": pair.b}, {"x": x, "y": y}
+    paths = {r: {k: str(tmp_path / f"{k}-{r}.{ext}") for k, ext in
+                 (("ledger", "json"), ("journal", "json"),
+                  ("audit", "jsonl"), ("transcript", "jsonl"))}
+             for r in ("x", "y")}
+
+    def mk_party(role):
+        chan = ReliableChannel(links[role], timeout_s=0.1, max_retries=400,
+                               backoff_base_s=0.02, backoff_max_s=0.1)
+        audit = AuditTrail(paths[role]["audit"])
+        ledger = PrivacyLedger(100.0, path=paths[role]["ledger"],
+                               audit=audit)
+        if role == "y":
+            ledger = CompositeLedger(ledger, BudgetDirectory(
+                str(tmp_path / "users-y"), shards=2, user_budget=100.0,
+                max_resident=0, compact_every=1, fsync=False, audit=audit),
+                user="user-y")
+        return Party(role, cols[role], spec, chan, ledger,
+                     transcript=Transcript(paths[role]["transcript"]),
+                     recv_timeout_s=60.0,
+                     journal=SessionJournal(paths[role]["journal"]),
+                     device="cpu")
+
+    results, errors = {}, {}
+
+    def drive(party):
+        try:
+            results[party.role] = party.run()
+        except BaseException as e:  # SimulatedCrash is a BaseException
+            errors[party.role] = e
+
+    chaos.install(chaos.ChaosPlan(point=point, hit=1, mode="raise",
+                                  thread_name="party-y"))
+    t_x = threading.Thread(target=drive, args=(mk_party("x"),),
+                           name="party-x")
+    t_y = threading.Thread(target=drive, args=(mk_party("y"),),
+                           name="party-y")
+    try:
+        t_x.start()
+        t_y.start()
+        t_y.join(timeout=60)
+        assert isinstance(errors.pop("y", None), chaos.SimulatedCrash)
+    finally:
+        chaos.clear()
+    t_restart = threading.Thread(target=drive, args=(mk_party("y"),),
+                                 name="party-y")
+    t_restart.start()
+    t_x.join(timeout=60)
+    t_restart.join(timeout=60)
+    assert not errors, errors
+    for role in ("x", "y"):
+        assert _bits(results[role]) == _bits(ref[role])
+    want = sum(spec.charges_for("y").values())
+    with open(paths["y"]["ledger"]) as fh:
+        assert sum(json.load(fh)["spent"].values()) == pytest.approx(want)
+    assert read_user_balances(str(tmp_path / "users-y"))["user-y"]["l"] \
+        == pytest.approx(want)
 
 
 def test_protocol_transcript_frame_matches_jax(tmp_path):

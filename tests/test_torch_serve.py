@@ -45,7 +45,12 @@ from dpcorr_torch.models.estimators.registry import (
     batch_engine,
     serving_entry,
 )
-from dpcorr_torch.obs.audit import AuditTrail, read_events, replay
+from dpcorr_torch.obs.audit import (
+    AuditTrail,
+    read_events,
+    replay,
+    replay_levels,
+)
 from dpcorr_torch.obs.metrics import CONTENT_TYPE, Registry, parse_exposition
 from dpcorr_torch.obs.trace import Tracer, read_spans
 from dpcorr_torch.serve import (
@@ -1308,3 +1313,107 @@ def test_flight_recorder_dump_reconstructs_a_request(tmp_path):
     assert story["eps_net"] == {"party-x": 2.0, "party-y": 1.0}
     assert story["cost"]["eps_charged"] == {"party-x": 2.0, "party-y": 1.0}
     assert story["spans"][0]["name"] == "serve.request"
+
+
+# ------------------------------------------------- per-user budgets ----
+
+def test_user_folds_into_the_idempotency_key_as_jax_does():
+    """The user routes a budget leg: it is folded into the pinned
+    request's idempotency key (as JAX folds it) but not into its noise
+    key, so the same query from two users is two charges of one stream."""
+    srv = _server()
+    jsrv = jserve.DpcorrServer(budget=1e6, max_delay_s=0.001, shard="off")
+    try:
+        for user in (None, "alice", "bob"):
+            req = _mk_req(seed=7, user=user)
+            jreq = jserve.EstimateRequest(
+                req.family, req.x, req.y, req.eps1, req.eps2, seed=7,
+                user=user)
+            assert srv._idem_key(req) == jsrv._idem_key(jreq)
+            assert pinned_request_key(rng.master_key(0), req, 7).tolist() \
+                == pinned_request_key(rng.master_key(0), _mk_req(seed=7),
+                                      7).tolist()
+        assert srv._idem_key(_mk_req(seed=7, user="alice")) \
+            != srv._idem_key(_mk_req(seed=7))
+        with pytest.raises(ValueError, match="user"):
+            _mk_req(seed=7, user=3)
+    finally:
+        srv.close()
+        jsrv.close()
+
+
+def test_user_dir_server_charges_every_level_and_refuses_at_user(tmp_path):
+    """Per-user admission: the user leg is the request's total party ε;
+    a request past the user's budget is a 403 at the user level over
+    HTTP, spends nothing at any level and is answered by no kernel; the
+    directory is read alike by the JAX package."""
+    from dpcorr.obs.budget_replay import read_user_balances as jread
+
+    from dpcorr_torch.obs.budget_replay import read_user_balances
+
+    audit = str(tmp_path / "audit.jsonl")
+    srv = _server(user_dir=str(tmp_path / "users"), user_budget=6.0,
+                  user_shards=4, global_budget=100.0, audit=audit)
+    httpd, base = _start_http(srv)
+    try:
+        for s in range(2):  # ni_sign + normalise: 2.0 + 1.0 per request
+            got = srv.estimate(_mk_req(seed=s + 1, user="alice"))
+            assert (got.rho_hat, got.ci_low, got.ci_high) \
+                == _direct(srv, _mk_req(seed=s + 1))
+        spent = dict(srv.ledger.snapshot()["parties"])
+        req = _mk_req(seed=9, user="alice")
+        body = json.loads(json.dumps(
+            {"family": req.family, "x": req.x.tolist(),
+             "y": req.y.tolist(), "eps1": 1.0, "eps2": 0.5, "seed": 9,
+             "user": "alice"}))
+        code = None
+        try:
+            urllib.request.urlopen(urllib.request.Request(
+                f"{base}/estimate", data=json.dumps(body).encode()),
+                timeout=60)
+        except urllib.error.HTTPError as e:
+            code, err = e.code, json.loads(e.read())
+        assert code == 403 and err["level"] == "user" \
+            and err["party"] == "user/alice"
+        assert srv.ledger.snapshot()["parties"] == spent
+        assert srv.ledger.spent("user/alice") == pytest.approx(6.0)
+        assert srv.ledger.spent("global/total") == pytest.approx(6.0)
+        srv.estimate(_mk_req(seed=3, user="bob"))  # another user: admitted
+        snap = srv.stats_snapshot()
+        assert snap["budget_dir"]["refusals_by_level"]["user"] == 1
+        assert snap["budget_dir"]["shards"] == 4
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.close()
+    bal = read_user_balances(str(tmp_path / "users"))
+    assert {u: b["l"] for u, b in bal.items()} == {"alice": 6.0,
+                                                   "bob": 3.0}
+    assert jread(str(tmp_path / "users")) == bal
+    levels = replay_levels(read_events(audit))
+    assert levels["user"] == {"alice": 6.0, "bob": 3.0}
+    assert levels["global"] == {"global/total": 9.0}
+
+
+def test_request_json_carries_the_user():
+    from dpcorr_torch.serve import request_to_json
+    from dpcorr_torch.serve.server import _request_from_json
+
+    req = _mk_req(seed=4, user="carol")
+    back = _request_from_json(json.loads(json.dumps(request_to_json(req))))
+    assert back.user == "carol" and back.seed == 4
+    assert _request_from_json(json.loads(json.dumps(request_to_json(
+        _mk_req(seed=4))))).user is None
+
+
+def test_global_budget_alone_caps_the_server():
+    srv = _server(global_budget=4.5)
+    try:
+        srv.estimate(_mk_req(seed=1))  # 2.0 + 1.0 = 3.0 global
+        with pytest.raises(BudgetExceededError) as ei:
+            srv.estimate(_mk_req(seed=2))
+        assert ei.value.level == "global"
+        assert srv.ledger.spent("party-x") == pytest.approx(2.0)
+        assert "budget_dir" not in srv.stats_snapshot()
+    finally:
+        srv.close()
