@@ -183,6 +183,41 @@ north-star workload (n = 10⁴ Gaussian pair → NI sign-batch estimate + CI →
         2.5e-7 relative; a sign family beyond it only at a tie);
     (f) CUDA activities per session (``torch.profiler``).
 
+14. the stream service and the per-user budget directory
+    (``dpcorr_torch.stream``, ``dpcorr_torch.serve.budget_dir``; no kernel
+    of their own), at n = 10⁶ and 19,433 (``stream_phase``; K1 must not
+    launch).
+
+15. the serve fleet (``dpcorr_torch.serve.fleet``), the fleet telemetry
+    plane (``dpcorr_torch.obs.fleet``) and the step-kill ``chaos``
+    command; no kernel of their own (the replicas and parties compute
+    through phases 12-13's paths), driven with the launch counts set to 0
+    just before it and read just after (K1 must not launch in this
+    process):
+    (a) three ``python -m dpcorr_torch serve --device cuda`` replicas
+        under ``Supervisor`` over one leased budget directory (64 users,
+        8 shards, lease TTL 1.5 s) behind a ``FleetFrontend``; pinned
+        ``ni_sign`` requests at n = 10⁴, ε = (1.0, 0.5) from 8 client
+        threads over HTTP through the front end: every request answers
+        200; client successes equal Σ of the per-replica
+        ``requests_total`` deltas in ``FleetCollector``'s merged
+        registry; 16 answers bit-equal to the direct call on the card;
+    (b) one replica SIGKILLed during the second phase of traffic: every
+        request still succeeds, the supervisor restarts it once with the
+        same argv, each of its shards is re-leased live at a higher
+        epoch, ``fleet_replay`` of the merged audit trails, the on-disk
+        user balances and Σ charges agree binary-exact, and each
+        survivor's trail replays to its ledger;
+    (c) ``python -m dpcorr_torch chaos --device cuda`` on four cases at
+        once (gate.post_charge x, ledger.post_persist y,
+        budget.mid_compaction x, federation.pre_release y), each
+        bit-identical to its uninterrupted reference with ε spent once;
+    (d) 0 K1 launches in this process;
+    (e) card-stamped: boot seconds, req/s with p50/p99 through the front
+        end for a one-replica cell and the fleet, qps(3)/qps(1)
+        (reported only), seconds from the kill to the first success on a
+        victim shard, seconds per chaos case, the phase's wall time.
+
 Every failure raises. The last line is the device record; before it come
 the per-kernel JSON record and the card line. Run from the repository
 root:
@@ -337,6 +372,13 @@ PARTY_TIMEOUT_S = 300
 STREAM_TIMED_REPS = 10
 SERVE_USERS, SERVE_USER_REQS = 32, 128
 DIR_USERS, DIR_SHARDS, DIR_MAX_RESIDENT = 1 << 17, 64, 256
+#: phase 15: the fleet at benchmarks/serve_load.py --fleet's settings (3
+#: replicas, 64 users, 8 shards, lease TTL 1.5 s, 24 requests per replica
+#: per phase) but at phase 12's width, n = 10⁴; 8 client threads; 16
+#: answers held bit-equal to the direct call
+FLEET_REPLICAS, FLEET_USERS, FLEET_SHARDS = 3, 64, 8
+FLEET_LEASE_TTL_S, FLEET_PER_REPLICA, FLEET_CLIENTS = 1.5, 24, 8
+FLEET_PARITY = 16
 
 #: the JAX package's committed coverage at B = 1,015,808 for the sign
 #: acceptance points (dpcorr/acceptance.py:89-108), copied from
@@ -1856,6 +1898,21 @@ def protocol_sessions(card: str, x, y) -> dict:
     return {"want": want, "latency": table, "retries": retries}
 
 
+def _repo_env() -> dict:
+    """This process's environment with the checkout first on
+    ``PYTHONPATH`` and no crash plan, for the ``python -m dpcorr_torch``
+    processes the phases start."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    env.pop("DPCORR_CHAOS", None)
+    return env
+
+
 def _free_port() -> int:
     import socket
 
@@ -1901,10 +1958,7 @@ def party_processes(card: str, x, y, want: dict, work: str) -> dict:
     from dpcorr_torch.protocol.scan import ledger_balance, scan_transcript
 
     root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
-                  if p])
+    env = _repo_env()
     cases = {"b": ("int_sign", (0.5, 2.0), None),
              "c": ("ni_sign", (1.0, 0.5), "point=gate.post_charge,hit=1")}
     t0 = time.perf_counter()
@@ -2537,11 +2591,7 @@ def stream_process(card: str, plan: list, ref_feed: str, work: str) -> dict:
     from dpcorr_torch.perf_stream import STREAM_EPS, STREAM_SEED, WINDOW_S
 
     root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
-                  if p])
-    env.pop("DPCORR_CHAOS", None)
+    env = _repo_env()
     workdir = f"{work}/14d-process"
     cmd = [sys.executable, "-m", "dpcorr_torch", "stream",
            "--workdir", workdir, "--port", "0",
@@ -2826,6 +2876,365 @@ def stream_phase(card: str, cols, work: str) -> dict:
         parts[label] = fn()
         parts[label + " s"] = time.perf_counter() - t0
     parts["14c"] = {k: v for k, v in c.items() if k != "feed"}
+    return parts
+
+
+# ------------------------------------------------------------ phase 15 ----
+class FleetCell:
+    """``n`` supervised ``python -m dpcorr_torch serve`` replicas on the
+    card over one leased budget directory, behind a ``FleetFrontend`` on
+    an HTTP port of its own, with a background readiness poller."""
+
+    def __init__(self, d: str, names: list):
+        import os
+
+        from dpcorr_torch.serve.fleet import (
+            FleetFrontend,
+            ReplicaSpec,
+            Supervisor,
+            make_frontend_http_server,
+        )
+
+        self.d, self.names = d, names
+        os.makedirs(d)
+        self.lease_dir = f"{d}/leases"
+        target = -(-FLEET_SHARDS // len(names))
+        env = _repo_env()
+        specs = [ReplicaSpec(name=nm, argv=[
+            sys.executable, "-m", "dpcorr_torch", "serve", "--port", "0",
+            "--instance", nm, "--device", "cuda", "--budget", "1e9",
+            "--ledger", f"{d}/{nm}_ledger.json",
+            "--audit", f"{d}/{nm}_audit.jsonl",
+            "--user-dir", f"{d}/budget",
+            "--user-shards", str(FLEET_SHARDS), "--user-budget", "1e9",
+            "--lease-dir", self.lease_dir,
+            "--lease-ttl-s", str(FLEET_LEASE_TTL_S),
+            "--lease-target", str(target), "--max-batch", "8",
+            "--max-delay-ms", "5"], env=env,
+            stderr_path=f"{d}/{nm}.log") for nm in names]
+        self.fe = FleetFrontend({}, lease_dir=self.lease_dir,
+                                cooldown_s=0.5, table_ttl_s=0.25)
+        self.sup = Supervisor(specs, banner_deadline_s=240.0,
+                              on_up=lambda name, url, banner:
+                              self.fe.set_replica(name, url))
+        self.httpd = make_frontend_http_server(self.fe)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self._stop = threading.Event()
+
+    def start(self) -> float:
+        """Boot every replica (in parallel), serve the front end, wait
+        until each replica is ready; returns the boot seconds."""
+        t0 = time.perf_counter()
+        self.sup.start()
+        threading.Thread(target=self.httpd.serve_forever,
+                         daemon=True).start()
+        deadline = time.monotonic() + 240
+        while True:
+            ready = self.fe.poll_ready()
+            if len(ready) == len(self.names) and all(ready.values()):
+                break
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"15a: replicas never ready: {ready}")
+            time.sleep(0.1)
+        boot = time.perf_counter() - t0
+
+        def health():
+            while not self._stop.is_set():
+                try:
+                    self.fe.poll_ready()
+                except Exception:
+                    pass
+                self._stop.wait(0.25)
+        threading.Thread(target=health, daemon=True).start()
+        return boot
+
+    def collector(self):
+        from dpcorr_torch.obs.fleet import FleetCollector
+
+        return FleetCollector(self.sup.urls())
+
+    def admitted(self) -> dict:
+        """Per-replica ``dpcorr_serve_requests_total`` out of the
+        collector's merged (instance-labelled) registry."""
+        from dpcorr_torch.obs.fleet import families_to_flat
+
+        snap = self.collector().scrape(timeout_s=30)
+        if snap.errors():
+            raise RuntimeError(f"15a: scrape errors {snap.errors()}")
+        flat = families_to_flat(snap.merged())
+        return {n: flat[f'dpcorr_serve_requests_total{{instance="{n}"}}']
+                for n in self.names}
+
+    def stop(self) -> None:
+        self._stop.set()
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.sup.stop()
+
+
+def fleet_requests(count: int, seed0: int, users: list) -> list:
+    """``serve_requests`` of ``ni_sign`` at n = 10⁴ charged to the fleet's
+    parties, request i for ``users[i % len(users)]``."""
+    import dataclasses
+
+    return [dataclasses.replace(r, user=users[i % len(users)])
+            for i, r in enumerate(serve_requests(
+                "ni_sign", count, SERVE_N, seed0, party_x="fleet-x",
+                party_y="fleet-y"))]
+
+
+def fleet_drive(url: str, reqs: list, policy, kill=None) -> dict:
+    """``FLEET_CLIENTS`` threads send ``reqs`` through the front end with a
+    ``RetryingClient``; every request must end in a response. ``kill`` =
+    (after, fn): ``fn()`` runs once ``after`` requests have succeeded.
+    Returns the responses, their completion times, latencies and wall
+    seconds."""
+    from dpcorr_torch.serve import HttpEstimateClient, RetryingClient
+
+    cli = RetryingClient(HttpEstimateClient(url, timeout_s=120.0), policy)
+    out, done_at, lat = [None] * len(reqs), [0.0] * len(reqs), []
+    errors, lock, fired = [], threading.Lock(), threading.Event()
+    done = [0]
+
+    def worker(c):
+        for i in range(c, len(reqs), FLEET_CLIENTS):
+            t = time.perf_counter()
+            try:
+                out[i] = cli.estimate(reqs[i], timeout=120.0)
+            except Exception as e:
+                errors.append(f"#{i}: {type(e).__name__}: {e}")
+                continue
+            with lock:
+                done_at[i] = time.perf_counter()
+                lat.append(done_at[i] - t)
+                done[0] += 1
+                due = (kill is not None and not fired.is_set()
+                       and done[0] >= kill[0])
+                if due:
+                    fired.set()
+            if due:
+                kill[1]()
+    ts = [threading.Thread(target=worker, args=(c,))
+          for c in range(FLEET_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors or any(r is None for r in out):
+        raise RuntimeError(f"15: {len(errors)} requests failed: "
+                           f"{errors[:3]}")
+    return {"resp": out, "done_at": done_at, "lat": np.array(lat),
+            "wall": wall}
+
+
+def fleet_serve(card: str, work: str) -> dict:
+    """Phase 15 (a), (b) and the req/s, boot and failover numbers of (e).
+    A one-replica cell (the qps baseline) and the three-replica fleet
+    boot together; the one replica is driven and stopped first."""
+    from dpcorr_torch.obs.audit import read_events
+    from dpcorr_torch.obs.budget_replay import fold_levels, read_user_balances
+    from dpcorr_torch.obs.fleet import conservation, fleet_replay
+    from dpcorr_torch.obs.fleet import ledger_parties
+    from dpcorr_torch.serve import RetryPolicy, request_charges
+    from dpcorr_torch.serve.budget_dir import build_ring, ring_shard_index
+    from dpcorr_torch.serve.fleet import lease_table
+
+    users = [f"user-{u}" for u in range(FLEET_USERS)]
+    per_phase = FLEET_PER_REPLICA * FLEET_REPLICAS
+    steady = RetryPolicy(max_attempts=6, base_delay_s=0.05,
+                         max_delay_s=1.0, deadline_s=120.0)
+    failover = RetryPolicy(max_attempts=40, base_delay_s=0.1,
+                           max_delay_s=1.0, deadline_s=240.0)
+    warm_reqs = fleet_requests(len(users), 700_000, users)
+    b_reqs = fleet_requests(per_phase, 800_000, users)
+    c_reqs = fleet_requests(per_phase, 900_000, users)
+    solo = FleetCell(f"{work}/15solo", ["solo-0"])
+    fleet = FleetCell(f"{work}/15fleet",
+                      [f"rep-{i}" for i in range(FLEET_REPLICAS)])
+    boots = {}
+    threads = [threading.Thread(
+        target=lambda c, k: boots.__setitem__(k, c.start()),
+        args=(c, k)) for c, k in ((solo, "solo"), (fleet, "fleet"))]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if set(boots) != {"solo", "fleet"}:
+            raise RuntimeError(f"15a: boot failed: {sorted(boots)} up; see "
+                               f"the replica logs under {work}")
+        print(f"[{card}] 15e boot: {FLEET_REPLICAS} replicas and the "
+              f"one-replica cell in parallel, ready in "
+              f"{boots['fleet']:.2f} s (fleet), {boots['solo']:.2f} s "
+              f"(one replica)", flush=True)
+        fleet_drive(solo.url, warm_reqs, steady)
+        r = fleet_drive(solo.url, b_reqs, steady)
+        one = load_line(f"[{card}] 15e one replica through its front end",
+                        r["lat"], r["wall"])
+    finally:
+        solo.stop()
+    sent: dict = {}
+
+    def count(reqs):
+        for r in reqs:
+            sent[r.user] = sent.get(r.user, 0) + 1
+    try:
+        fleet_drive(fleet.url, warm_reqs, steady)
+        count(warm_reqs)
+        before = fleet.admitted()
+        b = fleet_drive(fleet.url, b_reqs, steady)
+        count(b_reqs)
+        after = fleet.admitted()
+        three = load_line(f"[{card}] 15e {FLEET_REPLICAS} replicas "
+                          f"through the front end", b["lat"], b["wall"])
+        delta = {n: after[n] - before[n] for n in fleet.names}
+        print(f"[{card}] 15a: {per_phase} client successes; admitted per "
+              f"replica (merged registry deltas) {json.dumps(delta)}",
+              flush=True)
+        if sum(delta.values()) != per_phase:
+            raise RuntimeError(f"15a: Σ admitted {sum(delta.values())} != "
+                               f"{per_phase} client successes")
+        got = np.array([[r.rho_hat, r.ci_low, r.ci_high]
+                        for r in b["resp"][:FLEET_PARITY]])
+        bit_equal("15a fleet over HTTP", got,
+                  direct_answers(b_reqs[:FLEET_PARITY], "cuda"))
+
+        # (b) SIGKILL one replica during the second phase of traffic
+        victim = fleet.names[-1]
+        table0 = lease_table(fleet.lease_dir)
+        victim_shards = sorted(s for s, r in table0.items()
+                               if r.get("owner") == victim)
+        epochs0 = {s: table0[s]["epoch"] for s in victim_shards}
+        killed = {}
+
+        def kill():
+            killed["t"] = time.perf_counter()
+            fleet.sup.kill(victim)
+        c = fleet_drive(fleet.url, c_reqs, failover,
+                        kill=(per_phase // 3, kill))
+        count(c_reqs)
+        fleet.sup.wait_restarted(victim, 1, timeout_s=240.0)
+        time.sleep(2 * FLEET_LEASE_TTL_S)
+        table1 = lease_table(fleet.lease_dir)
+        ring = build_ring(FLEET_SHARDS)
+        on_victim = [c["done_at"][i] - killed["t"]
+                     for i, r in enumerate(c_reqs)
+                     if c["done_at"][i] > killed["t"]
+                     and ring_shard_index(r.user, *ring) in victim_shards]
+        recovery = min(on_victim) if on_victim else None
+        now = time.time()
+        for s in victim_shards:
+            rec = table1.get(s, {})
+            if (rec.get("owner") is None or rec["epoch"] <= epochs0[s]
+                    or rec["expires_at"] <= now):
+                raise RuntimeError(f"15b: shard {s} of {victim} not "
+                                   f"re-leased live at a higher epoch: "
+                                   f"{rec} (was epoch {epochs0[s]})")
+        launched = fleet.sup.launched[victim]
+        if (fleet.sup.restarts.get(victim) != 1 or len(launched) != 2
+                or launched[0] != launched[1]):
+            raise RuntimeError(f"15b: restarts {fleet.sup.restarts}, "
+                               f"launches {len(launched)} (argv equal: "
+                               f"{launched[0] == launched[-1]})")
+        stats = fleet.collector().scrape(timeout_s=30).stats()
+    finally:
+        fleet.stop()
+
+    trails = {n: read_events(f"{fleet.d}/{n}_audit.jsonl")
+              for n in fleet.names}
+    merged = sorted((ev for evs in trails.values() for ev in evs),
+                    key=lambda ev: ev["ts"])
+    user_replay = fold_levels(fleet_replay({"fleet": merged})["fleet"])[
+        "user"]
+    disk = {u: rec["l"] for u, rec in
+            read_user_balances(f"{fleet.d}/budget").items()}
+    user_eps = sum(request_charges(c_reqs[0]).values())
+    expected = {u: k * user_eps for u, k in sent.items()}
+    if not user_replay == disk == expected:
+        raise RuntimeError(f"15b: fleet ε not conserved: replay "
+                           f"{user_replay}, directory {disk}, expected "
+                           f"{expected}")
+
+    def party_only(events):
+        return [{**ev, "charges": ch} for ev in events
+                if (ch := {p: e for p, e in ev["charges"].items()
+                           if not p.startswith(("user/", "global/"))})]
+    survivors = [n for n in fleet.names if n != victim]
+    cons = conservation({n: party_only(trails[n]) for n in survivors},
+                        {n: ledger_parties(stats[n]) for n in survivors})
+    if not cons["ok"]:
+        raise RuntimeError(f"15b: survivors' audit replay != ledger: "
+                           f"{cons['mismatches']}")
+    print(f"[{card}] 15b: {victim} SIGKILLed after {per_phase // 3} of "
+          f"{per_phase} requests, every request answered 200 in the end, "
+          f"1 restart with the same argv, its shards {victim_shards} "
+          f"re-leased at higher epochs ({json.dumps({str(s): table1[s]['epoch'] for s in victim_shards})}); "
+          f"first success on a victim shard {recovery:.3f} s after the "
+          f"kill; {len(users)} users' ε: merged-trail replay == directory "
+          f"== Σ charges (binary-exact, {sum(sent.values())} requests); "
+          f"survivors' trails replay to their ledgers", flush=True)
+    return {"boot_s": boots, "one": one, "three": three,
+            "qps_ratio": three["req_per_s"] / one["req_per_s"],
+            "kill_to_first_victim_shard_success_s": recovery,
+            "failover_wall_s": c["wall"]}
+
+
+#: phase 15c: (point, victim role) of the chaos sweep's smoke cases
+CHAOS_CASES = (("gate.post_charge", "x"), ("ledger.post_persist", "y"),
+               ("budget.mid_compaction", "x"),
+               ("federation.pre_release", "y"))
+
+
+def chaos_sweep(card: str, work: str) -> dict:
+    """Phase 15c: ``python -m dpcorr_torch chaos --device cuda`` on the 4
+    cases at once (one command each); every case bit-identical to its
+    uninterrupted in-process reference with ε spent once."""
+    import os
+    import subprocess
+
+    env = _repo_env()
+    procs = {}
+    t0 = time.perf_counter()
+    for point, role in CHAOS_CASES:
+        d = f"{work}/15c/{point}.{role}"
+        os.makedirs(d)
+        procs[(point, role)] = subprocess.Popen(
+            [sys.executable, "-m", "dpcorr_torch", "chaos", "--device",
+             "cuda", "--points", point, "--roles", role,
+             "--n", str(SERVE_N), "--timeout", "1", "--case-timeout", "120",
+             "--workdir", d], env=env, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    seconds = {}
+    for (point, role), p in procs.items():
+        out, err = p.communicate(timeout=300)
+        if p.returncode != 0:
+            raise RuntimeError(f"15c {point} {role}: rc {p.returncode}: "
+                               f"{out[-1500:]} {err[-1500:]}")
+        doc = json.loads(out)
+        case = doc["cases"][0]
+        if not doc["ok"] or doc["device"] != "cuda" or not case["ok"]:
+            raise RuntimeError(f"15c {point} {role}: {doc}")
+        seconds[case["case"]] = case["seconds"]
+    wall = time.perf_counter() - t0
+    print(f"[{card}] 15c: chaos --device cuda, {len(CHAOS_CASES)} cases at "
+          f"once in {wall:.1f} s, each bit-identical to its uninterrupted "
+          f"reference with each role's ε spent once; seconds per case "
+          f"{json.dumps({k: round(v, 2) for k, v in seconds.items()})}",
+          flush=True)
+    return {"wall_s": wall, "case_s": seconds}
+
+
+def fleet_phase(card: str, work: str) -> dict:
+    """Phase 15 (a)-(c), (e); the caller sets the launch counts to 0
+    before and reads them after (d)."""
+    parts = {}
+    for label, fn in (("15a,b", lambda: fleet_serve(card, work)),
+                      ("15c", lambda: chaos_sweep(card, work))):
+        t0 = time.perf_counter()
+        parts[label] = fn()
+        parts[label + " s"] = time.perf_counter() - t0
     return parts
 
 
@@ -3122,9 +3531,32 @@ def main() -> int:
         raise RuntimeError(f"phase 14: {stream_launches} K1 launches; the "
                            f"stream and directory paths have no kernel of "
                            f"their own")
-    work.cleanup()
     seconds = {k: round(v, 1) for k, v in parts.items() if k.endswith(" s")}
     print(f"phase 14: {time.perf_counter() - t14:.1f} s "
+          f"{json.dumps(seconds)}", flush=True)
+
+    # ---- 15. the serve fleet, the fleet telemetry plane and the chaos
+    # sweep, driven with the launch counts set to 0 just before it and
+    # read just after (the replicas' and parties' launches are their own
+    # processes', on the serving and protocol paths phases 12-13 hold)
+    t15 = time.perf_counter()
+    reset_launches()
+    parts = fleet_phase(card, work.name)
+    fleet_launches = fused_ni.KERNEL_LAUNCHES["fused_ni"]
+    print(f"launches in the fleet run (this process): "
+          f"{dict(fused_ni.KERNEL_LAUNCHES)}", flush=True)
+    if fleet_launches:
+        raise RuntimeError(f"phase 15: {fleet_launches} K1 launches; the "
+                           f"fleet and chaos paths have no kernel of their "
+                           f"own")
+    work.cleanup()
+    fa = parts["15a,b"]
+    print(f"[{card}] 15e: qps(3)/qps(1) = {fa['qps_ratio']:.3f} "
+          f"({fa['three']['req_per_s']:.1f} / {fa['one']['req_per_s']:.1f} "
+          f"req/s; reported only: three replicas share one card)",
+          flush=True)
+    seconds = {k: round(v, 1) for k, v in parts.items() if k.endswith(" s")}
+    print(f"[{card}] phase 15: {time.perf_counter() - t15:.1f} s "
           f"{json.dumps(seconds)}", flush=True)
     bucket_ms = [v["ms"] for v in buckets.values()]
 
@@ -3162,6 +3594,7 @@ def main() -> int:
         "serve_launches": serve_launches,
         "protocol_launches": protocol_launches,
         "stream_launches": stream_launches,
+        "fleet_launches": fleet_launches,
     }]}
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(record), flush=True)

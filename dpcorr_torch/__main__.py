@@ -21,11 +21,20 @@ Counterpart of the simulation commands of ``python -m dpcorr``:
 - ``federation``  ``plan | run | party | scan``: the N-party k×k matrix
 - ``stream``      always-on windowed DP releases over an HTTP ingest
   stream (``dpcorr_torch.stream``)
+- ``fleet``       ``front``: the HTTP router over running serve replicas;
+  ``up``: N supervised serve replicas over one leased budget directory
+  behind a front end (``dpcorr_torch.serve.fleet``)
+- ``chaos``       the step-kill sweep: two party processes, the victim
+  killed at each crash point and restarted, results bit-identical and ε
+  spent once
+- ``obs``         ``fleet snapshot | chrome | replay``: the fleet
+  telemetry plane (``dpcorr_torch.obs.fleet``)
 
-Every command but ``report``, ``protocol scan``, ``federation plan`` and
-``federation scan`` (which compute nothing and need no torch) runs on the
-card (``--device cuda``, the default) and raises without one unless
-``--device cpu`` is given. Grids
+Every command but ``report``, ``protocol scan``, ``federation plan``,
+``federation scan``, ``fleet front`` and ``obs`` (which compute nothing)
+runs on the card (``--device cuda``, the default) and raises without one
+unless ``--device cpu`` is given; ``fleet up`` and ``chaos`` pass their
+``--device`` on to the processes they start. Grids
 persist per-design-point ``.npz`` caches and the merged tables
 (``detail_all.npz``, ``summ_all.npz``, ``detail_all.rds``) into
 ``--out`` and resume from them; they draw no figures (``report --from
@@ -311,6 +320,9 @@ def cmd_serve(args):
         rec = FlightRecorder(args.flight_recorder)
         signal.signal(signal.SIGUSR2,
                       lambda signum, frame: rec.dump("sigusr2"))
+    advertise_url = (f"http://{args.host}:{bound_port}"
+                     if args.host not in ("0.0.0.0", "::")
+                     else f"http://127.0.0.1:{bound_port}")
     server = DpcorrServer(
         budget=args.budget, ledger_path=args.ledger, seed=args.seed,
         max_batch=args.max_batch, max_delay_s=args.max_delay_ms / 1000.0,
@@ -333,13 +345,16 @@ def cmd_serve(args):
         user_renew_period_s=args.user_renew_period_s,
         user_burst_cap=args.user_burst_cap,
         global_budget=args.global_budget,
-        instance=args.instance, device=_device(args))
+        instance=args.instance, lease_dir=args.lease_dir,
+        lease_ttl_s=args.lease_ttl_s, lease_target=args.lease_target,
+        advertise_url=advertise_url, device=_device(args))
     if rec is not None:
         server.attach_recorder(rec)
     httpd = make_http_server(server, host=args.host, port=args.port,
                              sock=sock)
     print(json.dumps({"serving": {
         "host": args.host, "port": bound_port, "instance": args.instance,
+        "lease_dir": args.lease_dir, "advertise_url": advertise_url,
         "device": str(server.device), "budget": args.budget,
         "ledger": args.ledger, "max_batch": args.max_batch,
         "max_delay_ms": args.max_delay_ms, "batch_mode": args.batch_mode,
@@ -419,6 +434,21 @@ def _add_serve(sub) -> None:
                    help="whole-replica ε ceiling, charged atomically with "
                         "the per-party legs (reserved principal "
                         "global/total)")
+    p.add_argument("--lease-dir", dest="lease_dir", default=None,
+                   help="fleet mode (requires --user-dir): shard-lease "
+                        "directory SHARED by all replicas of one budget "
+                        "directory; each shard's journal is only ever "
+                        "written by the replica holding its lease")
+    p.add_argument("--lease-ttl-s", dest="lease_ttl_s", type=float,
+                   default=3.0,
+                   help="lease validity window; a silent replica loses "
+                        "its shards this long after its last heartbeat")
+    p.add_argument("--lease-target", dest="lease_target", type=int,
+                   default=None,
+                   help="cap on proactively acquired shards (fleet up "
+                        "passes ceil(shards/replicas) so the first "
+                        "replica up does not hoard the ring); orphaned "
+                        "shards are rescued regardless")
     p.add_argument("--max-batch", dest="max_batch", type=int, default=64,
                    help="flush a bucket at this many live requests")
     p.add_argument("--max-delay-ms", dest="max_delay_ms", type=float,
@@ -492,6 +522,176 @@ def _add_serve(sub) -> None:
     p.set_defaults(fn=cmd_serve)
 
 
+# --------------------------------------------------------------- fleet
+def _child_env(drop_chaos: bool = False) -> dict:
+    """The environment of a process this CLI starts (``python -m
+    dpcorr_torch ...``): this one's, with the package's root first on
+    ``PYTHONPATH`` so the child imports the same package from any working
+    directory; ``drop_chaos`` removes ``DPCORR_CHAOS``, so a restarted
+    victim does not re-arm the kill it is recovering from."""
+    import os
+
+    import dpcorr_torch
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(
+        dpcorr_torch.__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    if drop_chaos:
+        env.pop("DPCORR_CHAOS", None)
+    return env
+
+
+def cmd_fleet(args):
+    """The fleet's deployment plane (counterpart of ``python -m dpcorr
+    fleet``): ``front`` routes over already-running replicas, ``up``
+    boots and supervises N ``serve`` replicas on ``--device`` plus a
+    front end in one command. A replica that cannot come up (no card and
+    no ``--device cpu``) ends the command with the supervisor's
+    ``ReplicaDiedError`` naming the replica and its log."""
+    import math
+    import os
+    import threading
+
+    from dpcorr_torch.serve.fleet.frontend import (
+        FleetFrontend,
+        make_frontend_http_server,
+    )
+
+    def _serve_front(fe, host, port, banner_extra):
+        httpd = make_frontend_http_server(fe, host, port)
+        bound = httpd.server_address[1]
+        banner = {"host": host, "port": bound,
+                  "lease_dir": args.lease_dir}
+        banner.update(banner_extra)
+        print(json.dumps({"fleet_front": banner}), flush=True)
+
+        def _poll():
+            while True:
+                try:
+                    fe.poll_ready()
+                except Exception:
+                    pass
+                time.sleep(args.health_interval_s)
+
+        threading.Thread(target=_poll, name="fleet-health",
+                         daemon=True).start()
+        try:
+            httpd.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            httpd.shutdown()
+
+    if args.fleet_cmd == "front":
+        replicas = {}
+        for spec in args.replica:
+            name, sep, url = spec.partition("=")
+            if not sep or not url:
+                raise SystemExit(f"--replica wants name=url, got {spec!r}")
+            replicas[name] = url
+        fe = FleetFrontend(replicas, lease_dir=args.lease_dir)
+        _serve_front(fe, args.host, args.port,
+                     {"replicas": dict(sorted(replicas.items()))})
+        return
+
+    # fleet up: boot N real serve replicas over one shared budget
+    # directory + lease dir, supervise them, front them
+    from dpcorr_torch.serve.fleet.supervisor import ReplicaSpec, Supervisor
+
+    workdir = os.path.abspath(args.workdir)
+    os.makedirs(workdir, exist_ok=True)
+    budget_root = os.path.join(workdir, "budget")
+    lease_dir = os.path.join(workdir, "leases")
+    args.lease_dir = lease_dir
+    target = math.ceil(args.user_shards / args.replicas)
+    env = _child_env()
+    specs = []
+    for i in range(args.replicas):
+        name = f"r{i}"
+        argv = [sys.executable, "-m", "dpcorr_torch", "serve",
+                "--port", "0", "--instance", name,
+                "--device", args.device,
+                "--budget", str(args.budget),
+                "--ledger", os.path.join(workdir, f"{name}_ledger.json"),
+                "--audit", os.path.join(workdir, f"{name}_audit.jsonl"),
+                "--user-dir", budget_root,
+                "--user-shards", str(args.user_shards),
+                "--user-budget", str(args.user_budget),
+                "--lease-dir", lease_dir,
+                "--lease-ttl-s", str(args.lease_ttl_s),
+                "--lease-target", str(target),
+                "--max-delay-ms", str(args.max_delay_ms)]
+        specs.append(ReplicaSpec(
+            name=name, argv=argv, env=env,
+            stderr_path=os.path.join(workdir, f"{name}.log")))
+    fe = FleetFrontend({}, lease_dir=lease_dir)
+    sup = Supervisor(specs,
+                     on_up=lambda name, url, banner:
+                     fe.set_replica(name, url))
+    print(json.dumps({"fleet_up": {"replicas": args.replicas,
+                                   "workdir": workdir,
+                                   "device": args.device,
+                                   "booting": True}}), flush=True)
+    sup.start()
+    try:
+        _serve_front(fe, args.host, args.port,
+                     {"replicas": sup.urls()})
+    finally:
+        sup.stop()
+
+
+def _add_fleet(sub) -> None:
+    pfl = sub.add_parser("fleet", help="horizontally scaled serve: a "
+                         "front-end router over N replicas with leased "
+                         "budget shards")
+    pfls = pfl.add_subparsers(dest="fleet_cmd", required=True)
+    pff = pfls.add_parser("front", help="HTTP front end over "
+                          "already-running serve replicas (either "
+                          "package's)")
+    pff.add_argument("--replica", action="append", required=True,
+                     metavar="NAME=URL",
+                     help="one serve replica (repeatable), e.g. "
+                          "r0=http://127.0.0.1:8321")
+    pff.add_argument("--lease-dir", dest="lease_dir", default=None,
+                     help="the fleet's shared lease directory: routes "
+                          "each user to the replica owning their "
+                          "budget shard")
+    pff.add_argument("--host", default="127.0.0.1")
+    pff.add_argument("--port", type=int, default=8330)
+    pff.add_argument("--health-interval-s", dest="health_interval_s",
+                     type=float, default=0.5,
+                     help="readyz poll cadence per replica")
+    pff.set_defaults(fn=cmd_fleet)
+    pfu = pfls.add_parser("up", help="boot + supervise N serve replicas "
+                          "over one shared budget directory, plus a "
+                          "front end; a dead replica is restarted with "
+                          "identical argv and its shards re-leased")
+    pfu.add_argument("--workdir", required=True,
+                     help="fleet state root: budget/ (shared directory), "
+                          "leases/, per-replica ledger/audit/logs")
+    pfu.add_argument("--replicas", type=int, default=3)
+    pfu.add_argument("--budget", type=float, default=100.0)
+    pfu.add_argument("--user-budget", dest="user_budget", type=float,
+                     default=1.0)
+    pfu.add_argument("--user-shards", dest="user_shards", type=int,
+                     default=16)
+    pfu.add_argument("--lease-ttl-s", dest="lease_ttl_s", type=float,
+                     default=3.0)
+    pfu.add_argument("--max-delay-ms", dest="max_delay_ms", type=float,
+                     default=5.0)
+    pfu.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                     help="where the replicas compute: the card (default; "
+                          "a replica without one dies at boot) or the CPU")
+    pfu.add_argument("--host", default="127.0.0.1")
+    pfu.add_argument("--port", type=int, default=8330)
+    pfu.add_argument("--health-interval-s", dest="health_interval_s",
+                     type=float, default=0.5)
+    pfu.set_defaults(fn=cmd_fleet)
+
+
 # ------------------------------------------------ protocol and federation
 def _party_columns(args, n: int):
     """Synthetic bivariate-normal columns, derived identically in both
@@ -537,18 +737,17 @@ def _fault(args) -> dict | None:
 
 
 def _arm_chaos(args):
-    """The crash plan of ``--chaos`` or ``DPCORR_CHAOS``, armed; a plan on
-    a point this package cannot reach yet is refused
-    (``chaos.check_reachable``)."""
+    """The crash plan of ``--chaos`` or ``DPCORR_CHAOS``, armed; a plan
+    that does not parse (an unknown point, a bad field) is refused."""
     from dpcorr_torch import chaos
 
-    plan = (chaos.plan_from_spec(args.chaos) if args.chaos
-            else chaos.plan_from_env())
+    try:
+        plan = (chaos.plan_from_spec(args.chaos) if args.chaos
+                else chaos.plan_from_env())
+    except ValueError as e:
+        raise SystemExit(f"chaos plan refused: {e}") from e
     if plan is not None:
-        try:
-            chaos.install(plan)
-        except ValueError as e:
-            raise SystemExit(f"chaos plan refused: {e}") from e
+        chaos.install(plan)
     return plan
 
 
@@ -633,6 +832,22 @@ def cmd_party(args):
                                timeout_s=args.connect_timeout)
     audit = AuditTrail(args.audit) if args.audit else None
     ledger = PrivacyLedger(args.budget, path=args.ledger, audit=audit)
+    if args.user_dir:
+        # per-user admission rides the gate unchanged: the composite
+        # derives the user/ leg inside the same charge/refund calls, and
+        # both stores recover their exact balances on restart
+        from dpcorr_torch.serve.budget_dir import (
+            BudgetDirectory,
+            CompositeLedger,
+        )
+
+        directory = BudgetDirectory(
+            args.user_dir, shards=args.user_shards,
+            user_budget=args.user_budget,
+            max_resident=args.user_max_resident,
+            compact_every=args.user_compact_every, audit=audit)
+        ledger = CompositeLedger(ledger, directory,
+                                 user=args.user or f"user-{args.role}")
     channel = ReliableChannel(link, timeout_s=args.timeout,
                               max_retries=args.max_retries)
     transcript = Transcript(args.transcript)
@@ -652,6 +867,8 @@ def cmd_party(args):
         link.close()
         if srv is not None:
             srv.close()
+        if args.user_dir:
+            ledger.close()  # CompositeLedger: releases shard spill files
     print(json.dumps({"result": _result_json(res)}, indent=2))
 
 
@@ -956,6 +1173,595 @@ def cmd_federation_scan(args):
         sys.exit(1)
 
 
+# --------------------------------------------------------------- chaos
+#: Federation chaos cases map the sweep's victim role onto a party of the
+#: fixed 3-party topology (p0:[a,b] p1:[c] p2:[d]), chosen so each point
+#: fires in the victim: pre_release in link initiators (p0 initiates both
+#: its links, p1 initiates p1-p2), pre_finish in finishers (p1 finishes
+#: p0-p1, p2 finishes both its links), mid_matrix in any party joining
+#: link threads (the JAX command's table).
+_FED_VICTIMS = {
+    "federation.pre_release": {"x": "p0", "y": "p1"},
+    "federation.pre_finish": {"x": "p1", "y": "p2"},
+    "federation.mid_matrix": {"x": "p0", "y": "p1"},
+}
+
+
+def _parse_party_result(text: str) -> dict:
+    """Drop the single-line ``{"party": ...}`` banners of a party's stdout
+    and parse the multi-line ``{"result": ...}`` document after them."""
+    lines = [ln for ln in text.splitlines() if ln.strip()]
+    while lines:
+        try:
+            obj = json.loads(lines[0])
+        except json.JSONDecodeError:
+            break
+        if isinstance(obj, dict) and "party" in obj:
+            lines.pop(0)
+        else:
+            break
+    return json.loads("\n".join(lines))["result"]
+
+
+def _budget_dir_replay(audit_path: str, budget_dir: str) -> list[dict]:
+    """The per-user audit: each user's lifetime spend folded from the
+    trail's ``user/`` legs against the lifetime the directory's shard
+    files recover to (snapshot + WAL, the restart's own arithmetic).
+    Returns the mismatches (the JAX package's ``obs budget --budget-dir``
+    check)."""
+    from dpcorr_torch.obs.audit import read_events, replay
+    from dpcorr_torch.obs.budget_replay import (
+        USER_PREFIX,
+        read_user_balances,
+    )
+
+    replayed = {p[len(USER_PREFIX):]: v
+                for p, v in replay(read_events(audit_path)).items()
+                if p.startswith(USER_PREFIX)}
+    bal = read_user_balances(budget_dir)
+    out = []
+    for user in sorted(set(replayed) | set(bal)):
+        want = replayed.get(user, 0.0)
+        got = bal.get(user, {}).get("l", 0.0)
+        if abs(want - got) > 1e-9:
+            out.append({"user": user, "replayed": want, "directory": got})
+    return out
+
+
+def cmd_chaos(args):
+    """Deterministic step-kill sweep (counterpart of ``python -m dpcorr
+    chaos``): per (family, victim role, crash point) case, run the
+    two-party protocol as two real TCP party processes on ``--device``
+    with journals, ledgers, audit trails, transcripts and per-user budget
+    directories, kill the victim at the named point (exit 42), restart it
+    with the same command line, and hold the finished session bit-equal
+    to an uninterrupted in-process reference on the same device, with
+    each role's ε (party and user) spent exactly once. Federation points
+    run the 3-party case."""
+    import os
+    import subprocess
+    import tempfile
+
+    from dpcorr_torch import chaos
+    from dpcorr_torch.protocol.party import ProtocolSpec
+    from dpcorr_torch.protocol.runner import run_inproc
+
+    device = _device(args)
+    points = (args.points.split(",") if args.points
+              else list(chaos.MATRIX_POINTS))
+    roles = args.roles.split(",") if args.roles else ["x", "y"]
+    families = (args.families.split(",") if args.families
+                else [args.family])
+    if args.chaos_seed is not None:
+        plan = chaos.plan_from_seed(args.chaos_seed)
+        points, roles = [plan.point], [plan.role]
+    for point in points:
+        if point not in chaos.KNOWN_POINTS:
+            raise SystemExit(f"unknown chaos point {point!r}")
+    workdir = args.workdir or tempfile.mkdtemp(prefix="dpcorr-chaos-")
+    os.makedirs(workdir, exist_ok=True)
+    # the restarted victim must NOT re-arm the kill it is recovering from
+    env = _child_env(drop_chaos=True)
+
+    def spec_for(family: str) -> ProtocolSpec:
+        return ProtocolSpec(family=family, n=args.n, eps1=args.eps1,
+                            eps2=args.eps2, alpha=args.alpha,
+                            normalise=args.normalise == "on",
+                            seed=args.seed, noise_mode=args.noise_mode)
+
+    # the oracle every crashed run must match bit for bit: one clean
+    # uninterrupted run per family, same spec, same columns, same device
+    refs = {}
+    for family in families:
+        if any(not p.startswith("federation.") for p in points):
+            cx, cy = _party_columns(args, args.n)
+            refs[family] = run_inproc(spec_for(family), cx, cy,
+                                      device=device)["x"]
+
+    def launch(argv: list[str], case_dir: str, role: str):
+        errlog = open(os.path.join(case_dir, f"{role}.stderr.log"), "ab")
+        try:
+            return subprocess.Popen(argv, stdout=subprocess.PIPE,
+                                    stderr=errlog, env=env, text=True)
+        finally:
+            errlog.close()  # the child holds its own descriptor
+
+    reports = []
+    failures = []
+    fed_refs = {}  # family -> uninterrupted in-process federation oracle
+    for family in families:
+        for role in roles:
+            for point in points:
+                case = f"{family}.{role}.{point}"
+                case_dir = os.path.join(workdir, case.replace(".", "_"))
+                os.makedirs(case_dir, exist_ok=True)
+                t0 = time.perf_counter()
+                if point.startswith("federation."):
+                    # federation crash windows never fire in a two-party
+                    # session: the case is a 3-party matrix over TCP,
+                    # with the victim role mapped onto a party
+                    errs = _run_federation_chaos_case(
+                        args, family, role, point, case_dir, launch,
+                        fed_refs, device)
+                else:
+                    errs = _run_chaos_case(
+                        args, family, role, point, case_dir,
+                        refs[family], spec_for(family), launch)
+                reports.append({"case": case, "ok": not errs,
+                                "errors": errs, "dir": case_dir,
+                                "seconds": time.perf_counter() - t0})
+                failures.extend(f"{case}: {e}" for e in errs)
+    print(json.dumps({"workdir": workdir, "device": str(device),
+                      "cases": reports, "ok": not failures}, indent=2))
+    if failures:
+        sys.exit(1)
+
+
+def _party_argv(args, family: str, role: str, port: int,
+                case_dir: str) -> list[str]:
+    """One chaos case's party command line. Every case also runs a
+    per-user budget directory with the most hostile knobs it supports —
+    evict after every release (max-resident 0) and compact after every
+    charge — so each protocol send crosses every directory persist
+    window, and the post-restart check proves exact per-user balances."""
+    import os
+
+    return [sys.executable, "-m", "dpcorr_torch", "party",
+            "--role", role, "--host", "127.0.0.1", "--port", str(port),
+            "--device", args.device,
+            "--family", family, "--n", str(args.n),
+            "--eps1", str(args.eps1), "--eps2", str(args.eps2),
+            "--alpha", str(args.alpha), "--normalise", args.normalise,
+            "--seed", str(args.seed), "--noise-mode", args.noise_mode,
+            "--rho", str(args.rho),
+            "--timeout", str(args.timeout),
+            "--max-retries", str(max(args.max_retries, 40)),
+            "--connect-timeout", str(args.case_timeout),
+            "--recv-timeout", str(args.case_timeout),
+            "--journal", os.path.join(case_dir, f"journal.{role}.json"),
+            "--ledger", os.path.join(case_dir, f"ledger.{role}.json"),
+            "--audit", os.path.join(case_dir, f"audit.{role}.jsonl"),
+            "--user", f"user-{role}",
+            "--user-dir", os.path.join(case_dir, f"budget-{role}"),
+            "--user-budget", "100", "--user-shards", "2",
+            "--user-max-resident", "0", "--user-compact-every", "1",
+            "--transcript",
+            os.path.join(case_dir, f"transcript.{role}.jsonl")]
+
+
+def _run_chaos_case(args, family, role, point, case_dir, ref, spec,
+                    launch) -> list[str]:
+    """One two-party (family, victim role, point) case; returns the error
+    strings (none when the case held)."""
+    import os
+    import subprocess
+
+    from dpcorr_torch import chaos
+    from dpcorr_torch.obs.audit import read_events
+    from dpcorr_torch.obs.budget_replay import read_user_balances
+    from dpcorr_torch.protocol.scan import ledger_balance, scan_transcript
+
+    # seed-derived sweeps pass the seed form through: the victim
+    # re-derives the same (point, role) and keeps the seed on the plan,
+    # so the transcript header records the provenance of the run
+    if getattr(args, "chaos_seed", None) is not None:
+        chaos_spec = f"seed={args.chaos_seed}"
+    else:
+        chaos_spec = f"point={point},hit=1,mode=exit"
+    timeout = args.case_timeout
+    procs = {}
+    try:
+        y_argv = _party_argv(args, family, "y", 0, case_dir)
+        procs["y"] = launch(
+            y_argv + (["--chaos", chaos_spec] if role == "y" else []),
+            case_dir, "y")
+        line = procs["y"].stdout.readline()
+        if not line:
+            return [f"party y printed no banner; see "
+                    f"{case_dir}/y.stderr.log"]
+        port = int(json.loads(line)["party"]["listening"][1])
+        x_argv = _party_argv(args, family, "x", port, case_dir)
+        procs["x"] = launch(
+            x_argv + (["--chaos", chaos_spec] if role == "x" else []),
+            case_dir, "x")
+        victim = procs[role]
+        try:
+            rc = victim.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            return [f"victim {role} did not crash at {point} within "
+                    f"{timeout:.0f}s"]
+        victim.stdout.read()  # drain the dead pipe
+        if rc != chaos.EXIT_CODE:
+            return [f"victim {role} exited {rc}, expected the chaos "
+                    f"kill code {chaos.EXIT_CODE}; see "
+                    f"{case_dir}/{role}.stderr.log"]
+        # restart: the same command line, minus the kill plan (y rebinds
+        # its concrete port — port 0 was only for discovery)
+        restart_argv = (_party_argv(args, family, "y", port, case_dir)
+                        if role == "y" else x_argv)
+        procs[role] = launch(restart_argv, case_dir, role)
+        results = {}
+        for r in ("x", "y"):
+            try:
+                rc = procs[r].wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                return [f"party {r} hung after restart (>{timeout:.0f}s)"]
+            out = procs[r].stdout.read()
+            if rc != 0:
+                return [f"party {r} exited {rc} after restart; see "
+                        f"{case_dir}/{r}.stderr.log"]
+            results[r] = _parse_party_result(out)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            p.stdout.close()
+
+    errs = []
+    for r in ("x", "y"):
+        got = results[r]
+        if (got["rho_hat"] != ref.rho_hat or got["ci_low"] != ref.ci_low
+                or got["ci_high"] != ref.ci_high):
+            errs.append(
+                f"role {r} result {got['rho_hat']!r} diverged from the "
+                f"uninterrupted reference {ref.rho_hat!r}")
+        transcript = os.path.join(case_dir, f"transcript.{r}.jsonl")
+        rep = scan_transcript(transcript)
+        if not rep["ok"]:
+            errs.append(f"role {r} transcript scan: {rep['violations']}")
+        audit = os.path.join(case_dir, f"audit.{r}.jsonl")
+        bal = ledger_balance(transcript, read_events(audit))
+        if not bal["ok"]:
+            errs.append(f"role {r} ledger balance: "
+                        f"sends {bal['unmatched_sends']} "
+                        f"charges {bal['unmatched_charges']}")
+        with open(os.path.join(case_dir, f"ledger.{r}.json")) as fh:
+            spent = json.load(fh)["spent"]
+        for party_name, eps in spec.charges_for(r).items():
+            if abs(spent.get(party_name, 0.0) - eps) > 1e-9:
+                errs.append(
+                    f"role {r} spent {spent.get(party_name, 0.0)!r} for "
+                    f"{party_name}, expected exactly one charge of "
+                    f"{eps!r}")
+        # the per-user directory recovers to the exact balance: every
+        # release charged the bound user once, through whatever persist
+        # window the kill landed in (read_user_balances IS the restart's
+        # recovery arithmetic)
+        budget_dir = os.path.join(case_dir, f"budget-{r}")
+        want = sum(spec.charges_for(r).values())
+        got_l = read_user_balances(budget_dir).get(
+            f"user-{r}", {}).get("l", 0.0)
+        if abs(got_l - want) > 1e-9:
+            errs.append(
+                f"role {r} user directory recovered lifetime {got_l!r} "
+                f"for user-{r}, expected exactly-once charges "
+                f"totalling {want!r}")
+        # and the trail's user legs fold to the directory's arithmetic
+        bad = _budget_dir_replay(audit, budget_dir)
+        if bad:
+            errs.append(f"role {r} audit replay disagreed with the "
+                        f"directory: {bad}")
+    return errs
+
+
+def _run_federation_chaos_case(args, family, role, point, case_dir,
+                               launch, fed_refs, device) -> list[str]:
+    """One federation chaos case: three real party processes over TCP
+    computing the 4×4 matrix, the mapped victim killed at the named
+    federation point (exit 42) and restarted with the same command line;
+    the finished matrix must be bit-equal to an uninterrupted in-process
+    reference with every party's ε spent once at the release-reuse
+    optimum."""
+    import os
+    import subprocess
+
+    from dpcorr_torch import chaos
+    from dpcorr_torch.obs.audit import read_events
+    from dpcorr_torch.protocol.federation import run_federation_inproc
+    from dpcorr_torch.protocol.matrix import FederationPlan
+    from dpcorr_torch.protocol.scan import (
+        federation_balance,
+        scan_federation,
+        scan_transcript,
+    )
+
+    plan = FederationPlan(
+        family=family, n=args.n, eps=args.eps1,
+        parties=[("p0", ["a", "b"]), ("p1", ["c"]), ("p2", ["d"])],
+        alpha=args.alpha, normalise=args.normalise == "on",
+        seed=args.seed, noise_mode=args.noise_mode)
+    victim_name = _FED_VICTIMS[point][role]
+    if family not in fed_refs:
+        fed_refs[family] = run_federation_inproc(
+            plan, _federation_columns(plan, args.rho), device=device)
+    ref = fed_refs[family]
+    plan_path = os.path.join(case_dir, "plan.json")
+    with open(plan_path, "w", encoding="utf-8") as fh:
+        json.dump(plan.to_public(), fh)
+
+    def argv(name: str, listen_port, peers: dict) -> list[str]:
+        cmd = [sys.executable, "-m", "dpcorr_torch", "federation",
+               "party", "--name", name, "--plan", plan_path,
+               "--device", args.device,
+               "--rho", str(args.rho), "--budget", "100",
+               "--timeout", str(args.timeout),
+               "--max-retries", str(max(args.max_retries, 40)),
+               "--connect-timeout", str(args.case_timeout),
+               "--recv-timeout", str(args.case_timeout),
+               "--ledger", os.path.join(case_dir, f"ledger.{name}.json"),
+               "--audit", os.path.join(case_dir, f"audit.{name}.jsonl"),
+               "--transcript-dir", case_dir,
+               "--journal-dir", case_dir]
+        if listen_port is not None:
+            cmd += ["--listen", f"127.0.0.1:{listen_port}"]
+        for peer, port in sorted(peers.items()):
+            cmd += ["--peer", f"{peer}=127.0.0.1:{port}"]
+        return cmd
+
+    chaos_spec = f"point={point},hit=1,mode=exit"
+    timeout = args.case_timeout
+    procs: dict = {}
+    ports: dict = {}
+
+    def spawn(name, listen_port, peers):
+        extra = ["--chaos", chaos_spec] if name == victim_name else []
+        procs[name] = launch(argv(name, listen_port, peers) + extra,
+                             case_dir, name)
+
+    def peers_of(name) -> dict:
+        # plan topology: the lower party of each link dials the higher
+        dials = {"p2": (), "p1": ("p2",), "p0": ("p1", "p2")}[name]
+        return {peer: ports[peer] for peer in dials}
+
+    def read_port(name) -> int:
+        line = procs[name].stdout.readline()
+        if not line:
+            raise RuntimeError(f"party {name} printed no banner; see "
+                               f"{case_dir}/{name}.stderr.log")
+        return int(json.loads(line)["party"]["listening"][1])
+
+    try:
+        # listeners first: p2 accepts p0+p1; p1 accepts p0, dials p2;
+        # p0 dials both (it is the lower party of both its links)
+        spawn("p2", 0, {})
+        ports["p2"] = read_port("p2")
+        spawn("p1", 0, peers_of("p1"))
+        ports["p1"] = read_port("p1")
+        spawn("p0", None, peers_of("p0"))
+        victim = procs[victim_name]
+        try:
+            rc = victim.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            return [f"victim {victim_name} did not crash at {point} "
+                    f"within {timeout:.0f}s"]
+        victim.stdout.read()  # drain the dead pipe
+        if rc != chaos.EXIT_CODE:
+            return [f"victim {victim_name} exited {rc}, expected the "
+                    f"chaos kill code {chaos.EXIT_CODE}; see "
+                    f"{case_dir}/{victim_name}.stderr.log"]
+        # restart: the same command line minus the kill plan (listeners
+        # rebind their discovered port; the peers' reconnecting links
+        # redial it)
+        procs[victim_name].stdout.close()
+        procs[victim_name] = launch(
+            argv(victim_name, ports.get(victim_name),
+                 peers_of(victim_name)), case_dir, victim_name)
+        results = {}
+        for name in ("p0", "p1", "p2"):
+            try:
+                rc = procs[name].wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                return [f"party {name} hung after the restart "
+                        f"(>{timeout:.0f}s)"]
+            out = procs[name].stdout.read()
+            if rc != 0:
+                return [f"party {name} exited {rc} after the restart; "
+                        f"see {case_dir}/{name}.stderr.log"]
+            results[name] = _parse_party_result(out)
+    except RuntimeError as e:
+        return [str(e)]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            p.stdout.close()
+
+    errs = []
+    all_transcripts = []
+    for name in ("p0", "p1", "p2"):
+        if results[name]["cells"] != ref[name].cells:
+            errs.append(f"party {name} matrix diverged from the "
+                        "uninterrupted in-process reference")
+        # ε spent exactly once, at the release-reuse optimum share
+        with open(os.path.join(case_dir, f"ledger.{name}.json")) as fh:
+            spent = json.load(fh)["spent"]
+        want = plan.party_eps()[name]
+        if abs(spent.get(name, 0.0) - want) > 1e-9:
+            errs.append(f"party {name} spent {spent.get(name, 0.0)!r}, "
+                        f"expected exactly-once charges totalling "
+                        f"{want!r}")
+        tscripts = [
+            os.path.join(case_dir,
+                         f"{plan.link_session(p, q)}.{name}.jsonl")
+            for p, q in plan.party_links(name)]
+        all_transcripts.extend(tscripts)
+        for t in tscripts:
+            rep = scan_transcript(t)
+            if not rep["ok"]:
+                errs.append(f"party {name} transcript scan: "
+                            f"{rep['violations']}")
+        bal = federation_balance(
+            tscripts,
+            read_events(os.path.join(case_dir, f"audit.{name}.jsonl")),
+            expected_local_eps=sum(
+                plan.local_charges(name)["charges"].values()))
+        if not bal["ok"]:
+            errs.append(f"party {name} ledger balance: "
+                        f"sends {bal['unmatched_sends']} "
+                        f"charges {bal['unmatched_charges']} "
+                        f"local {bal['local_eps']!r}")
+    cross = scan_federation(all_transcripts)
+    if not cross["ok"]:
+        errs.append(f"cross-pair federation scan: {cross['violations']}")
+    return errs
+
+
+def _add_chaos(sub) -> None:
+    pc_ = sub.add_parser("chaos", help="deterministic step-kill sweep: "
+                         "two party processes over real TCP, kill the "
+                         "victim at each named crash point, restart it, "
+                         "assert bit-identical results and exactly-once "
+                         "ε spend")
+    pc_.add_argument("--points", default=None,
+                     help="comma list of crash points (default: the "
+                          "standard matrix, dpcorr_torch.chaos."
+                          "MATRIX_POINTS)")
+    pc_.add_argument("--roles", default=None,
+                     help="comma list of victim roles from {x,y} "
+                          "(default: both)")
+    pc_.add_argument("--families", default=None,
+                     help="comma list of estimator families to sweep "
+                          "(default: just --family)")
+    pc_.add_argument("--workdir", default=None,
+                     help="artifact directory — per-case journals, "
+                          "ledgers, audits, transcripts, stderr logs "
+                          "(default: a fresh temp dir)")
+    pc_.add_argument("--chaos-seed", dest="chaos_seed", type=int,
+                     default=None,
+                     help="derive one (point, victim) case from a seed "
+                          "(dpcorr_torch.chaos.plan_from_seed) instead of "
+                          "sweeping")
+    pc_.add_argument("--case-timeout", dest="case_timeout", type=float,
+                     default=180.0,
+                     help="per-process wait bound within one case "
+                          "(seconds)")
+    _add_spec_flags(pc_)
+    pc_.set_defaults(fn=cmd_chaos)
+
+
+# ----------------------------------------------------------------- obs
+def cmd_obs_fleet_snapshot(args):
+    """One scrape of the whole fleet → one JSON artifact: per-instance
+    stats, the merged (instance-labelled) exposition, the exact
+    aggregate. Exits 1 when no instance answered."""
+    from dpcorr_torch.obs.fleet import FleetCollector
+
+    snap = FleetCollector(args.targets).scrape(timeout_s=args.timeout)
+    doc = snap.to_doc()
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as f:
+            json.dump(doc, f, indent=2)
+            f.write("\n")
+    errors = snap.errors()
+    if args.json or not args.out:
+        print(json.dumps(doc if args.json else {
+            "instances": sorted(snap.instances),
+            "live": sorted(snap.live()),
+            "errors": errors,
+            "out": args.out,
+        }, indent=2))
+    else:
+        print(f"fleet snapshot: {len(snap.live())}/"
+              f"{len(snap.instances)} instances live -> {args.out}")
+        for name, err in sorted(errors.items()):
+            print(f"  DOWN {name}: {err}")
+    raise SystemExit(1 if errors and not snap.live() else 0)
+
+
+def cmd_obs_fleet_chrome(args):
+    """Union many instances' span spools into ONE Chrome trace (one pid
+    per instance) — the fleet postmortem timeline."""
+    from dpcorr_torch.obs.fleet import parse_targets, write_fleet_chrome_trace
+
+    spools = parse_targets(args.spool)
+    out = write_fleet_chrome_trace(spools, args.out)
+    print(f"wrote fleet chrome trace for {len(spools)} instances "
+          f"-> {out}")
+
+
+def cmd_obs_fleet_replay(args):
+    """Fleet-wide audit replay: per-instance ε tables plus the fleet fold
+    (the sum of per-instance ledgers, binary-exact)."""
+    from dpcorr_torch.obs.fleet import fleet_replay, parse_targets
+
+    doc = fleet_replay(parse_targets(args.audit))
+    if args.json:
+        print(json.dumps(doc, indent=2))
+        return
+    for inst in sorted(doc["per_instance"]):
+        table = doc["per_instance"][inst]
+        spent = ", ".join(f"{p}={e:.6g}"
+                          for p, e in sorted(table.items()))
+        print(f"{inst}: {spent or '(no spend)'}")
+    print("fleet: " + ", ".join(f"{p}={e:.6g}" for p, e in
+                                sorted(doc["fleet"].items())))
+
+
+def _add_obs(sub) -> None:
+    """``obs fleet snapshot | chrome | replay`` (the JAX command's other
+    ``obs`` subcommands wait for the console, sentinel, provenance and
+    trajectory ports)."""
+    po_ = sub.add_parser("obs", help="observability tooling: the fleet "
+                         "telemetry plane")
+    obs_sub = po_.add_subparsers(dest="obs_cmd", required=True)
+    pof = obs_sub.add_parser("fleet", help="fleet telemetry plane: scrape "
+                             "+ merge N instances, union spools, replay "
+                             "the fleet ε table")
+    fleet_sub = pof.add_subparsers(dest="fleet_cmd", required=True)
+    pofs = fleet_sub.add_parser("snapshot", help="scrape every target's "
+                                "/metrics + /stats into one artifact: "
+                                "merged instance-labelled exposition + "
+                                "exact aggregate + per-instance stats")
+    pofs.add_argument("--targets", required=True,
+                      help="comma-separated name=url (bare urls get "
+                           "positional instance-N names; duplicate "
+                           "names are refused)")
+    pofs.add_argument("--out", default=None,
+                      help="write the snapshot JSON here")
+    pofs.add_argument("--timeout", type=float, default=5.0)
+    pofs.add_argument("--json", action="store_true",
+                      help="print the full snapshot document")
+    pofs.set_defaults(fn=cmd_obs_fleet_snapshot)
+    pofc = fleet_sub.add_parser("chrome", help="union many span spools "
+                                "into ONE Chrome trace, one pid per "
+                                "instance (Perfetto-viewable)")
+    pofc.add_argument("--spool", action="append", required=True,
+                      metavar="NAME=PATH",
+                      help="instance span spool (repeatable)")
+    pofc.add_argument("--out", required=True)
+    pofc.set_defaults(fn=cmd_obs_fleet_chrome)
+    pofr = fleet_sub.add_parser("replay", help="fleet-wide audit "
+                                "replay: per-instance ε tables + the "
+                                "binary-exact fleet fold")
+    pofr.add_argument("--audit", action="append", required=True,
+                      metavar="NAME=PATH",
+                      help="instance audit spool (repeatable)")
+    pofr.add_argument("--json", action="store_true")
+    pofr.set_defaults(fn=cmd_obs_fleet_replay)
+
+
 def _add_device(p) -> None:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to run: the card (default; raises without "
@@ -1002,8 +1808,7 @@ def _add_fault_flags(p, seed_help: str) -> None:
 
 def _add_protocol(sub) -> None:
     """``party`` and ``protocol run | scan``, with the JAX package's flags
-    (``--device`` in place of ``--platform``; the per-user budget flags
-    ``--user*`` wait for the budget directory's port)."""
+    (``--device`` in place of ``--platform``)."""
     pp_ = sub.add_parser("party", help="one side of the two-party DP "
                          "protocol over TCP: role y listens, role x "
                          "connects; each process holds one column")
@@ -1025,6 +1830,25 @@ def _add_protocol(sub) -> None:
     pp_.add_argument("--ledger", default=None,
                      help="ledger persistence path (JSON), the format of "
                           "serve --ledger and of the JAX package")
+    pp_.add_argument("--user", default=None,
+                     help="principal this party's releases are charged "
+                          "to in the per-user directory (default with "
+                          "--user-dir: user-<role>)")
+    pp_.add_argument("--user-dir", dest="user_dir", default=None,
+                     help="per-user budget directory root: wraps the "
+                          "ledger in a CompositeLedger so every gated "
+                          "release also charges the bound user, "
+                          "idempotently across crash-restarts")
+    pp_.add_argument("--user-budget", dest="user_budget", type=float,
+                     default=1.0, help="per-user ε budget per window")
+    pp_.add_argument("--user-shards", dest="user_shards", type=int,
+                     default=8, help="directory shard count")
+    pp_.add_argument("--user-max-resident", dest="user_max_resident",
+                     type=int, default=None,
+                     help="LRU cap on in-memory users per shard")
+    pp_.add_argument("--user-compact-every", dest="user_compact_every",
+                     type=int, default=256,
+                     help="WAL-to-snapshot compaction interval (appends)")
     pp_.add_argument("--transcript", default=None,
                      help="JSONL wire transcript path (audit it with "
                           "`protocol scan`)")
@@ -1422,7 +2246,10 @@ def main(argv=None):
                    help="the grid's figure family")
     p.set_defaults(fn=cmd_report)
     _add_serve(sub)
+    _add_fleet(sub)
     _add_protocol(sub)
+    _add_chaos(sub)
+    _add_obs(sub)
     _add_federation(sub)
     _add_stream(sub)
     args = ap.parse_args(argv)

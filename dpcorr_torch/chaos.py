@@ -18,9 +18,8 @@ variable makes the process die or degrade there.
 Both are one ``is None`` or emptiness check when nothing is armed.
 :data:`KNOWN_POINTS` and :data:`MATRIX_POINTS` are the JAX package's
 tuples in its order, because :func:`plan_from_seed` indexes into them.
-The point of the module not ported yet (the fleet lease) is in
-:data:`UNREACHABLE_POINTS`: :func:`install` refuses a plan on it, since
-no code here would ever traverse it and the kill would never come.
+Every one of them is traversed by a module of this package, so
+:data:`UNREACHABLE_POINTS` is empty.
 """
 
 from __future__ import annotations
@@ -100,10 +99,9 @@ MATRIX_POINTS = (
     "federation.pre_finish",
 )
 
-#: Points no module of this package traverses yet (the fleet lease is
-#: still to be ported): a plan on one would never fire.
-UNREACHABLE_POINTS = frozenset(
-    p for p in KNOWN_POINTS if p.startswith("fleet."))
+#: Points no module of this package traverses: none, since the fleet lease
+#: (``fleet.pre_lease_commit``) came with ``serve.fleet.lease``.
+UNREACHABLE_POINTS: frozenset = frozenset()
 
 _MODES = ("exit", "raise")
 _KNOWN = frozenset(KNOWN_POINTS)
@@ -213,17 +211,6 @@ def plan_from_env(env: str = "DPCORR_CHAOS") -> ChaosPlan | None:
     return plan_from_spec(spec) if spec else None
 
 
-def check_reachable(plan: ChaosPlan) -> None:
-    """Raise on a plan whose point no module of this package traverses
-    yet (:data:`UNREACHABLE_POINTS`): the case could never crash, and a
-    run of it must not pass as if it had survived one."""
-    if plan.point in UNREACHABLE_POINTS:
-        raise ValueError(
-            f"chaos point {plan.point!r} is not reachable in dpcorr_torch "
-            "yet: the module that traverses it (the fleet lease) is not "
-            "ported, so the planned kill would never fire")
-
-
 _lock = threading.Lock()
 _plan: ChaosPlan | None = None  # guarded by: _lock
 _counts: dict[str, int] = {}  # guarded by: _lock
@@ -250,11 +237,8 @@ def remove_crash_hook(fn) -> None:
 
 def install(plan: ChaosPlan | None) -> None:
     """Arm ``plan`` process-wide (traversal counters reset). ``None``
-    disarms — same as :func:`clear`. A plan on an unreachable point is
-    refused (:func:`check_reachable`)."""
+    disarms — same as :func:`clear`."""
     global _plan
-    if plan is not None:
-        check_reachable(plan)
     with _lock:
         _plan = plan
         _counts.clear()

@@ -1,9 +1,8 @@
 """Online serving: micro-batched DP-correlation queries on the card with a
 per-party privacy-budget ledger.
 
-Counterpart of ``dpcorr/serve/`` (without the budget directory and the
-fleet, which come later). The pieces, bottom up — each module's docstring
-carries its own contract:
+Counterpart of ``dpcorr/serve/``. The pieces, bottom up — each module's
+docstring carries its own contract:
 
 - :mod:`request`   — request/response types; coalescing bucket and
   kernel-signature keys.
@@ -18,11 +17,16 @@ carries its own contract:
   flush policy, backpressure, unbatched degradation; deadline drops,
   priority eviction and refuse-draining shutdown (every shed refunds).
 - :mod:`overload`  — circuit breaker and brownout.
+- :mod:`budget_dir` — the per-user budget directory (sharded WAL +
+  snapshot journals) and the CompositeLedger over it.
 - :mod:`client`    — retrying clients and the HTTP client speaking the
   front end's refusal codes.
 - :mod:`warmup`    — warm signature sets behind ``/readyz``.
 - :mod:`server`    — composition root + in-process client + stdlib
   HTTP front end (``python -m dpcorr_torch serve``).
+- :mod:`fleet`     — N replicas over one leased budget directory: shard
+  leases, the front-end router and the replica supervisor
+  (``python -m dpcorr_torch fleet``).
 """
 
 import importlib

@@ -85,9 +85,12 @@ recovery and auditing share — :func:`load_shard`,
 :mod:`dpcorr_torch.obs.budget_replay`, so the auditor and the live
 directory can never drift on what a shard file means.
 
-The ``lease=`` argument (a fleet of replicas sharing one directory)
-belongs to the fleet, which this package does not have yet: a lease is
-refused with a ``ValueError``.
+With ``lease=`` (a :class:`~dpcorr_torch.serve.fleet.lease.LeaseManager`)
+the directory is shared on disk by a fleet of replicas: a shard's journal
+opens lazily and only while this process holds the shard's lease, a
+charge on a shard held elsewhere raises ``ShardNotOwnedError`` before
+anything is charged, and per-charge ids make a retry across a takeover
+count once.
 """
 
 from __future__ import annotations
@@ -565,11 +568,6 @@ class BudgetDirectory:
                  fsync: bool = True,
                  audit: AuditTrail | None = None,
                  lease=None):
-        if lease is not None:
-            raise ValueError(
-                "lease= shares the directory across a fleet of replicas, "
-                "which dpcorr_torch does not have yet; open the directory "
-                "in single-owner mode (lease=None)")
         if shards < 1:
             raise ValueError(f"shards must be >= 1, got {shards}")
         self.root = str(root)
@@ -595,16 +593,30 @@ class BudgetDirectory:
             os.path.join(self.root, f"shard-{i:04d}"),
             self.user_budget, self.renewal, clock, fsync,
             max_resident, compact_every)
+        self._lease = lease
         self._open_lock = threading.Lock()
-        self._shards: list[_Shard | None] = \
-            [self._mk(i) for i in range(shards)]
+        if lease is None:
+            # single-owner mode: every shard journal opens eagerly
+            self._shards: list[_Shard | None] = \
+                [self._mk(i) for i in range(shards)]
+        else:
+            # fleet mode: the directory is SHARED on disk; a shard's
+            # journal opens lazily and only while this process holds
+            # its lease, so two replicas never have the same WAL open
+            self._shards = [None] * shards
+            lease.bind(shards, on_lost=self.drop_shard)
         self._ring_keys, self._ring_shards = build_ring(shards, replicas)
 
     def shard_index(self, user: str) -> int:
         return ring_shard_index(user, self._ring_keys, self._ring_shards)
 
     def _shard_at(self, i: int) -> _Shard:
-        """The open shard journal (reopened after :meth:`drop_shard`)."""
+        """The open shard journal (reopened after :meth:`drop_shard`),
+        gated on lease ownership when the directory is fleet-shared:
+        raises the lease layer's ``ShardNotOwnedError`` (charge-free —
+        nothing was touched) when another replica owns shard ``i``."""
+        if self._lease is not None:
+            self._lease.ensure_owned(i)
         s = self._shards[i]
         if s is None:
             with self._open_lock:
@@ -615,8 +627,9 @@ class BudgetDirectory:
         return s
 
     def drop_shard(self, i: int) -> None:
-        """Close shard ``i``'s journal; the next touch reopens it from
-        its snapshot and WAL."""
+        """Close shard ``i``'s journal (in fleet mode: its lease was lost
+        or released); the next touch reopens it from its snapshot and WAL,
+        in fleet mode only after the lease is held again."""
         with self._open_lock:
             s = self._shards[i]
             self._shards[i] = None
@@ -682,7 +695,7 @@ class BudgetDirectory:
         totals: dict = {}
         resident = evicted = 0
         for s in self._shards:
-            if s is None:  # dropped, not reopened yet
+            if s is None:  # dropped (or, in fleet mode, not held)
                 continue
             view = s.stats_locked_view()
             resident += view["resident"]

@@ -34,6 +34,7 @@ import urllib.request
 from concurrent.futures import TimeoutError as _FuturesTimeout
 
 from dpcorr_torch.serve.coalescer import ServerOverloadedError
+from dpcorr_torch.serve.fleet.lease import ShardNotOwnedError
 from dpcorr_torch.serve.ledger import BudgetExceededError
 from dpcorr_torch.serve.overload import CircuitOpenError, DeadlineExpiredError
 from dpcorr_torch.serve.request import EstimateRequest, EstimateResponse
@@ -46,9 +47,11 @@ class RetriableTransportError(Exception):
 
 
 #: refusals that can heal with time — what the client retries.
+#: ShardNotOwnedError heals too: leases move (TTL expiry, on-demand
+#: takeover), and the refusal was charge-free by construction.
 RETRIABLE = (ServerOverloadedError, CircuitOpenError,
              DeadlineExpiredError, RetriableTransportError,
-             _FuturesTimeout, TimeoutError)
+             ShardNotOwnedError, _FuturesTimeout, TimeoutError)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,6 +245,13 @@ class HttpEstimateClient:
                 body.get("party", "?"), float(body.get("spent", 0.0)),
                 float(body.get("charge", 0.0)),
                 float(body.get("budget", 0.0)))
+        if e.code == 421:
+            # fleet routing miss: this replica does not own the user's
+            # budget shard (the front end normally forwards before a
+            # client ever sees this; a direct client just retries)
+            return ShardNotOwnedError(
+                int(body.get("shard", -1)), owner=body.get("owner"),
+                owner_url=body.get("owner_url"), retry_after_s=ra)
         if e.code == 504:
             return DeadlineExpiredError(msg, retry_after_s=ra)
         if e.code == 503:

@@ -80,6 +80,7 @@ from dpcorr_torch.serve.budget_dir import (
     party_view,
 )
 from dpcorr_torch.serve.coalescer import Coalescer, ServerOverloadedError
+from dpcorr_torch.serve.fleet.lease import ShardNotOwnedError
 from dpcorr_torch.serve.kernels import KernelCache
 from dpcorr_torch.serve.ledger import BudgetExceededError, PrivacyLedger
 from dpcorr_torch.serve.overload import (
@@ -195,6 +196,10 @@ class DpcorrServer:
                  user_fsync: bool = True,
                  global_budget: float | None = None,
                  instance: str | None = None,
+                 lease_dir: str | None = None,
+                 lease_ttl_s: float = 3.0,
+                 lease_target: int | None = None,
+                 advertise_url: str | None = None,
                  device=None):
         self.device = resolve_device(device)
         self.seed = seed
@@ -223,12 +228,27 @@ class DpcorrServer:
         # ledger becomes a CompositeLedger — per-user + per-party +
         # global admission as one atomic charge with one refund path.
         # Drop-in: the coalescer's shed-refund and the overload refund
-        # below reverse every leg through the same refund() call. (The
-        # JAX server's lease_dir, a fleet sharing one directory, waits
-        # for the fleet's port.)
+        # below reverse every leg through the same refund() call.
+        # fleet mode: with lease_dir the budget directory is SHARED across
+        # replicas and this server only opens a shard journal while it
+        # holds that shard's lease — the keeper heartbeats renewals from
+        # its own thread and picks up free and orphaned shards
+        self.leases = None
+        self._lease_keeper = None
+        if lease_dir is not None and user_dir is None:
+            raise ValueError("--lease-dir requires --user-dir: leases "
+                             "grant budget-directory shards")
         if user_dir is not None or global_budget is not None:
             directory = None
             if user_dir is not None:
+                if lease_dir is not None:
+                    from dpcorr_torch.serve.fleet.lease import LeaseManager
+
+                    self.leases = LeaseManager(
+                        lease_dir,
+                        owner=instance if instance is not None
+                        else f"serve-pid-{secrets.token_hex(4)}",
+                        url=advertise_url, ttl_s=lease_ttl_s)
                 directory = BudgetDirectory(
                     user_dir, shards=user_shards,
                     user_budget=user_budget,
@@ -236,7 +256,14 @@ class DpcorrServer:
                                           burst_cap=user_burst_cap),
                     max_resident=user_max_resident,
                     compact_every=user_compact_every,
-                    fsync=user_fsync, audit=self.audit)
+                    fsync=user_fsync, audit=self.audit,
+                    lease=self.leases)
+                if self.leases is not None:
+                    from dpcorr_torch.serve.fleet.lease import LeaseKeeper
+
+                    self._lease_keeper = LeaseKeeper(self.leases,
+                                                     target=lease_target)
+                    self._lease_keeper.start()
             self.ledger = CompositeLedger(self.ledger, directory,
                                           global_budget=global_budget)
         self.cache = KernelCache(stats=self.stats, shard=shard,
@@ -518,6 +545,15 @@ class DpcorrServer:
                     # kernel) — the directory's derived user/global
                     # legs are bookkeeping views of the same spend
                     cost.charge(party_view(charges))
+                except ShardNotOwnedError as e:
+                    # fleet routing miss: another replica holds the
+                    # user's budget shard. Charge-free by construction
+                    # (the lease gate runs before any leg applies) — the
+                    # front end forwards to the owner named in e
+                    self.stats.refused("not_owner")
+                    root.set(refused="not_owner", shard=e.shard)
+                    cost.event("refused_not_owner")
+                    raise
                 except BudgetExceededError as e:
                     self.stats.refused_budget()
                     root.set(refused="budget", refused_level=e.level)
@@ -596,6 +632,10 @@ class DpcorrServer:
                         if isinstance(self.ledger, CompositeLedger)
                         else None))
         snap["breaker"] = self.breaker.snapshot()
+        if self.leases is not None:
+            # fleet mode: which budget shards this replica owns, at
+            # which epochs
+            snap["leases"] = self.leases.snapshot()
         return snap
 
     # -- flight recorder -------------------------------------------------
@@ -630,7 +670,13 @@ class DpcorrServer:
         if self._crash_hook is not None:
             chaos.remove_crash_hook(self._crash_hook)
             self._crash_hook = None
+        if self._lease_keeper is not None:
+            self._lease_keeper.stop()
         self.coalescer.close()
+        if self.leases is not None:
+            # graceful handback AFTER the drain: successors take over
+            # immediately instead of waiting out the TTL
+            self.leases.release_all()
         if isinstance(self.ledger, CompositeLedger):
             self.ledger.close()
         if self._warmup_manifest:
@@ -786,6 +832,15 @@ def make_http_server(server: DpcorrServer, host: str = "127.0.0.1",
                                  "party": e.party, "spent": e.spent,
                                  "charge": e.charge, "budget": e.budget,
                                  "level": e.level})
+            except ShardNotOwnedError as e:
+                # fleet routing miss: 421 Misdirected Request naming the
+                # owner so the front end forwards instead of failing —
+                # charge-free on this replica
+                self._send(421, {"error": str(e),
+                                 "refused": "not_owner",
+                                 "shard": e.shard, "owner": e.owner,
+                                 "owner_url": e.owner_url},
+                           headers=self._retry_after(e))
             except DeadlineExpiredError as e:
                 self._send(504, {"error": str(e), "refused": "expired"},
                            headers=self._retry_after(e))

@@ -718,9 +718,19 @@ def test_replay_levels_checks_the_directory(tmp_path):
 
 
 def test_lease_is_refused_until_the_fleet_is_ported(tmp_path):
-    with pytest.raises(ValueError, match="fleet"):
-        _dir(tmp_path, lease=object())
-    assert not (tmp_path / "dir").exists()
+    """The fleet is ported, so a lease is no longer refused: it binds the
+    directory in fleet mode (the shard count pinned in the lease dir),
+    which opens no shard journal until that shard's lease is held."""
+    from dpcorr_torch.serve.fleet import LeaseManager
+
+    leases = LeaseManager(str(tmp_path / "leases"), "rep-a")
+    d = _dir(tmp_path, shards=2, lease=leases)
+    assert leases.n_shards == 2
+    assert not [n for n in os.listdir(tmp_path / "dir")
+                if n.startswith("shard-")]
+    d.charge("alice", 0.5, charge_id="c1")
+    assert leases.owned() == [d.shard_index("alice")]
+    assert d.spent("alice") == 0.5
 
 
 # ------------------------------------------------- both packages ----

@@ -428,8 +428,14 @@ def test_party_processes_hold_a_session_with_jax_banners(tmp_path, capsys):
 
 
 def test_party_refuses_an_unreachable_chaos_plan(monkeypatch):
-    monkeypatch.setenv("DPCORR_CHAOS", "point=fleet.pre_lease_commit")
-    with pytest.raises(SystemExit, match="not reachable"):
+    # every registered point is reachable now that the fleet is ported
+    # (chaos.UNREACHABLE_POINTS is empty); a plan on a point no code
+    # traverses — an unknown one — is refused before anything runs
+    from dpcorr_torch import chaos
+
+    assert not chaos.UNREACHABLE_POINTS
+    monkeypatch.setenv("DPCORR_CHAOS", "point=fleet.no_such_point")
+    with pytest.raises(SystemExit, match="chaos plan refused"):
         main(["party", "--role", "y", "--port", "0", "--n", "64",
               "--device", "cpu"])
 
@@ -481,8 +487,8 @@ def test_stream_raises_without_a_card_and_refuses_fleet_chaos(monkeypatch,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["stream", "--workdir", str(tmp_path / "w"), "--port", "0"])
-    monkeypatch.setenv("DPCORR_CHAOS", "point=fleet.pre_lease_commit")
-    with pytest.raises(SystemExit, match="not reachable"):
+    monkeypatch.setenv("DPCORR_CHAOS", "point=fleet.no_such_point")
+    with pytest.raises(SystemExit, match="chaos plan refused"):
         main(["stream", "--workdir", str(tmp_path / "w"), "--port", "0",
               "--device", "cpu"])
 

@@ -593,3 +593,67 @@ def test_stream_crash_recovery_byte_identical_on_the_card(cuda, tmp_path,
     again.close()
     assert got == want
     assert got_spent == pytest.approx(spent)
+
+
+@pytest.mark.cuda
+def test_fleet_of_lease_mode_servers_bit_equal_on_the_card(cuda, tmp_path):
+    """Two lease-mode servers on the card share one budget directory
+    behind a front end: every answer equals the direct call on the card
+    bit for bit, and the directory's balances equal the charges."""
+    import threading
+
+    from dpcorr_torch.models.estimators.registry import serving_entry
+    from dpcorr_torch.obs.budget_replay import read_user_balances
+    from dpcorr_torch.serve import (
+        DpcorrServer,
+        EstimateRequest,
+        HttpEstimateClient,
+        RetryingClient,
+        make_http_server,
+        pinned_request_key,
+        request_charges,
+    )
+    from dpcorr_torch.serve.fleet import (
+        FleetFrontend,
+        make_frontend_http_server,
+    )
+
+    servers, httpds, urls = [], [], {}
+    for name in ("rep-a", "rep-b"):
+        srv = DpcorrServer(budget=1e9, max_delay_s=0.001,
+                           user_dir=str(tmp_path / "budget"),
+                           user_budget=1e9, user_shards=4,
+                           instance=name, lease_dir=str(tmp_path / "l"),
+                           lease_target=2)
+        httpd = make_http_server(srv, port=0)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        servers.append(srv)
+        httpds.append(httpd)
+        urls[name] = f"http://127.0.0.1:{httpd.server_address[1]}"
+    fe_httpd = make_frontend_http_server(
+        FleetFrontend(urls, lease_dir=str(tmp_path / "l")))
+    threading.Thread(target=fe_httpd.serve_forever, daemon=True).start()
+    cli = RetryingClient(HttpEstimateClient(
+        f"http://127.0.0.1:{fe_httpd.server_address[1]}", timeout_s=120))
+    g = np.random.default_rng(11)
+    reqs = [EstimateRequest("ni_sign", *g.standard_normal((2, 2000),
+                                                          np.float32),
+                            1.0, 0.5, user=f"u{i % 6}", seed=40 + i)
+            for i in range(12)]
+    try:
+        got = [cli.estimate(r, timeout=120) for r in reqs]
+    finally:
+        fe_httpd.shutdown()
+        for h, s in zip(httpds, servers):
+            h.shutdown()
+            s.close()
+    single = serving_entry("ni_sign", 1.0, 0.5)
+    for r, resp in zip(reqs, got):
+        want = single(pinned_request_key(rng.master_key(), r, r.seed),
+                      torch.from_numpy(r.x), torch.from_numpy(r.y))
+        assert (resp.rho_hat, resp.ci_low, resp.ci_high) == \
+            tuple(float(v) for v in want)
+    per = sum(request_charges(reqs[0]).values())
+    assert {u: b["l"] for u, b in read_user_balances(
+        str(tmp_path / "budget")).items()} == {f"u{i}": 2 * per
+                                               for i in range(6)}

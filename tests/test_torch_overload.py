@@ -720,7 +720,8 @@ def test_crash_point_before_persist_leaves_the_ledger_file(tmp_path):
     assert PrivacyLedger(budget=5.0, path=path).spent("a") == 1.0
     with pytest.raises(ValueError, match="unknown chaos point"):
         chaos.ChaosPlan("gate.nope")
-    # a registered point whose module is not ported cannot be armed
-    with pytest.raises(ValueError, match="not reachable"):
-        chaos.install(chaos.ChaosPlan("fleet.pre_lease_commit"))
+    # the fleet's point arms like every other, its module being ported
+    chaos.install(chaos.ChaosPlan("fleet.pre_lease_commit"))
+    assert chaos.active().point == "fleet.pre_lease_commit"
+    chaos.clear()
     assert chaos.active() is None

@@ -566,20 +566,27 @@ def test_chaos_points_and_seeded_plans_equal_jax():
         chaos.plan_from_spec("hit=1")
 
 
-def test_unreachable_points_are_refused(monkeypatch):
-    """A plan on a point no port module traverses yet (the fleet lease)
-    is refused, from the environment too, and never armed; the budget
-    directory's and the stream service's points are reachable."""
-    reachable = [p for p in chaos.MATRIX_POINTS
-                 if p not in chaos.UNREACHABLE_POINTS]
-    assert "gate.post_charge" in reachable
-    assert chaos.UNREACHABLE_POINTS == {
-        p for p in chaos.KNOWN_POINTS if p.startswith("fleet.")}
-    assert chaos.UNREACHABLE_POINTS == {"fleet.pre_lease_commit"}
-    monkeypatch.setenv("DPCORR_CHAOS", "point=fleet.pre_lease_commit")
-    with pytest.raises(ValueError, match="not reachable"):
-        chaos.install(chaos.plan_from_env())
-    assert chaos.active() is None
+def test_unreachable_points_are_refused(monkeypatch, tmp_path):
+    """No point is unreachable any more: with the fleet lease ported,
+    ``UNREACHABLE_POINTS`` is empty, every matrix point is reachable, and
+    a plan on the fleet's point, armed from the environment, fires inside
+    the lease manager; an unknown point is still refused."""
+    from dpcorr_torch.serve.fleet import LeaseManager
+
+    assert chaos.UNREACHABLE_POINTS == frozenset()
+    assert [p for p in chaos.MATRIX_POINTS
+            if p not in chaos.UNREACHABLE_POINTS] == list(chaos.MATRIX_POINTS)
+    monkeypatch.setenv("DPCORR_CHAOS",
+                       "point=fleet.pre_lease_commit,mode=raise")
+    chaos.install(chaos.plan_from_env())
+    try:
+        with pytest.raises(chaos.SimulatedCrash):
+            LeaseManager(str(tmp_path / "leases"), "r", n_shards=1
+                         ).acquire(0)
+    finally:
+        chaos.clear()
+    with pytest.raises(ValueError, match="unknown chaos point"):
+        chaos.ChaosPlan("fleet.no_such_point")
 
 
 @pytest.mark.parametrize("point,victim", [
