@@ -218,6 +218,36 @@ north-star workload (n = 10⁴ Gaussian pair → NI sign-batch estimate + CI →
         (reported only), seconds from the kill to the first success on a
         victim shard, seconds per chaos case, the phase's wall time.
 
+16. the build-and-dispatch layer (``dpcorr_torch.plan``,
+    ``dpcorr_torch.utils.compile``, ``dpcorr_torch.obs.transfer``) at
+    n = 10⁴, each part reading the K1 launch count and the transfer
+    counters around itself:
+    (a) ``RepBlockPipeline`` unfused (2¹⁶ reps) and fused (K1, 2²⁰ reps)
+        under ``placement="local"`` and ``"mesh"`` over the one card:
+        sums bit-equal across placements and to phases 4-5's on the same
+        keys; one fetch and ``blocks`` donated blocks per run; K1
+        launches = blocks x chunks on the fused arm, 0 on the other;
+    (b) the fused v1 grid through the executor: 18 K1 launches, 18
+        fetches, tables bit-equal to phase 9a's fused run;
+    (c) ``python -m dpcorr_torch serve --aot on | off`` in turns (on,
+        then off) with the same warmup set (``ni_sign`` at n = 10⁴, every
+        batch width to 64): seconds to ``/readyz`` 200, the first flush's
+        latency after it, the ``dpcorr_compile_seconds`` count and sum,
+        the recompile causes; 8 answers bit-equal to the direct call in
+        every arm;
+    (d) ``finish_batch`` through the executor bit-equal to the direct
+        ``finish`` on the HRS-width pair, all four families;
+    (e) ``StreamService(placement="mesh")`` over the one card against
+        ``"local"``: release bytes equal; the transfer counters' host
+        reads and copies per release;
+    (f) the CUDA-graph probe (a measurement; no path dispatches through a
+        graph): one fused block (2¹⁴ reps, key-tree plus K1) and one
+        exact-engine ``ni_sign`` single call captured into
+        ``torch.cuda.CUDAGraph``: each replay bit-equal to the eager call
+        or not, host ms of eager and replay, device activities of each
+        (``torch.profiler``); replays counted here, since
+        ``KERNEL_LAUNCHES`` counts in Python.
+
 Every failure raises. The last line is the device record; before it come
 the per-kernel JSON record and the card line. Run from the repository
 root:
@@ -379,6 +409,12 @@ DIR_USERS, DIR_SHARDS, DIR_MAX_RESIDENT = 1 << 17, 64, 256
 FLEET_REPLICAS, FLEET_USERS, FLEET_SHARDS = 3, 64, 8
 FLEET_LEASE_TTL_S, FLEET_PER_REPLICA, FLEET_CLIENTS = 1.5, 24, 8
 FLEET_PARITY = 16
+#: phase 16: the serving A/B's warm set and requests (phase 12's width and
+#: ε pair), the stream comparison's windows at the HRS wave-2 width, and
+#: the graph probe's block and timed calls
+PLAN_WARMUP = f"ni_sign:{SERVE_N}:{SERVE_EPS[0]}:{SERVE_EPS[1]}:auto"
+PLAN_SERVE_REQS, PLAN_STREAM_WINDOWS = 8, 2
+GRAPH_BLOCK, GRAPH_CALLS = 1 << 14, 20
 
 #: the JAX package's committed coverage at B = 1,015,808 for the sign
 #: acceptance points (dpcorr/acceptance.py:89-108), copied from
@@ -575,7 +611,8 @@ def run_pipeline(body, block_reps, chunk, n_blocks, key, out_len=3):
     if pipe.fetches != 2:
         raise RuntimeError(f"expected one host read per run, saw "
                            f"{pipe.fetches} over two runs")
-    out = {"reps": n_reps, "seconds": dt, "reps_per_s": n_reps / dt}
+    out = {"reps": n_reps, "seconds": dt, "reps_per_s": n_reps / dt,
+           "sums": list(sums)}
     if out_len == 3:
         mse, cover, ci_len = (s / n_reps for s in sums)
         return {**out, "mse": mse, "coverage": cover, "ci_length": ci_len}
@@ -3238,6 +3275,365 @@ def fleet_phase(card: str, work: str) -> dict:
     return parts
 
 
+# ------------------------------------------------------------ phase 16 ----
+def with_transfers(fn):
+    """``fn()`` and the transfer counters' delta over it
+    (``obs.transfer``, process default registry)."""
+    from dpcorr_torch.obs import transfer
+
+    tc = transfer.default_counters()
+    before = tc.snapshot()
+    out = fn()
+    return out, transfer.diff(tc.snapshot(), before)
+
+
+def plan_pipeline(card: str, key, main: dict) -> dict:
+    """16a: the rep pipeline under both placements, each run against
+    phases 4-5's sums on the same keys."""
+    from dpcorr_torch.ops import fused_ni
+    from dpcorr_torch.sim import RepBlockPipeline, fused_ni_rep_fn, ni_rep_fn
+
+    arms = {"unfused": (ni_rep_fn(N, RHO, *EPS, ALPHA), 1 << 14, 1 << 11,
+                        UNFUSED_REPS >> 14),
+            "fused": (fused_ni_rep_fn(N, RHO, *EPS, ALPHA), FUSED_BLOCK,
+                      FUSED_BLOCK, FUSED_BLOCKS)}
+    out = {}
+    for label, (body, block, chunk, blocks) in arms.items():
+        for placement in ("local", "mesh"):
+            pipe = RepBlockPipeline(body, 3, key=key, block_reps=block,
+                                    chunk_size=chunk, placement=placement)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (sums, reps), delta = with_transfers(lambda: pipe.run(blocks))
+            dt = time.perf_counter() - t0
+            launches = fused_ni.KERNEL_LAUNCHES["fused_ni"]
+            want_launches = (blocks * -(-block // chunk)
+                             if label == "fused" else 0)
+            print(f"[{card}] 16a {label} pipeline, placement={placement} "
+                  f"({pipe.placement.device_count} device): {reps} reps in "
+                  f"{dt:.3f} s; sums {list(sums)}; K1 launches {launches} "
+                  f"(blocks x chunks {want_launches}); transfers "
+                  f"{json.dumps(delta)}", flush=True)
+            if list(sums) != main[label]["sums"]:
+                raise RuntimeError(f"16a {label} {placement}: sums {sums} "
+                                   f"differ from phases 4-5's "
+                                   f"{main[label]['sums']}")
+            if launches != want_launches:
+                raise RuntimeError(f"16a {label} {placement}: {launches} K1 "
+                                   f"launches, expected {want_launches}")
+            if (delta["fetches"], pipe.fetches) != (1, 1) or \
+                    delta["donated_blocks"] != blocks:
+                raise RuntimeError(f"16a {label} {placement}: transfers "
+                                   f"{delta}, fetches {pipe.fetches}; "
+                                   f"expected one fetch, {blocks} blocks")
+            out[f"{label} {placement}"] = {"seconds": dt, "reps": reps,
+                                           "launches": launches, **delta}
+    print(f"[{card}] 16a: local and mesh sums bit-equal to phases 4-5's on "
+          f"both arms", flush=True)
+    return out
+
+
+def plan_grid(card: str, fused_res) -> dict:
+    """16b: the fused v1 grid through the executor."""
+    from dpcorr_torch.grid import GridConfig
+    from dpcorr_torch.ops import fused_ni
+    from dpcorr_torch.sim import DETAIL_FIELDS
+
+    reset_launches()
+    (res, dt), delta = with_transfers(lambda: run_grid_timed(GridConfig(
+        b=GRID_B, backend="bucketed", fused="auto")))
+    launches = fused_ni.KERNEL_LAUNCHES["fused_ni"]
+    print(f"[{card}] 16b fused v1 grid through the plan executor: {dt:.3f} s,"
+          f" K1 launches {launches}, transfers {json.dumps(delta)}",
+          flush=True)
+    if launches != V1_BUCKETS or delta["fetches"] != V1_BUCKETS:
+        raise RuntimeError(f"16b: {launches} K1 launches and "
+                           f"{delta['fetches']} fetches, expected "
+                           f"{V1_BUCKETS} each")
+    for f in DETAIL_FIELDS:
+        if res.detail_all[f].tobytes() != fused_res.detail_all[f].tobytes():
+            raise RuntimeError(f"16b: {f} differs from phase 9a's fused run")
+    print(f"[{card}] 16b: all {len(DETAIL_FIELDS)} detail columns bit-equal "
+          f"to phase 9a's fused run", flush=True)
+    return {"seconds": dt, "launches": launches, **delta}
+
+
+def _banner_of(proc, deadline_s: float) -> dict:
+    """The first stdout line of a ``python -m dpcorr_torch`` process, as
+    JSON; raises with its stderr if it ends or misses the deadline."""
+    box = []
+    t = threading.Thread(target=lambda: box.append(proc.stdout.readline()),
+                         daemon=True)
+    t.start()
+    t.join(deadline_s)
+    if not box or not box[0]:
+        proc.kill()
+        _, err = proc.communicate(timeout=30)
+        raise RuntimeError(f"no banner within {deadline_s} s: "
+                           f"{err[-2000:]}")
+    return json.loads(box[0])
+
+
+def _serve_arm(card: str, aot: str, work: str, reqs: list,
+               want: np.ndarray) -> dict:
+    """One ``serve --aot`` process: spawn → banner → /readyz 200 → the
+    first flush → the rest; its compile series and causes."""
+    import subprocess
+
+    from dpcorr_torch.obs.metrics import parse_exposition
+    from dpcorr_torch.serve import HttpEstimateClient
+
+    tag = f"{aot}-{time.monotonic_ns()}"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dpcorr_torch", "serve", "--port", "0",
+         "--device", "cuda", "--aot", aot, "--warmup", PLAN_WARMUP,
+         "--budget", "1e12", "--ledger", f"{work}/plan_{tag}.json",
+         "--max-batch", str(SERVE_MAX_BATCH),
+         "--max-delay-ms", str(SERVE_MAX_DELAY_S * 1e3)],
+        env=_repo_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        banner = _banner_of(proc, 240)["serving"]
+        t_banner = time.perf_counter()
+        base = f"http://127.0.0.1:{banner['port']}"
+        while _http_status(f"{base}/readyz")[0] != 200:
+            if time.perf_counter() - t_banner > 120:
+                raise RuntimeError(f"16c aot={aot}: never ready")
+            time.sleep(0.005)
+        t_ready = time.perf_counter()
+        client = HttpEstimateClient(base, timeout_s=300.0)
+        t1 = time.perf_counter()
+        first = client.estimate(reqs[0])
+        first_ms = 1e3 * (time.perf_counter() - t1)
+        got = [first] + [client.estimate(r) for r in reqs[1:]]
+        vals = np.array([[r.rho_hat, r.ci_low, r.ci_high] for r in got])
+        bit_equal(f"[{card}] 16c serve --aot {aot}", vals, want)
+        stats = json.loads(_http_status(f"{base}/stats")[1])
+        series = parse_exposition(_http_status(f"{base}/metrics")[1])
+    finally:
+        proc.terminate()
+        proc.communicate(timeout=60)
+    line = {"aot": aot, "spawn_to_ready_s": t_ready - t0,
+            "banner_to_ready_s": t_ready - t_banner,
+            "first_flush_ms": first_ms,
+            "first_flush_server_ms": 1e3 * first.latency_s,
+            "compile_seconds_count": series.get(
+                "dpcorr_compile_seconds_count", 0.0),
+            "compile_seconds_sum": series.get("dpcorr_compile_seconds_sum",
+                                              0.0),
+            "recompiles": stats["recompiles"],
+            "kernel_compiles": stats["kernel_compiles"]}
+    print(f"[{card}] 16c serve --aot {aot}: {json.dumps(line)}", flush=True)
+    return line
+
+
+def plan_serving(card: str, work: str) -> list:
+    """16c: ``serve --aot on`` and ``--aot off`` in turns."""
+    reqs = serve_requests("ni_sign", PLAN_SERVE_REQS, SERVE_N, 50_000_000)
+    want = direct_answers(reqs, "cuda")
+    arms = [_serve_arm(card, aot, work, reqs, want)
+            for aot in ("on", "off")]
+    for a in arms:
+        warm = a["compile_seconds_count"]
+        if (a["aot"] == "on") != (warm > 0) or \
+                (a["aot"] == "off" and any(a["recompiles"].values())):
+            raise RuntimeError(f"16c: compile series {a} do not match "
+                               f"--aot {a['aot']}")
+    return arms
+
+
+def plan_federation(card: str, x: np.ndarray, y: np.ndarray) -> dict:
+    """16d: ``finish_batch`` through the executor against the direct
+    ``finish``, three cells per family, the HRS-width pair."""
+    from dpcorr_torch.models.estimators import split_reference as sr
+    from dpcorr_torch.utils import rng
+
+    eps = PROTO_EPS[0]
+    cols = {"x": torch.from_numpy(x).cuda(), "y": torch.from_numpy(y).cuda()}
+    root = rng.master_key(PROTO_SEED, "cuda")
+    out = {}
+    for family in SERVE_FAMILIES:
+        releaser, finisher = sr.split_roles(family, *eps)
+        keys, rels = [], []
+        for j in range(3):
+            cell = rng.fold_in(root, 1000 + j)
+            rels.append(sr.party_release(
+                family, rng.stream(cell, "release"), releaser,
+                cols[releaser], *eps, True, device="cuda"))
+            keys.append(rng.stream(cell, "finish"))
+        fin = [cols[finisher]] * 3
+        batch = torch.stack(sr.finish_batch(family, keys, rels, fin, *eps,
+                                            device="cuda"))
+        direct = torch.stack([torch.stack(sr.finish(
+            family, k, r, c, *eps, device="cuda"))
+            for k, r, c in zip(keys, rels, fin)], dim=1)
+        a, b = batch.cpu().numpy(), direct.cpu().numpy()
+        if a.tobytes() != b.tobytes():
+            raise RuntimeError(f"16d {family}: finish_batch {a.tolist()} "
+                               f"differs from the direct finish "
+                               f"{b.tolist()}")
+        out[family] = a[0].tolist()
+    print(f"[{card}] 16d finish_batch through the executor bit-equal to the "
+          f"direct finish for {len(out)} families x 3 cells at n = {len(x)}",
+          flush=True)
+    return out
+
+
+def plan_stream(card: str, xy: np.ndarray, work: str) -> dict:
+    """16e: the stream service under a mesh placement over the one card
+    against the local one: release bytes equal; transfers per release."""
+    from dpcorr_torch.perf_stream import batch_plan
+
+    plan = batch_plan(xy, windows=PLAN_STREAM_WINDOWS)
+    out = {}
+    for placement in ("local", "mesh"):
+        sv = _stream_service(f"{work}/plan_stream_{placement}",
+                             placement=placement)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, delta = with_transfers(lambda: _feed_service(sv, plan))
+            dt = time.perf_counter() - t0
+            entries = sv.journal.entries()
+        finally:
+            sv.close()
+        releases = len(entries) * len(SERVE_FAMILIES)
+        out[placement] = {
+            "bytes": json.dumps(entries, sort_keys=True),
+            "windows": len(entries), "seconds": dt, **delta,
+            "fetches_per_release": delta["fetches"] / releases,
+            "device_puts_per_release": delta["device_put"] / releases}
+        print(f"[{card}] 16e stream, placement={placement}: "
+              f"{len(entries)} windows x {len(SERVE_FAMILIES)} families in "
+              f"{dt:.3f} s; transfers {json.dumps(delta)}; per release "
+              f"{out[placement]['fetches_per_release']:.2f} host reads, "
+              f"{out[placement]['device_puts_per_release']:.2f} "
+              f"host-to-card copies", flush=True)
+    if out["local"]["windows"] != PLAN_STREAM_WINDOWS or \
+            out["local"]["bytes"] != out["mesh"]["bytes"]:
+        raise RuntimeError("16e: the mesh placement's releases differ from "
+                           "the local placement's")
+    print(f"[{card}] 16e: release bytes equal across placements", flush=True)
+    return {k: {f: v for f, v in d.items() if f != "bytes"}
+            for k, d in out.items()}
+
+
+def _device_activities(fn) -> int:
+    """CUDA activities ``fn`` makes on the card (``torch.profiler``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.device_type == DeviceType.CUDA for ev in prof.events())
+
+
+def _host_ms(fn) -> tuple:
+    """(host ms to issue one call, wall ms per call with the card
+    drained), over ``GRAPH_CALLS`` calls."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GRAPH_CALLS):
+        fn()
+    issue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return 1e3 * issue / GRAPH_CALLS, 1e3 * wall / GRAPH_CALLS
+
+
+def _graph_case(fn) -> dict:
+    """``fn`` captured into a CUDA graph after two warm calls on a side
+    stream, then replayed against the eager call: bits, host ms and
+    device activities of each. Replays are counted here."""
+    eager = [t.clone() for t in fn()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = fn()
+    replays = 0
+
+    def replay():
+        nonlocal replays
+        graph.replay()
+        replays += 1
+
+    equal = []
+    for _ in range(3):
+        replay()
+        torch.cuda.synchronize()
+        equal.append(all(a.view(torch.int32).equal(b.view(torch.int32))
+                         for a, b in zip(static, eager, strict=True)))
+    eager_ms, replay_ms = _host_ms(fn), _host_ms(replay)
+    acts = (_device_activities(fn), _device_activities(replay))
+    return {"bit_equal": all(equal), "replays": replays,
+            "eager_host_issue_ms": eager_ms[0], "eager_wall_ms": eager_ms[1],
+            "replay_host_issue_ms": replay_ms[0],
+            "replay_wall_ms": replay_ms[1], "eager_activities": acts[0],
+            "replay_activities": acts[1]}
+
+
+def graph_probe(card: str, key) -> dict:
+    """16f: one fused block (key-tree plus K1) and one exact-engine
+    ``ni_sign`` single call at n = 10⁴, each captured into a CUDA graph
+    and replayed against its eager call. A measurement: no path
+    dispatches through a graph."""
+    from dpcorr_torch.models.estimators.registry import serving_entry
+    from dpcorr_torch.ops import fused_ni
+    from dpcorr_torch.serve import pinned_request_key
+    from dpcorr_torch.sim import fused_ni_rep_fn
+    from dpcorr_torch.utils import rng
+
+    body = fused_ni_rep_fn(N, RHO, *EPS, ALPHA)
+    reset_launches()
+    fused = _graph_case(lambda: body(rng.rep_keys(rng.design_key(key, 0),
+                                                  GRAPH_BLOCK)))
+    fused["k1_launches_counted"] = fused_ni.KERNEL_LAUNCHES["fused_ni"]
+    req = serve_requests("ni_sign", 1, SERVE_N, 60_000_000)[0]
+    single = serving_entry("ni_sign", *SERVE_EPS, device="cuda")
+    args = (pinned_request_key(rng.master_key(rng.MASTER_SEED), req,
+                               req.seed).cuda(),
+            torch.from_numpy(req.x).cuda(), torch.from_numpy(req.y).cuda())
+    serve = _graph_case(lambda: single(*args))
+    for label, res in (("fused block (2^14 reps, key-tree plus K1)", fused),
+                       ("exact-engine ni_sign single call (n = 10^4)",
+                        serve)):
+        print(f"[{card}] 16f CUDA graph of one {label}: {json.dumps(res)}",
+              flush=True)
+    if not fused["bit_equal"]:
+        print(f"[{card}] 16f: fused-block replays are not bit-equal to the "
+              f"eager call", flush=True)
+    return {"fused_block": fused, "ni_sign_single": serve,
+            "replays": fused["replays"] + serve["replays"]}
+
+
+def plan_phase(card: str, key, main: dict, fused_res, x, y, xy,
+               work: str) -> dict:
+    """Phase 16 (a)-(f); each part reads the launch count and the
+    transfer counters around itself."""
+    parts = {}
+    for label, fn in (
+            ("16a", lambda: plan_pipeline(card, key, main)),
+            ("16b", lambda: plan_grid(card, fused_res)),
+            ("16c", lambda: plan_serving(card, work)),
+            ("16d", lambda: plan_federation(card, x, y)),
+            ("16e", lambda: plan_stream(card, xy, work)),
+            ("16f", lambda: graph_probe(card, key))):
+        t0 = time.perf_counter()
+        parts[label] = fn()
+        parts[label + " s"] = time.perf_counter() - t0
+    return parts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -3549,7 +3945,6 @@ def main() -> int:
         raise RuntimeError(f"phase 15: {fleet_launches} K1 launches; the "
                            f"fleet and chaos paths have no kernel of their "
                            f"own")
-    work.cleanup()
     fa = parts["15a,b"]
     print(f"[{card}] 15e: qps(3)/qps(1) = {fa['qps_ratio']:.3f} "
           f"({fa['three']['req_per_s']:.1f} / {fa['one']['req_per_s']:.1f} "
@@ -3557,6 +3952,20 @@ def main() -> int:
           flush=True)
     seconds = {k: round(v, 1) for k, v in parts.items() if k.endswith(" s")}
     print(f"[{card}] phase 15: {time.perf_counter() - t15:.1f} s "
+          f"{json.dumps(seconds)}", flush=True)
+
+    # ---- 16. the build-and-dispatch layer, each part reading the launch
+    # count and the transfer counters around itself
+    from dpcorr_torch.perf_stream import hrs_pair
+
+    t16 = time.perf_counter()
+    x, y = proto_columns(card, cols)
+    parts = plan_phase(card, key, {"unfused": unfused, "fused": fused},
+                       v1["fused"], x, y, hrs_pair(cols), work.name)
+    work.cleanup()
+    plan_launches = {k: v["launches"] for k, v in parts["16a"].items()}
+    seconds = {k: round(v, 1) for k, v in parts.items() if k.endswith(" s")}
+    print(f"[{card}] phase 16: {time.perf_counter() - t16:.1f} s "
           f"{json.dumps(seconds)}", flush=True)
     bucket_ms = [v["ms"] for v in buckets.values()]
 
@@ -3595,6 +4004,9 @@ def main() -> int:
         "protocol_launches": protocol_launches,
         "stream_launches": stream_launches,
         "fleet_launches": fleet_launches,
+        "plan_pipeline_launches": plan_launches,
+        "plan_grid_launches": parts["16b"]["launches"],
+        "graph_replays": parts["16f"]["replays"],
     }]}
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(record), flush=True)

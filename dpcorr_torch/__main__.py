@@ -329,7 +329,7 @@ def cmd_serve(args):
         max_queue=args.max_queue, shard=args.shard,
         batch_mode=args.batch_mode, max_kernels=args.max_kernels,
         audit=args.audit, warmup=args.warmup,
-        warmup_manifest=args.warmup_manifest,
+        warmup_manifest=args.warmup_manifest, aot=args.aot == "on",
         breaker_threshold=args.breaker_threshold,
         breaker_reset_s=args.breaker_reset_s,
         shed_queue_frac=args.shed_queue_frac,
@@ -362,7 +362,7 @@ def cmd_serve(args):
         "user_dir": args.user_dir, "user_budget": args.user_budget,
         "global_budget": args.global_budget,
         "warmup": server.readiness(),
-        "warmup_manifest": args.warmup_manifest,
+        "warmup_manifest": args.warmup_manifest, "aot": args.aot,
         "flight_recorder": args.flight_recorder,
         "breaker": {"threshold": args.breaker_threshold,
                     "reset_s": args.breaker_reset_s},
@@ -482,6 +482,11 @@ def _add_serve(sub) -> None:
                    default=None,
                    help="kernel-manifest JSON path: replayed as warmup on "
                         "boot, rewritten with the resident set on shutdown")
+    p.add_argument("--aot", default="on", choices=["on", "off"],
+                   help="build kernel-cache entries ahead of their first "
+                        "flush (utils.compile; warm signatures also run "
+                        "once before /readyz turns 200); 'off' builds lazy "
+                        "units on first flush (A/B measurement)")
     p.add_argument("--breaker-threshold", dest="breaker_threshold",
                    type=int, default=5,
                    help="circuit breaker: consecutive kernel failures in "
@@ -2038,6 +2043,18 @@ def _add_federation(sub) -> None:
 
 
 # ------------------------------------------------------------- streaming
+def _stream_placement(args, device):
+    """``--placement`` / ``--mesh-devices`` as a ``dpcorr_torch.plan``
+    placement (None without ``--placement``: the monolithic release)."""
+    if args.placement is None:
+        return None
+    from dpcorr_torch.plan import MeshPlacement, resolve_placement
+
+    if args.placement == "mesh" and args.mesh_devices:
+        return MeshPlacement(n_devices=args.mesh_devices, device=device)
+    return resolve_placement(args.placement, device=device)
+
+
 def cmd_stream(args):
     """Always-on windowed DP correlation over an ingest stream
     (counterpart of ``python -m dpcorr stream``): event-time windows, one
@@ -2068,7 +2085,8 @@ def cmd_stream(args):
         party_x=args.party_x, party_y=args.party_y,
         stream_id=args.stream_id, user=args.user,
         user_budget=args.user_budget, global_budget=args.global_budget,
-        max_pending_rows=args.max_pending_rows, device=device)
+        max_pending_rows=args.max_pending_rows,
+        placement=_stream_placement(args, device), device=device)
     if rec is not None:
         rec.watch_registry(service.registry)
         rec.watch_costs(service.costs)
@@ -2116,8 +2134,7 @@ def cmd_stream(args):
 
 def _add_stream(sub) -> None:
     """``stream``, with the JAX package's flags (``--device`` in place of
-    ``--platform``; ``--placement`` and ``--mesh-devices`` wait for the
-    execution plan's port)."""
+    ``--platform``)."""
     pst = sub.add_parser("stream", help="always-on windowed DP "
                          "correlation over an ingest stream")
     pst.add_argument("--workdir", required=True,
@@ -2186,6 +2203,18 @@ def _add_stream(sub) -> None:
     pst.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                      help="where window releases run: the card (default; "
                           "raises without one) or the CPU")
+    pst.add_argument("--placement", default=None,
+                     choices=["local", "mesh"],
+                     help="execution placement for window finalize "
+                          "(dpcorr_torch.plan): 'mesh' splits each pass's "
+                          "chunk set over the devices and tree-merges "
+                          "the shard sketches, byte-equal to the default "
+                          "monolithic release")
+    pst.add_argument("--mesh-devices", dest="mesh_devices", type=int,
+                     default=None,
+                     help="device count for --placement mesh (default: "
+                          "every visible card, or one CPU entry with "
+                          "--device cpu)")
     pst.set_defaults(fn=cmd_stream)
 
 

@@ -268,21 +268,6 @@ def _raise_if_failed(failures, n_points: int) -> None:
             f"{failures[0][0]} -> {failures[0][1]!r}")
 
 
-def _on_device(values, dtype, dev) -> torch.Tensor:
-    """A short host list as a tensor on ``dev`` without waiting for the
-    work already queued there: on the card through pinned memory and an
-    asynchronous copy (a copy from pageable memory synchronises)."""
-    t = torch.tensor(values, dtype=dtype)
-    if dev.type == "cuda":
-        return t.pin_memory().to(dev, non_blocking=True)
-    return t.to(dev)
-
-
-def _per_rep(values, b: int, dev) -> torch.Tensor:
-    """(len(values) · b,) f32: each value repeated b times."""
-    return _on_device(values, torch.float32, dev).repeat_interleave(b)
-
-
 class _Bucket(NamedTuple):
     rows: list
     to_run: list
@@ -304,41 +289,57 @@ def _group(rows: list[_Row], merged: bool) -> list[list[_Row]]:
 
 
 def _dispatch(gcfg: GridConfig, bk: _Bucket, master: torch.Tensor,
-              dev, devices=None) -> torch.Tensor:
-    """Enqueue one bucket's work without reading anything back: returns
-    its (12, points · b) detail on the device. The keys of every point,
+              ex) -> torch.Tensor:
+    """Enqueue one bucket's work through the plan executor ``ex`` without
+    reading anything back: returns its (12, points · b) detail on the
+    device. The bucket's design indices and ρ (and ε, merged) are placed
+    on the device in one counted copy each from pinned memory, which
+    waits for nothing queued there (``plan.preshard``); the keys of
+    every point,
     ``rep_keys(design_key(master, i), b)`` concatenated, come from one
-    key-tree call for the whole bucket. ``devices``: the shards of a
-    ``bucketed-sharded`` grid."""
+    key-tree call for the whole bucket. A ``bucketed-sharded`` grid's
+    executor is a mesh: the flat axis is padded to a multiple of its
+    devices and split over them (``parallel.run_detail_flat_sharded``)."""
     b, cfg, to_run = gcfg.b, bk.cfg, bk.to_run
+    from dpcorr_torch.plan import preshard
+
+    f32 = ["rho"] + (["eps1", "eps2"] if bk.k_pad is not None else [])
+    pts = preshard([torch.tensor([r.i for r in to_run])]
+                   + [torch.tensor([getattr(r, f) for r in to_run],
+                                   dtype=torch.float32) for f in f32],
+                   ex.placement.replicated_sharding(), ex.counters(),
+                   non_blocking=True)
     with sim_mod.stage("rep_keys"):
-        design = rng.design_key(master, _on_device([r.i for r in to_run],
-                                                   torch.int64, dev))
+        design = rng.design_key(master, pts[0])
         keys = rng.rep_keys(design, b).reshape(-1, 2)
-    rhos = _per_rep([r.rho for r in to_run], b, dev)
+    per_rep = [v.repeat_interleave(b) for v in pts[1:]]
+    rhos = per_rep[0]
     if bk.fused:
         with sim_mod.stage("kernel_seeds"):
             seeds = rng.kernel_seeds(keys).contiguous()
         args = dict(cfg.dgp_args)
-        raw = sim_mod.sim_detail_fused(
-            seeds, rhos, cfg.n, cfg.eps1,
-            cfg.eps2, mu=args.get("mu", (0.0, 0.0)),
+        dev = ex.placement.replicated_sharding()
+        unit = ex.lazy_unit(lambda s, r: sim_mod.sim_detail_fused(
+            s, r, cfg.n, cfg.eps1, cfg.eps2, mu=args.get("mu", (0.0, 0.0)),
             sigma=args.get("sigma", (1.0, 1.0)), alpha=cfg.alpha,
-            ci_mode=cfg.ci_mode, normalise=cfg.normalise, device=dev)
+            ci_mode=cfg.ci_mode, normalise=cfg.normalise, device=dev))
+        raw = ex.dispatch(unit, (seeds, rhos))
     elif bk.k_pad is not None:
         cfg_noeps = dataclasses.replace(cfg, rho=0.0, seed=0, eps1=1.0,
                                         eps2=1.0)
-        raw = sim_mod._run_detail_flat_eps(
-            cfg_noeps, keys, rhos, _per_rep([r.eps1 for r in to_run], b, dev),
-            _per_rep([r.eps2 for r in to_run], b, dev), bk.k_pad)
+        unit = ex.lazy_unit(lambda k, r, e1, e2: sim_mod._run_detail_flat_eps(
+            cfg_noeps, k, r, e1, e2, bk.k_pad))
+        raw = ex.dispatch(unit, (keys, *per_rep))
     else:
         cfg_norho = dataclasses.replace(cfg, rho=0.0, seed=0)
         if gcfg.backend == "bucketed-sharded":
             from dpcorr_torch.parallel.backend import run_detail_flat_sharded
 
-            raw = run_detail_flat_sharded(cfg_norho, keys, rhos, devices)
+            raw = run_detail_flat_sharded(cfg_norho, keys, rhos, executor=ex)
         else:
-            raw = sim_mod._run_detail_flat(cfg_norho, keys, rhos)
+            unit = ex.lazy_unit(
+                lambda k, r: sim_mod._run_detail_flat(cfg_norho, k, r))
+            raw = ex.dispatch(unit, (keys, rhos))
     return torch.stack(raw)
 
 
@@ -355,9 +356,16 @@ def _run_grid_bucketed(gcfg: GridConfig, rows: list[_Row],
     the local backend point by point and share its cache. A bucket that
     fails at any phase, a fused one included, is recorded and the rest
     run; nothing is rerun another way."""
+    from dpcorr_torch import plan as plan_mod
+
     details, timings, failures = {}, [], []
     merged = gcfg.bucket_merge == "eps"
     tr = obs_trace.tracer()
+    # one plan executor for the whole grid: a mesh over ``devices`` for
+    # the sharded backend, the grid's device otherwise
+    ex = plan_mod.Executor(
+        "mesh" if gcfg.backend == "bucketed-sharded" else "local",
+        devices=devices, device=dev)
 
     def fail(bucket_rows, phase, e):
         log.error("bucket (n=%d eps=(%.2f,%.2f), %d points) failed at %s: "
@@ -405,8 +413,7 @@ def _run_grid_bucketed(gcfg: GridConfig, rows: list[_Row],
         dsp = tr.start_span("grid.dispatch", n=bk.rows[0].n,
                             points=len(bk.rows))
         try:
-            raw = (_dispatch(gcfg, bk, master, dev, devices) if bk.to_run
-                   else None)
+            raw = _dispatch(gcfg, bk, master, ex) if bk.to_run else None
         except Exception as e:
             fail(bk.rows, "dispatch", e)
             dsp.set(error=type(e).__name__)
@@ -429,7 +436,7 @@ def _run_grid_bucketed(gcfg: GridConfig, rows: list[_Row],
                             points=len(bk.rows), points_run=len(bk.to_run))
         try:
             if bk.to_run:
-                host = raw.cpu().numpy()  # the bucket's one host read
+                host = ex.fetch(raw).numpy()  # the bucket's one host read
                 for j, r in enumerate(bk.to_run):
                     sl = slice(j * gcfg.b, (j + 1) * gcfg.b)
                     detail = {f: host[c, sl].copy()

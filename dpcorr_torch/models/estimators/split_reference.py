@@ -306,6 +306,40 @@ def finish(family: str, key, peer_release: dict, col, eps1: float,
                         float(eps2), float(alpha), bool(normalise))
 
 
+_PLANS: dict = {}
+
+
+def _plan_executor(dev: torch.device):
+    """The plan executor federation finishes dispatch through on ``dev``
+    (one local-placement ``dpcorr_torch.plan.Executor`` per device, made
+    at first use), as ``dpcorr.models.estimators.split_reference``'s
+    ``_plan_executor``: units are built once per signature and cached."""
+    ex = _PLANS.get(dev)
+    if ex is None:
+        from dpcorr_torch import plan as plan_mod
+
+        ex = _PLANS.setdefault(dev, plan_mod.Executor("local", device=dev))
+    return ex
+
+
+def _finish_batch_fn(family: str, eps1: float, eps2: float, alpha: float,
+                     normalise: bool, engine: str):
+    """The round's finish over stacked (keys, releases, columns):
+    ``"exact"`` runs the single finish on each cell's fresh copies in
+    turn, ``"vector"`` one call over the stacked cells."""
+    args = (eps1, eps2, alpha, normalise)
+    if engine == "vector":
+        return lambda keys, rels, cols: _finish_impl(family, keys, rels,
+                                                     cols, *args)
+
+    def exact(keys, rels, cols):
+        outs = [_finish_impl(family, k.clone(), r.clone(), c.clone(), *args)
+                for k, r, c in zip(keys, rels, cols)]
+        return tuple(torch.stack([o[j] for o in outs]) for j in range(3))
+
+    return exact
+
+
 def finish_batch(family: str, keys, peer_releases, cols, eps1: float,
                  eps2: float, alpha: float = 0.05, normalise: bool = True,
                  engine: str = "exact", device=None,
@@ -315,14 +349,17 @@ def finish_batch(family: str, keys, peer_releases, cols, eps1: float,
     column. Returns (ρ̂, ci_low, ci_high), each of shape (B,), on
     ``device``.
 
-    ``"exact"`` runs :func:`finish` on each cell in turn, each on fresh
-    copies, so every cell is bit-equal to the independent two-party run
-    it replaces on every device (the JAX package's ``lax.map``). On the
-    card a batched call is not bit-equal to the single call (its
-    reductions over n take another order for B rows than for one), so
-    ``"vector"``, one call over the stacked cells, is held only within
-    1e-5 there, as the serving registry's vector engine is; it is
-    opt-in and never used where the federation's bit-identity applies."""
+    The round is one plan unit (``_plan_executor``), built once per
+    (family, ε, α, normalise, engine, shapes) and dispatched on the
+    stacked cells. ``"exact"`` runs :func:`finish` on each cell in turn,
+    each on fresh copies, so every cell is bit-equal to the independent
+    two-party run it replaces on every device (the JAX package's
+    ``lax.map``). On the card a batched call is not bit-equal to the
+    single call (its reductions over n take another order for B rows
+    than for one), so ``"vector"``, one call over the stacked cells, is
+    held only within 1e-5 there, as the serving registry's vector engine
+    is; it is opt-in and never used where the federation's bit-identity
+    applies."""
     if engine not in ENGINES:
         raise ValueError(f"unknown finish engine {engine!r}; "
                          "expected 'exact' or 'vector'")
@@ -333,18 +370,20 @@ def finish_batch(family: str, keys, peer_releases, cols, eps1: float,
             f"releases, {len(cols)} columns")
     dev = resolve_device(device)
     args = (float(eps1), float(eps2), float(alpha), bool(normalise))
-    if engine == "vector":
-        return _finish_impl(
-            family,
-            torch.stack([place(k, dev, torch.int64) for k in keys]),
-            torch.stack([place(r, dev, torch.float32) for r in rels]),
-            torch.stack([place(c, dev, torch.float32) for c in cols]),
-            *args)
-    outs = [_finish_impl(family, place(k, dev, torch.int64).clone(),
-                         place(r, dev, torch.float32).clone(),
-                         place(c, dev, torch.float32).clone(), *args)
-            for k, r, c in zip(keys, rels, cols)]
-    return tuple(torch.stack([o[j] for o in outs]) for j in range(3))
+    stacked = (torch.stack([place(k, dev, torch.int64) for k in keys]),
+               torch.stack([place(r, dev, torch.float32) for r in rels]),
+               torch.stack([place(c, dev, torch.float32) for c in cols]))
+    ex = _plan_executor(dev)
+    unit = ex.prepare(
+        ("finish_batch", family, *args, engine,
+         tuple(tuple(a.shape) for a in stacked)),
+        lambda: _finish_batch_fn(family, *args, engine),
+        signature={"kernel": "finish_batch", "family": family,
+                   "engine": engine, "b": int(stacked[0].shape[0]),
+                   "n": int(stacked[2].shape[-1])})
+    # dispatch stays asynchronous: the round's caller reads the results
+    # once when it serializes them
+    return ex.dispatch(unit, stacked)
 
 
 def split_estimate(family: str, key_x, key_y, x, y, eps1: float,

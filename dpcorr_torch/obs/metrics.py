@@ -266,6 +266,20 @@ class Registry:
 #: Exposition content type (what /metrics should send).
 CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
+_default_registry: Registry | None = None
+_default_lock = threading.Lock()
+
+
+def default_registry() -> Registry:
+    """The process-wide registry, which the transfer counters
+    (``obs.transfer``) and a compile observer built without one
+    (``utils.compile``) report into. Built on first use."""
+    global _default_registry
+    with _default_lock:
+        if _default_registry is None:
+            _default_registry = Registry()
+        return _default_registry
+
 def parse_exposition(text: str) -> dict[str, float]:
     """Parse exposition text back to ``{"name{labels}": value}`` — the
     scrape side of the single-source-of-truth check in

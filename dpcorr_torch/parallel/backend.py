@@ -29,31 +29,46 @@ from dpcorr_torch.utils import rng
 SUM_NAMES = ("sum_hat", "sum_hat2", "sum_se2", "sum_cover", "sum_len")
 
 
+def _padded(keys: torch.Tensor, rhos: torch.Tensor, n_shards: int):
+    """The axis padded to a multiple of ``n_shards`` by a modulo gather,
+    which also covers a pad longer than the axis (a small bucket over
+    many devices); with the global index of each element."""
+    total = keys.shape[0]
+    per = -(-total // n_shards)
+    idx = torch.arange(per * n_shards, device=keys.device)
+    return keys[idx % total], rhos[idx % total], idx
+
+
 def _shards(keys: torch.Tensor, rhos: torch.Tensor, devices):
     """(device, keys, ρ, global index) of each contiguous shard of the
-    padded axis; the modulo gather also covers a pad longer than the axis
-    (a small bucket over many devices)."""
-    total = keys.shape[0]
-    per = -(-total // len(devices))
-    idx = torch.arange(per * len(devices), device=keys.device)
-    keys, rhos = keys[idx % total], rhos[idx % total]
-    for s, dev in enumerate(devices):
-        sl = slice(s * per, (s + 1) * per)
-        yield dev, keys[sl].to(dev), rhos[sl].to(dev), idx[sl].to(dev)
+    padded axis, placed through ``plan.preshard``."""
+    from dpcorr_torch.plan import preshard
+    from dpcorr_torch.utils.compile import mesh_shardings
+
+    placed = preshard(_padded(keys, rhos, len(devices)),
+                      mesh_shardings(devices)[0])
+    yield from zip(devices, *placed, strict=True)
 
 
 def run_detail_flat_sharded(cfg_norho: SimConfig, keys: torch.Tensor,
-                            rhos: torch.Tensor, devices=None) -> tuple:
+                            rhos: torch.Tensor, devices=None,
+                            executor=None) -> tuple:
     """Sharded twin of ``sim._run_detail_flat``: the same 12 fields for
     the same per-replication (key, ρ) pairs, bit for bit, with the flat
-    axis split over ``devices`` (default: every card, or the CPU for keys
-    on the CPU). Results come back to the keys' device."""
-    devices = devices or rep_devices(device=keys.device)
-    parts = [sim_mod._run_detail_flat(cfg_norho, k, r)
-             for _, k, r, _ in _shards(keys, rhos, devices)]
+    axis padded and split over ``devices`` (default: every card, or the
+    CPU for keys on the CPU) through a mesh ``plan.Executor``
+    (``executor``, when the caller holds one: the grid's). Results come
+    back to the keys' device."""
+    from dpcorr_torch import plan as plan_mod
+
+    ex = executor if executor is not None else plan_mod.Executor(
+        plan_mod.MeshPlacement(devices or rep_devices(device=keys.device)))
     total = keys.shape[0]
-    return tuple(torch.cat([p[f].to(keys.device) for p in parts])[:total]
-                 for f in range(len(DETAIL_FIELDS)))
+    k, r, _ = _padded(keys, rhos, ex.placement.device_count)
+    unit = ex.lazy_unit(lambda k, r: sim_mod._run_detail_flat(cfg_norho, k,
+                                                              r))
+    return tuple(o[:total].to(keys.device)
+                 for o in ex.dispatch(unit, (k, r)))
 
 
 def _prep(cfg: SimConfig, key, devices):
@@ -133,14 +148,16 @@ def make_serve_batch_sharded(single, devices=None, engine: str = "exact"):
     the direct call on their device."""
     from dpcorr_torch.models.estimators.registry import batch_engine
 
+    from dpcorr_torch.plan import preshard
+    from dpcorr_torch.utils.compile import mesh_shardings
+
     body = batch_engine(single, engine)
     devices = list(devices or rep_devices())
 
     def run(keys, xs, ys):
-        parts = [body(k.to(d), x.to(d), y.to(d)) for d, k, x, y in zip(
-            devices, keys.tensor_split(len(devices)),
-            xs.tensor_split(len(devices)), ys.tensor_split(len(devices)))
-            if x.shape[0]]
+        placed = preshard((keys, xs, ys), mesh_shardings(devices)[0])
+        parts = [body(k, x, y) for k, x, y in zip(*placed, strict=True)
+                 if x.shape[0]]
         return tuple(torch.cat([p[j].to(xs.device) for p in parts])
                      for j in range(3))
     return run

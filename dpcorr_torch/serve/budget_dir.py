@@ -97,6 +97,7 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
+import fcntl
 import hashlib
 import json
 import os
@@ -574,18 +575,28 @@ class BudgetDirectory:
         self.audit = audit
         os.makedirs(self.root, exist_ok=True)
         meta_path = os.path.join(self.root, "meta.json")
-        sweep_stale_tmp(meta_path)
-        if os.path.exists(meta_path):
-            try:
-                with open(meta_path, encoding="utf-8") as fh:
-                    meta = json.load(fh)
-                shards = int(meta["shards"])
-            except (json.JSONDecodeError, UnicodeDecodeError, OSError,
-                    KeyError, TypeError, ValueError) as e:
-                raise _corrupt(meta_path, str(e)) from e
-        else:
-            _atomic_write(meta_path, json.dumps(
-                {"version": _DIR_VERSION, "shards": shards}))
+        # replicas of a fleet open one directory at once: the sweep and
+        # the first write of meta.json run under an exclusive lock on
+        # the directory itself (no file of its own: the layout stays the
+        # JAX package's), or one replica's sweep unlinks another's tmp
+        # file before its rename and that replica dies at boot
+        lock_fd = os.open(self.root, os.O_RDONLY)
+        try:
+            fcntl.flock(lock_fd, fcntl.LOCK_EX)
+            sweep_stale_tmp(meta_path)
+            if os.path.exists(meta_path):
+                try:
+                    with open(meta_path, encoding="utf-8") as fh:
+                        meta = json.load(fh)
+                    shards = int(meta["shards"])
+                except (json.JSONDecodeError, UnicodeDecodeError, OSError,
+                        KeyError, TypeError, ValueError) as e:
+                    raise _corrupt(meta_path, str(e)) from e
+            else:
+                _atomic_write(meta_path, json.dumps(
+                    {"version": _DIR_VERSION, "shards": shards}))
+        finally:
+            os.close(lock_fd)  # releases the lock
         self.n_shards = shards
         self.renewal = renewal if renewal is not None else RenewalPolicy()
         self.user_budget = float(user_budget)

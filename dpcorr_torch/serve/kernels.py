@@ -5,17 +5,28 @@ Counterpart of ``dpcorr/serve/kernels.py``. The cache is keyed on the
 the batch axis is padded to the next power of two, so a bucket that
 flushes at 13 requests and one that flushes at 16 share one entry.
 
-An entry is the :func:`~dpcorr_torch.models.estimators.registry.serving_entry`
-closure of its bucket wrapped in a batch engine
-(:func:`~dpcorr_torch.models.estimators.registry.batch_engine`); eager
-torch compiles nothing, so "building" is that closure and costs
-microseconds. The cache keeps what the JAX package's gives its callers:
+An entry is a plan unit (``dpcorr_torch.plan``) over the
+:func:`~dpcorr_torch.models.estimators.registry.serving_entry` closure
+of its bucket wrapped in a batch engine
+(:func:`~dpcorr_torch.models.estimators.registry.batch_engine`). Builds
+and dispatches go through one local-placement ``plan.Executor``:
 
-- misses are **single-flight** (:class:`SingleFlight`): concurrent
-  misses for one signature wait on one build, counted as
+- misses are **single-flight** (``utils.compile.SingleFlight``):
+  concurrent misses for one signature wait on one build, counted as
   ``kernel_compile_dedup``; hits and builds are counted as
-  ``kernel_hits`` / ``kernel_compiles``, and why each build happened in
-  ``dpcorr_compile_recompile_total{cause}``;
+  ``kernel_hits`` / ``kernel_compiles``;
+- with ``aot`` on (the default) an entry is built through
+  ``Executor.prepare``: timed into the server registry's
+  ``dpcorr_compile_seconds`` with its cause in
+  ``dpcorr_compile_recompile_total{cause}`` and a ``kernel.compile``
+  span. The warmup set (serve.warmup) passes example arguments, so a
+  warm signature also runs once and pays its first launch before
+  ``/readyz`` turns 200; a cold miss on the request path builds without
+  that run, so a first flush never computes twice. With ``aot`` off an
+  entry is a lazy unit: nothing is timed or counted;
+- each flush is one plan: operands placed on the device
+  (``plan.preshard``), one dispatch, one counted host read
+  (``obs.transfer`` fetches);
 - the live entries are bounded by ``max_kernels`` with LRU eviction, so
   a client sweeping sample sizes cannot grow the cache without limit;
 - :meth:`KernelCache.manifest` lists the resident signatures, the warm
@@ -48,6 +59,7 @@ import numpy as np
 import torch
 
 from dpcorr_torch import chaos
+from dpcorr_torch import plan as plan_mod
 from dpcorr_torch.models.estimators.registry import (
     ENGINES,
     batch_engine,
@@ -55,72 +67,14 @@ from dpcorr_torch.models.estimators.registry import (
 )
 from dpcorr_torch.serve.request import KernelKey
 from dpcorr_torch.serve.stats import ServeStats
+from dpcorr_torch.utils import compile as compile_mod
+from dpcorr_torch.utils.compile import SingleFlight  # noqa: F401
 from dpcorr_torch.utils.device import resolve_device
 
 
 def pad_batch(b: int) -> int:
     """Next power of two ≥ b: the batch-width bucket."""
     return 1 << (b - 1).bit_length() if b > 1 else 1
-
-
-class _Flight:
-    """One inflight build: the leader publishes ``value``/``error`` then
-    sets ``done``; followers wait on it."""
-
-    __slots__ = ("done", "value", "error")
-
-    def __init__(self):
-        self.done = threading.Event()
-        self.value = None
-        self.error = None
-
-
-class SingleFlight:
-    """Per-key build deduplication (Go's ``singleflight`` shape; a copy
-    of ``dpcorr/utils/compile.py``'s).
-
-    ``do(key, build)`` returns ``(value, leader)``: exactly one caller
-    per concurrently-missed key runs ``build`` (leader=True); the rest
-    block until it finishes and share the result. A build that raises
-    propagates the exception to the leader *and* every waiter, and the
-    key is cleared so the next call retries fresh. The leader publishes
-    its result *before* the flight is removed, so a caller can install
-    the value into its own cache inside ``build`` without a window where
-    a third thread re-builds.
-    """
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._inflight: dict[object, _Flight] = {}  # guarded by: _lock
-
-    def inflight_count(self) -> int:
-        with self._lock:
-            return len(self._inflight)
-
-    def do(self, key, build):
-        with self._lock:
-            fl = self._inflight.get(key)
-            leader = fl is None
-            if leader:
-                fl = _Flight()
-                self._inflight[key] = fl
-        if not leader:
-            fl.done.wait()
-            if fl.error is not None:
-                raise fl.error
-            return fl.value, False
-        try:
-            fl.value = build()
-        except BaseException as e:
-            fl.error = e
-            raise
-        finally:
-            # publish-then-clear: value/error are set before the flight
-            # leaves the map and the event releases the waiters
-            with self._lock:
-                self._inflight.pop(key, None)
-            fl.done.set()
-        return fl.value, True
 
 
 def _pad_rows(a: torch.Tensor, b_pad: int) -> torch.Tensor:
@@ -131,18 +85,20 @@ def _pad_rows(a: torch.Tensor, b_pad: int) -> torch.Tensor:
 
 
 class KernelCache:
-    """(KernelKey, b_pad, shards) → batched callable on ``device`` (the
+    """(KernelKey, b_pad, shards) → batched plan unit on ``device`` (the
     card unless the caller names another; raises without one).
 
     ``devices`` is the list the lane axis may shard over (default: every
-    card, or one CPU entry; ``parallel.rep_devices``). ``_compile_hook``
-    (test seam) is invoked by the *leader* build of each signature, so a
-    thread-race test can count actual builds.
+    card, or one CPU entry; ``parallel.rep_devices``). ``aot=False``
+    builds lazy units (no build telemetry, no warm runs), for A/B runs.
+    ``_compile_hook`` (test seam) is invoked by the *leader* build of
+    each signature, so a thread-race test can count actual builds.
     """
 
     def __init__(self, stats: ServeStats | None = None,
                  shard: str = "auto", mode: str = "exact",
-                 max_kernels: int = 128, device=None, devices=None):
+                 max_kernels: int = 128, aot: bool = True, tracer=None,
+                 device=None, devices=None):
         if shard not in ("auto", "off"):
             raise ValueError(f"shard must be 'auto' or 'off', got {shard!r}")
         if mode not in ENGINES:
@@ -153,17 +109,21 @@ class KernelCache:
         self.shard = shard
         self.mode = mode
         self.max_kernels = max_kernels
+        self.aot = bool(aot)
         self.device = resolve_device(device)
         if devices is None:
             from dpcorr_torch.parallel.mesh import rep_devices
 
             devices = rep_devices(device=self.device)
         self.devices = list(devices)
-        self._recompiles = self.stats.registry.counter(
-            "dpcorr_compile_recompile_total",
-            "Kernel compilations by cause", labelnames=("cause",))
-        self._seen: set = set()  # guarded by: _lock
-        self._flight = SingleFlight()
+        # the cache's build/dispatch/fetch engine: one local-placement
+        # plan executor whose observer reports into the server's registry
+        self._plan = plan_mod.Executor(
+            "local", device=self.device,
+            observer=compile_mod.CompileObserver(
+                registry=self.stats.registry, tracer=tracer))
+        self._cobs = self._plan.observer
+        self._flight = self._plan.flight
         self._compile_hook: Callable | None = None  # test seam
         self._lock = threading.Lock()
         self._fns: OrderedDict[tuple, Callable] = OrderedDict()  # guarded by: _lock
@@ -185,12 +145,16 @@ class KernelCache:
         n_dev = len(self.devices)
         return n_dev if n_dev > 1 and b_pad % n_dev == 0 else 1
 
-    def get(self, kkey: KernelKey, b_pad: int) -> tuple[Callable, int]:
-        """The batched callable for this signature + its shard count.
+    def get(self, kkey: KernelKey, b_pad: int,
+            example_args=None) -> tuple[Callable, int]:
+        """The batched unit for this signature + its shard count.
 
         Misses are single-flight: one build per concurrently-missed
         signature, followers share the leader's result (and count into
-        ``kernel_compile_dedup`` instead of compiles/hits)."""
+        ``kernel_compile_dedup`` instead of compiles/hits).
+        ``example_args`` (host ``(keys, xs, ys)`` at the dispatch shape,
+        serve.warmup's) give a miss its warm run when ``aot`` is on; a
+        hit ignores them."""
         shards = self._n_shards(b_pad)
         cache_key = (kkey, b_pad, shards)
         self._tls.compile_wait_s = 0.0
@@ -205,18 +169,18 @@ class KernelCache:
             # leader path: build, then install under the cache lock
             # BEFORE the flight completes, so no third thread can miss
             # in between and rebuild
-            fn = self._build(kkey, b_pad, shards)
+            fn = self._build(kkey, b_pad, shards, example_args)
             with self._lock:
-                cause = ("cache-evict" if cache_key in self._seen
-                         else "new-signature")
-                self._seen.add(cache_key)
                 self._fns[cache_key] = fn
                 self._fns.move_to_end(cache_key)
                 while len(self._fns) > self.max_kernels:
-                    self._fns.popitem(last=False)  # evict LRU
+                    evk, _ = self._fns.popitem(last=False)  # evict LRU
+                    # a later build of this signature is a rebuild
+                    # caused by eviction, not a new signature
+                    self._cobs.note_evicted(compile_mod.signature_key(
+                        self._signature(*evk)))
                 self.stats.kernel(hit=False)
                 self.stats.set_kernel_cache_size(len(self._fns))
-            self._recompiles.inc(cause=cause)
             return fn
 
         t_miss = time.perf_counter()
@@ -226,20 +190,39 @@ class KernelCache:
             self.stats.kernel_dedup()
         return fn, shards
 
-    def _build(self, kkey: KernelKey, b_pad: int, shards: int) -> Callable:
+    def _signature(self, kkey: KernelKey, b_pad: int, shards: int) -> dict:
+        return {"family": kkey.family, "n": kkey.n,
+                "eps1": kkey.eps1, "eps2": kkey.eps2,
+                "b_pad": b_pad, "shards": shards, "mode": self.mode}
+
+    def _build(self, kkey: KernelKey, b_pad: int, shards: int,
+               example_args=None) -> plan_mod.Prepared:
         if self._compile_hook is not None:
             self._compile_hook((kkey, b_pad, shards))
-        single = serving_entry(kkey.family, kkey.eps1, kkey.eps2,
-                               alpha=kkey.alpha, normalise=kkey.normalise,
-                               device=self.device)
-        if shards > 1:
-            from dpcorr_torch.parallel.backend import (
-                make_serve_batch_sharded,
-            )
 
-            return make_serve_batch_sharded(single, self.devices[:shards],
-                                            engine=self.mode)
-        return batch_engine(single, self.mode)
+        def engine():
+            single = serving_entry(kkey.family, kkey.eps1, kkey.eps2,
+                                   alpha=kkey.alpha,
+                                   normalise=kkey.normalise,
+                                   device=self.device)
+            if shards > 1:
+                from dpcorr_torch.parallel.backend import (
+                    make_serve_batch_sharded,
+                )
+
+                return make_serve_batch_sharded(
+                    single, self.devices[:shards], engine=self.mode)
+            return batch_engine(single, self.mode)
+
+        sig = self._signature(kkey, b_pad, shards)
+        if not self.aot:
+            return self._plan.lazy_unit(engine(), signature=sig)
+        if example_args is not None:
+            example_args = self._plan.preshard(example_args)
+        # the LRU owns unit lifetime, so the executor's own unit cache is
+        # off; the single flight in `get` already dedups concurrent builds
+        return self._plan.prepare((kkey, b_pad, shards), engine,
+                                  example_args, signature=sig, cache=False)
 
     # ------------------------------------------------------- warm set ----
     def manifest(self) -> list[dict]:
@@ -257,9 +240,10 @@ class KernelCache:
     def run_batch(self, kkey: KernelKey, keys, xs: np.ndarray,
                   ys: np.ndarray) -> tuple[np.ndarray, ...]:
         """Execute one flushed launch: pad the batch axis (vector engine),
-        run the cached callable, read the results back once, truncate.
-        ``keys``: (b, 2) int64 key words; ``xs``/``ys``: (b, n) float32.
-        Returns (rho_hat, ci_low, ci_high) as (b,) numpy arrays."""
+        place the operands, run the cached unit, read the results back
+        once, truncate. ``keys``: (b, 2) int64 key words; ``xs``/``ys``:
+        (b, n) float32. Returns (rho_hat, ci_low, ci_high) as (b,) numpy
+        arrays."""
         # fault sites (chaos.FAULT_POINTS): a planned SimulatedFault here
         # stands in for a launch error / device OOM, a planned sleep for
         # a kernel blowing its latency budget — both land before the
@@ -274,7 +258,8 @@ class KernelCache:
         ys = torch.from_numpy(np.ascontiguousarray(ys, dtype=np.float32))
         if self.mode == "vector":
             keys, xs, ys = (_pad_rows(a, b_pad) for a in (keys, xs, ys))
-        out = fn(keys.to(self.device), xs.to(self.device),
-                 ys.to(self.device))
-        host = torch.stack(out).cpu().numpy()  # the one device read
+        # one plan per flush: operands placed on the device, one
+        # dispatch, one counted host read
+        out = self._plan.dispatch(fn, (keys, xs, ys))
+        host = self._plan.fetch(torch.stack(out)).numpy()
         return tuple(host[j, :b] for j in range(3))

@@ -178,6 +178,7 @@ class DpcorrServer:
                  warmup: str | list | None = None,
                  warmup_manifest: str | None = None,
                  warmup_autostart: bool = True,
+                 aot: bool = True,
                  max_idempotency_cache: int = 1024,
                  breaker_threshold: int = 5,
                  breaker_reset_s: float = 30.0,
@@ -268,6 +269,7 @@ class DpcorrServer:
                                           global_budget=global_budget)
         self.cache = KernelCache(stats=self.stats, shard=shard,
                                  mode=batch_mode, max_kernels=max_kernels,
+                                 aot=aot, tracer=self.tracer,
                                  device=self.device)
         # overload resilience: the breaker fail-fasts a poisoned kernel
         # bucket BEFORE ε is charged; brownout degrades execution
@@ -351,7 +353,9 @@ class DpcorrServer:
         with self.tracer.span("serve.warmup", signatures=len(self._warm_set)):
             for kkey, b_pad in self._warm_set:
                 try:
-                    self.cache.get(kkey, b_pad)
+                    self.cache.get(kkey, b_pad, example_args=(
+                        warmup_mod.example_args(kkey, b_pad, self.cache.mode)
+                        if self.cache.aot else None))
                 except Exception as e:
                     # a single bad signature (typo'd family in a spec,
                     # stale manifest entry) must not hold readiness

@@ -29,6 +29,7 @@ from typing import Iterable, Sequence
 
 from dpcorr_torch.obs.cost import ExemplarStore
 from dpcorr_torch.obs.metrics import LATENCY_BUCKETS, Registry
+from dpcorr_torch.utils.compile import RECOMPILE_CAUSES
 
 #: Label vocabularies the JSON snapshot enumerates (the Prometheus side
 #: discovers labels dynamically; the fixed JSON shape needs the list).
@@ -37,12 +38,6 @@ SHED_REASONS = ("expired", "queue_evict", "cancelled", "closed",
 REFUSED_REASONS = ("budget", "overload", "breaker", "brownout",
                    "not_owner")
 ABANDONED_STAGES = ("cancelled", "detached")
-#: Why a kernel-cache entry was built (``dpcorr_compile_recompile_total
-#: {cause}``), the JAX package's vocabulary: ``new-signature`` the first
-#: build of a signature, ``cache-evict`` a rebuild after LRU eviction;
-#: ``jit-fallback`` (a failed ahead-of-time compile) cannot happen here,
-#: where building compiles nothing.
-RECOMPILE_CAUSES = ("new-signature", "cache-evict", "jit-fallback")
 
 
 def percentiles(values: Iterable[float],
@@ -404,8 +399,8 @@ class ServeStats:
         return body + "\n".join(lines) + "\n"
 
     def _recompile_snapshot(self) -> dict:
-        # the KernelCache registers this counter on our registry; before
-        # any build it simply isn't there yet
+        # the KernelCache's CompileObserver registers this counter on our
+        # registry; before any cache exists it simply isn't there yet
         rc = self.registry.get("dpcorr_compile_recompile_total")
         if rc is None:
             return {}

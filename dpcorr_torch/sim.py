@@ -426,62 +426,162 @@ def fused_ni_rep_fn(n: int, rho: float, eps1: float, eps2: float,
     return body
 
 
-class RepBlockPipeline:
-    """Chained replication blocks with one host sync per :meth:`run`.
+class _Shard:
+    """One device's share of a block: its contiguous replications
+    ``[start, start + count)``, its copy of the root key, and its
+    preallocated output and accumulator buffers."""
 
-    Counterpart of ``dpcorr.sim.RepBlockPipeline``, local placement only.
-    ``rep_fn(keys (C, 2)) -> tuple[out_len] of (C,)`` is the body; block i
-    runs it over ``rep_keys(design_key(key, i), block_reps)`` in chunks of
+    __slots__ = ("device", "start", "count", "key", "out", "acc")
+
+    def __init__(self, device, start: int, count: int, key, out_len: int):
+        self.device = device
+        self.start = start
+        self.count = count
+        self.key = key.to(device)
+        self.out = torch.empty(out_len, count, dtype=torch.float32,
+                               device=device)
+        self.acc = torch.zeros(out_len, dtype=torch.float32, device=device)
+
+
+class RepBlockPipeline:
+    """Chained replication blocks with one host read per :meth:`run`.
+
+    Counterpart of ``dpcorr.sim.RepBlockPipeline``. ``rep_fn(keys (C, 2))
+    -> tuple[out_len] of (C,)`` is the body; block i runs it over
+    ``rep_keys(design_key(key, i), block_reps)`` in chunks of
     ``chunk_size`` (the JAX pipeline's key addresses), and each output is
-    summed into its accumulator. What JAX got from donation, the port does
-    in place: the block's output buffer and the accumulators are allocated
-    once and overwritten; the next block's keys are made on the device;
-    the host reads the accumulators once, at the end of :meth:`run`.
+    summed into its accumulator. What JAX gets from donation, the port
+    does in place: the block's output buffer and the accumulators are
+    allocated once and overwritten (counted as ``donated_blocks`` in
+    ``obs.transfer``); the next block's keys are made on the device; the
+    host reads the accumulators once, at the end of :meth:`run`, through
+    the plan executor's counted fetch.
+
+    The body is a plan unit (``plan.Executor``): built ahead and warmed
+    once on zero keys at the chunk shape with ``aot=True`` (timed into
+    ``observer``'s ``dpcorr_compile_seconds``; a fused body launches its
+    kernel once there), a lazy unit otherwise. ``aot`` is off by default:
+    eager torch has nothing to compile, and the warm run is a block's
+    worth of extra work the JAX compile does not cost.
+
+    **Mesh placement** (``placement="mesh"``, over ``devices`` or
+    ``parallel.mesh.rep_devices``): ``block_reps`` must split evenly over
+    the devices. Each device makes the keys of its contiguous shard of
+    the block at their global addresses (``rng.rep_keys_slice``) and
+    runs them, in the local run's chunks (the same chunk grid, cut at
+    the shard's edges), into its own accumulator. Per-rep outputs
+    (:meth:`block_detail`) are bit-equal to the local placement whenever
+    the shard size is a multiple of ``chunk_size``; the sums are folded
+    on the host in ascending shard order in float64 at the fetch, equal
+    to the local sums on one device and within f32 rounding otherwise.
     """
 
     def __init__(self, rep_fn: Callable, out_len: int, *,
                  key: torch.Tensor, block_reps: int, chunk_size: int,
-                 device=None):
+                 device=None, placement="local", devices=None,
+                 counters=None, observer=None, aot: bool = False):
+        from dpcorr_torch import plan as plan_mod
+        from dpcorr_torch.obs import transfer as transfer_mod
+
         self.device = resolve_device(device)
         self.rep_fn = rep_fn
         self.out_len = int(out_len)
         self.block_reps = int(block_reps)
         self.chunk_size = int(chunk_size)
-        self._key = key.to(self.device)
-        self._acc = torch.zeros(self.out_len, dtype=torch.float32,
-                                device=self.device)
-        self._out = torch.empty(self.out_len, self.block_reps,
-                                dtype=torch.float32, device=self.device)
-        #: device-to-host reads made by run(): exactly one per call
+        self._counters = counters if counters is not None \
+            else transfer_mod.default_counters()
+        self._ex = plan_mod.Executor(
+            placement, devices=devices, device=self.device,
+            counters=self._counters, observer=observer)
+        self.placement = self._ex.placement
+        if self.placement.name == "local":
+            homes = [self.device]
+        elif self.placement.name == "mesh":
+            homes = self.placement.devices
+            if self.block_reps % len(homes):
+                raise ValueError(
+                    f"block_reps={self.block_reps} must split evenly over "
+                    f"the {len(homes)}-device mesh: every device keeps an "
+                    "equal shard of the block and its own accumulator")
+        else:
+            raise ValueError(
+                f"RepBlockPipeline supports 'local' and 'mesh' "
+                f"placements, got {self.placement.name!r}")
+        per = self.block_reps // len(homes)
+        self._shards = [_Shard(dev, s * per, per, key, self.out_len)
+                        for s, dev in enumerate(homes)]
+        sig = {"kernel": "rep_block", "placement": self.placement.name,
+               "devices": len(homes), "block_reps": self.block_reps,
+               "chunk_size": self.chunk_size, "out_len": self.out_len}
+        if aot:
+            warm = torch.zeros(min(self.chunk_size, per), 2,
+                               dtype=torch.int64, device=homes[0])
+            self._unit = self._ex.prepare(
+                ("rep_block", self.placement.name, len(homes),
+                 self.block_reps, self.chunk_size, self.out_len,
+                 id(rep_fn)), lambda: rep_fn, (warm,), signature=sig,
+                cache=False)
+        else:
+            self._unit = self._ex.lazy_unit(rep_fn, signature=sig)
+        #: device-to-host reads made by run(): exactly one per call (also
+        #: counted as ``fetches`` in the transfer counters)
         self.fetches = 0
 
-    def _block_keys(self, i: int) -> torch.Tensor:
+    def _block_keys(self, i: int, sh: _Shard) -> torch.Tensor:
+        """The keys of ``sh``'s replications of block ``i``, at their
+        addresses in the whole block's ``rep_keys`` stream."""
         with stage("rep_keys"):
-            return rng.rep_keys(rng.design_key(self._key, i),
-                                self.block_reps)
+            return rng.rep_keys_slice(rng.design_key(sh.key, i), sh.start,
+                                      sh.count)
 
-    def _fill(self, keys: torch.Tensor) -> None:
-        for s in range(0, self.block_reps, self.chunk_size):
-            outs = self.rep_fn(keys[s:s + self.chunk_size])
+    def _chunks(self, sh: _Shard):
+        """``(a, b)`` offsets in the shard of the local run's chunks
+        (multiples of ``chunk_size`` over the whole block) cut at the
+        shard's edges."""
+        lo, hi = sh.start, sh.start + sh.count
+        for s in range(lo - lo % self.chunk_size, hi, self.chunk_size):
+            yield max(s, lo) - lo, min(s + self.chunk_size, hi) - lo
+
+    def _fill(self, sh: _Shard, keys: torch.Tensor) -> None:
+        for a, b in self._chunks(sh):
+            outs = self._unit(keys[a:b])
             with stage("accumulate"):
-                for row, o in zip(self._out, outs, strict=True):
-                    row[s:s + o.shape[0]].copy_(o)
+                for row, o in zip(sh.out, outs, strict=True):
+                    row[a:a + o.shape[0]].copy_(o)
 
     def run(self, n_blocks: int, *, start_block: int = 0):
         """Run ``n_blocks`` chained blocks; returns ``(sums, n_reps)``
         with ``sums`` the tuple of accumulator totals as floats."""
-        self._acc.zero_()
-        keys = self._block_keys(start_block)
+        for sh in self._shards:
+            sh.acc.zero_()
+        keys = [self._block_keys(start_block, sh) for sh in self._shards]
         for i in range(start_block, start_block + int(n_blocks)):
-            self._fill(keys)
+            for sh, k in zip(self._shards, keys, strict=True):
+                self._fill(sh, k)
             with stage("accumulate"):
-                self._acc.add_(self._out.sum(dim=1))
-            keys = self._block_keys(i + 1)
-        sums = self._acc.cpu()  # the one host sync
+                for sh in self._shards:
+                    sh.acc.add_(sh.out.sum(dim=1))
+            self._counters.donated_blocks.inc()
+            keys = [self._block_keys(i + 1, sh) for sh in self._shards]
+        host = self._ex.fetch([sh.acc for sh in self._shards])
         self.fetches += 1
-        return (tuple(float(v) for v in sums),
-                int(n_blocks) * self.block_reps)
+        if len(host) == 1:
+            return (tuple(float(v) for v in host[0]),
+                    int(n_blocks) * self.block_reps)
+        sums = [0.0] * self.out_len
+        for h in host:  # ascending shard order, float64 on the host
+            for j in range(self.out_len):
+                sums[j] += float(h[j])
+        return tuple(sums), int(n_blocks) * self.block_reps
 
     def block_detail(self, i: int = 0) -> tuple:
-        """Un-reduced per-rep outputs of block ``i``."""
-        return chunked(self.rep_fn, self._block_keys(i), self.chunk_size)
+        """Un-reduced per-rep outputs of block ``i``, in the run's chunks;
+        under a mesh each shard runs on its device and the shards are
+        joined in order on the first one."""
+        home = self._shards[0].device
+        parts = []
+        for sh in self._shards:
+            keys = self._block_keys(i, sh)
+            for a, b in self._chunks(sh):
+                parts.append([o.to(home) for o in self._unit(keys[a:b])])
+        return tuple(torch.cat(cols) for cols in zip(*parts, strict=True))

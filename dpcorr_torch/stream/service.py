@@ -77,6 +77,7 @@ from dpcorr_torch.stream.windows import (
     WindowSpec,
     as_rows,
 )
+from dpcorr_torch.utils import compile as compile_mod
 from dpcorr_torch.utils.device import resolve_device
 from dpcorr_torch.utils.rng import master_key
 
@@ -119,13 +120,19 @@ class Releaser:
     function's whole body."""
 
     def __init__(self, seed: int, families, eps1: float, eps2: float,
-                 normalise: bool, device=None):
+                 normalise: bool, placement=None, device=None):
         self.device = resolve_device(device)
         self.master = master_key(seed)
         self.families = tuple(families)
         self.eps1 = float(eps1)
         self.eps2 = float(eps2)
         self.normalise = bool(normalise)
+        # a dpcorr_torch.plan placement (or None = monolithic): finalize
+        # routes through sketch.placement_shards, so a MeshPlacement
+        # splits each pass's chunk set over its devices and tree-merges
+        # the shard sketches, byte-equal to the monolith (no arithmetic
+        # in the merge)
+        self.placement = placement
 
     def release(self, window: Window) -> dict:
         rows = window.rows
@@ -135,7 +142,8 @@ class Releaser:
             params = sketch.ReleaseParams(
                 family, self.eps1, self.eps2, normalise=self.normalise)
             out[family] = sketch.release_window(
-                rows, params, wkey, device=self.device)
+                rows, params, wkey, placement=self.placement,
+                device=self.device)
         return {"start": window.start, "end": window.end,
                 "rows": int(len(window)), "releases": out}
 
@@ -156,6 +164,7 @@ class StreamService:
                  max_pending_rows: int = 1 << 20,
                  fsync: bool = True,
                  registry: Registry | None = None,
+                 placement=None,
                  clock=time.time,
                  device=None):
         self.device = resolve_device(device)
@@ -196,9 +205,17 @@ class StreamService:
                 fsync=fsync, audit=self.audit)
         self.ledger = CompositeLedger(base, directory, user=user,
                                       global_budget=global_budget)
+        if isinstance(placement, str):
+            from dpcorr_torch.plan import resolve_placement
+
+            placement = resolve_placement(placement, device=self.device)
         self.releaser = Releaser(seed, self.families, self.eps1,
                                  self.eps2, self.normalise,
-                                 device=self.device)
+                                 placement=placement, device=self.device)
+        # process-wide: the service made last owns the stream's build
+        # series (stream.sketch)
+        self._cobs = compile_mod.CompileObserver(registry=self.registry)
+        sketch.set_compile_observer(self._cobs)
 
         self._batches = self.registry.counter(
             "dpcorr_stream_batches_total",

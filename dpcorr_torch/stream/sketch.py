@@ -31,15 +31,29 @@ ops would cost about a hundred launches. The finishers' interval
 constructors derive their own substreams on the device, as the
 estimators do.
 
-The JAX module's compile layer (``_get_kernel``,
-``set_compile_observer``) has no counterpart yet; the chunk functions
-are plain torch calls.
+The four chunk functions are built once per (kind, statics) through the
+compile layer (``utils.compile``), as the JAX module's are: a
+:class:`SingleFlight` dedups concurrent first builds and each build is
+timed into the process :class:`CompileObserver` set by
+:func:`set_compile_observer`, so stream builds land in the same
+``dpcorr_compile_*`` series as the serving cache's. A build here only
+makes the closure (eager torch compiles nothing), so the series counts
+builds and their causes; their seconds are microseconds. The built
+functions and the observer are process-wide: the ``StreamService`` made
+last in a process owns the series, and a build made for an earlier
+service is not recorded again for a later one. Every host-to-device
+copy (a chunk's rows, a key) goes through ``plan.placement.put`` on a
+device resolved once per entry point and is tallied per thread; every
+device read is one counted fetch per pass, which adds the pass's
+tallied copies to the transfer counters (``obs.transfer``), so they
+report a release's copies and host reads without a lock per copy.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -61,6 +75,14 @@ from dpcorr_torch.models.estimators.streaming import (
 from dpcorr_torch.ops.lambdas import lambda_n
 from dpcorr_torch.ops.noise import clip_sym, laplace
 from dpcorr_torch.ops.standardize import priv_moments_from_sums
+from dpcorr_torch.obs import transfer as transfer_mod
+from dpcorr_torch.plan.placement import (
+    CopyTally,
+    canonical_device,
+    put,
+    put_ints,
+)
+from dpcorr_torch.utils import compile as compile_mod
 from dpcorr_torch.utils import rng
 from dpcorr_torch.utils.device import f32_on, resolve_device
 
@@ -88,8 +110,43 @@ def _sub(words: tuple[int, int], name: str) -> tuple[int, int]:
     return rng.fold_in_words(words, rng.stream_index(name))
 
 
-def _key_on(words: tuple[int, int], device) -> torch.Tensor:
-    return torch.tensor(words, dtype=torch.int64, device=device)
+_HOST = torch.device("cpu")
+_LOCAL = threading.local()
+
+
+def _device(device) -> torch.device:
+    """The release's device, resolved once per entry point to the
+    indexed form ``plan.placement.put`` compares against, so the chunk
+    and key copies below pay no device lookup each."""
+    return canonical_device(resolve_device(device))
+
+
+def _tally() -> CopyTally:
+    """This thread's copies since its last :func:`_fetch`."""
+    tally = getattr(_LOCAL, "tally", None)
+    if tally is None:
+        tally = _LOCAL.tally = CopyTally()
+    return tally
+
+
+def _put(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device`` (from :func:`_device`), tallied."""
+    return put(t, device, _tally())
+
+
+def _fetch(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host: the pass's one counted fetch, which also adds
+    the pass's tallied copies to the transfer counters
+    (``obs.transfer``)."""
+    host = t.cpu()
+    tc = transfer_mod.default_counters()
+    _tally().flush(tc)
+    tc.fetches.inc()
+    return host
+
+
+def _key_on(words: tuple[int, int], device: torch.device) -> torch.Tensor:
+    return put_ints(words, device, _tally())
 
 
 def window_key(master, window_id: str) -> torch.Tensor:
@@ -100,7 +157,7 @@ def window_key(master, window_id: str) -> torch.Tensor:
     (master, window id) alone — the replay/crash-exactness contract."""
     if not window_id:
         raise ValueError("window_id must be non-empty")
-    return _key_on(_sub(_words(master), f"stream/{window_id}"), "cpu")
+    return _key_on(_sub(_words(master), f"stream/{window_id}"), _HOST)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -315,6 +372,72 @@ def _int_subg_chunk(xy, c: int, n: int, n_chunk: int, noise_key,
     return torch.stack([uc.sum(), (uc * uc).sum()])
 
 
+# ---------------------------------------------------- chunk kernels ----
+# Built once per (kind, statics) through the compile layer; a built
+# kernel closes over its statics only, never over a window's values.
+_KERNELS: dict = {}
+_FLIGHT = compile_mod.SingleFlight()
+_OBSERVER: compile_mod.CompileObserver | None = None
+
+
+def set_compile_observer(obs) -> None:
+    """Route subsequent chunk-kernel builds through a service's observer
+    (its /metrics registry). Process-wide, like the built functions: the
+    last caller owns the series, and functions already built are not
+    recorded again."""
+    global _OBSERVER
+    _OBSERVER = obs
+
+
+def _get_kernel(kind: str, statics: tuple, build):
+    """Build once per (kind, statics) through :class:`SingleFlight` and
+    ``aot_compile`` (timed, no warm run)."""
+    key = (kind,) + statics
+    fn = _KERNELS.get(key)
+    if fn is not None:
+        return fn
+
+    def _build():
+        fn = compile_mod.aot_compile(
+            build, signature={"kernel": f"stream.{kind}",
+                              "statics": repr(statics)},
+            observer=_OBSERVER)
+        _KERNELS[key] = fn
+        return fn
+
+    fn, _leader = _FLIGHT.do(key, _build)
+    return fn
+
+
+def _pass_a_kernel(n_chunk: int):
+    return _get_kernel("pass_a", (n_chunk,), lambda: (
+        lambda xy, c, n, l_raw: _pass_a_chunk(xy, c, n, n_chunk, l_raw)))
+
+
+def _ni_kernel(mode: str, n_chunk: int, m: int):
+    kc = n_chunk // m
+
+    def fn(xy, c, k, lap_x, lap_y, mo, lam1, lam2):
+        tx, ty = _ni_transforms(mode, mo, lam1, lam2)
+        return torch.stack(_ni_chunk_stats(xy, c, tx, ty, m, kc, k, lap_x,
+                                           lap_y))
+
+    return _get_kernel(f"ni.{mode}", (n_chunk, m), lambda: fn)
+
+
+def _int_sign_kernel(mode: str, n_chunk: int):
+    return _get_kernel(f"int_sign.{mode}", (n_chunk,), lambda: (
+        lambda xy, c, n, flip_key, p_keep, mo: _int_sign_chunk(
+            xy, c, n, n_chunk, flip_key, p_keep, mo)))
+
+
+def _int_subg_kernel(sender_is_x: bool, n_chunk: int):
+    return _get_kernel("int_subg", (sender_is_x, n_chunk), lambda: (
+        lambda xy, c, n, noise_key, lam_s, lam_r, eps_s: _int_subg_chunk(
+            xy, c, n, n_chunk, noise_key, sender_is_x, lam_s, lam_r,
+            eps_s)))
+
+
 # -------------------------------------------------- window pipeline ----
 def _padded(xy: np.ndarray, grid: ChunkGrid) -> np.ndarray:
     pad = grid.n_chunks * grid.n_chunk - grid.n
@@ -326,8 +449,8 @@ def _padded(xy: np.ndarray, grid: ChunkGrid) -> np.ndarray:
 
 def _chunk(xy_pad: np.ndarray, c: int, grid: ChunkGrid,
            device) -> torch.Tensor:
-    return torch.from_numpy(
-        xy_pad[c * grid.n_chunk:(c + 1) * grid.n_chunk]).to(device)
+    return _put(torch.from_numpy(
+        xy_pad[c * grid.n_chunk:(c + 1) * grid.n_chunk]), device)
 
 
 def _meta(params: ReleaseParams, grid: ChunkGrid, pass_name: str,
@@ -345,7 +468,7 @@ def _host_stats(ids, parts: list) -> dict[int, tuple]:
     """Per-chunk device stats → host tuples of f64, one copy per pass."""
     if not parts:
         return {}
-    host = torch.stack(parts).cpu().to(torch.float64).numpy()
+    host = _fetch(torch.stack(parts)).to(torch.float64).numpy()
     return {c: tuple(tuple(float(v) for v in np.atleast_1d(row))
                      for row in host[i])
             for i, c in enumerate(ids)}
@@ -359,7 +482,7 @@ def moments_for_window(pass_a: SketchState, params: ReleaseParams,
     ``<ns>/std_y``), with 1/σ computed in f32 on ``device`` once per
     window. Every shard computing pass B must be handed these exact
     values (they ride the pass-B meta)."""
-    device = resolve_device(device)
+    device = _device(device)
     totals = _fold(pass_a, grid)
     s1, s2 = totals
     l_clip = math.sqrt(2.0 * math.log(grid.n))
@@ -372,7 +495,7 @@ def moments_for_window(pass_a: SketchState, params: ReleaseParams,
             f32_on(s1[col], device), f32_on(s2[col], device), grid.n,
             eps, l_clip)
         vals += [mu, 1.0 / torch.sqrt(var)]
-    mu_x, inv_x, mu_y, inv_y = torch.stack(vals).cpu().tolist()
+    mu_x, inv_x, mu_y, inv_y = _fetch(torch.stack(vals)).tolist()
     return {"mu_x": mu_x, "inv_x": inv_x, "mu_y": mu_y, "inv_y": inv_y,
             "l_clip": l_clip}
 
@@ -392,7 +515,7 @@ def sketch_window(xy, params: ReleaseParams, wkey,
     normalise families) or ``"estimate"``; the estimate pass of a
     normalise family requires ``moments`` from
     :func:`moments_for_window`."""
-    device = resolve_device(device)
+    device = _device(device)
     xy = np.ascontiguousarray(np.asarray(xy, dtype=np.float32))
     if xy.ndim != 2 or xy.shape[1] != 2:
         raise ValueError(f"xy must be (n, 2), got {xy.shape}")
@@ -416,8 +539,9 @@ def sketch_window(xy, params: ReleaseParams, wkey,
     xy_pad = _padded(xy, grid)
     if pass_name == "pass_a":
         l_raw = f32_on(math.sqrt(2.0 * math.log(grid.n)), device)
-        parts = [_pass_a_chunk(_chunk(xy_pad, c, grid, device), c, grid.n,
-                               grid.n_chunk, l_raw) for c in ids]
+        kern = _pass_a_kernel(grid.n_chunk)
+        parts = [kern(_chunk(xy_pad, c, grid, device), c, grid.n, l_raw)
+                 for c in ids]
     else:
         parts = _estimate_parts(xy_pad, params, grid, _words(wkey), ids,
                                 moments, device)
@@ -458,27 +582,28 @@ def _estimate_parts(xy_pad, params: ReleaseParams, grid: ChunkGrid,
             _key_on(_sub(words, f"{fam}/lap_x"), device),
             _key_on(_sub(words, f"{fam}/lap_y"), device),
             grid.k, scale_x, scale_y, grid.n_chunks * grid.kc)
-        tx, ty = _ni_transforms(mode, mo, lam1, lam2)
-        return [torch.stack(_ni_chunk_stats(chunk(c), c, tx, ty, grid.m,
-                                            grid.kc, grid.k, lap_x, lap_y))
+        kern = _ni_kernel(mode, grid.n_chunk, grid.m)
+        return [kern(chunk(c), c, grid.k, lap_x, lap_y, mo, lam1, lam2)
                 for c in ids]
     if fam == "int_sign":
         eps_s = max(params.eps1, params.eps2)
         e_s = math.exp(eps_s)
         p_keep = e_s / (e_s + 1.0)
         flip_base = _sub(_sub(words, "int_sign/est"), "int_sign/flips")
-        return [_int_sign_chunk(
-            chunk(c), c, grid.n, grid.n_chunk,
-            _key_on(rng.fold_in_words(flip_base, c), device), p_keep,
-            mo if params.normalise else None) for c in ids]
+        kern = _int_sign_kernel(
+            "sign_norm" if params.normalise else "sign_raw", grid.n_chunk)
+        return [kern(chunk(c), c, grid.n,
+                     _key_on(rng.fold_in_words(flip_base, c), device),
+                     p_keep, mo if params.normalise else None)
+                for c in ids]
     sender_is_x, eps_s, _eps_r, lam_s, lam_r = _int_subg_roles(
         grid.n, params.eps1, params.eps2, params.eta1, params.eta2, device)
     noise_base = _sub(words, "int_subg/lap_sender")
     eps_s = f32_on(eps_s, device)
-    return [_int_subg_chunk(
-        chunk(c), c, grid.n, grid.n_chunk,
-        _key_on(rng.fold_in_words(noise_base, c), device),
-        bool(sender_is_x), lam_s, lam_r, eps_s) for c in ids]
+    kern = _int_subg_kernel(bool(sender_is_x), grid.n_chunk)
+    return [kern(chunk(c), c, grid.n,
+                 _key_on(rng.fold_in_words(noise_base, c), device),
+                 lam_s, lam_r, eps_s) for c in ids]
 
 
 # ---------------------------------------------------------- release ----
@@ -490,7 +615,7 @@ def release_from_sketch(sketch: SketchState, params: ReleaseParams,
     window key. Returns the strict-JSON release record;
     ``json.dumps(..., sort_keys=True)`` of it is the byte-identity
     surface the crash gates compare."""
-    device = resolve_device(device)
+    device = _device(device)
     grid = ChunkGrid(params.family, int(sketch.meta["n"]),
                      int(sketch.meta["n_chunk"]), -1,
                      int(sketch.meta["m"]), int(sketch.meta["k"]))
@@ -507,7 +632,7 @@ def release_from_sketch(sketch: SketchState, params: ReleaseParams,
         res = _finish_int_sign(totals, params, grid, words, device)
     else:
         res = _finish_int_subg(totals, params, grid, words, device)
-    rho, lo, hi = torch.stack(list(res)).cpu().tolist()
+    rho, lo, hi = _fetch(torch.stack(list(res))).tolist()
     return {"family": fam, "n": grid.n, "m": grid.m, "k": grid.k,
             "eps1": params.eps1, "eps2": params.eps2,
             "normalise": params.normalise, "alpha": params.alpha,
@@ -586,7 +711,7 @@ def release_window(xy, params: ReleaseParams, wkey,
     release is bitwise identical for every partition. ``placement``
     (anything with a ``device_count``; mutually exclusive with explicit
     ``shards``) derives the partition through :func:`placement_shards`."""
-    device = resolve_device(device)
+    device = _device(device)
     xy = np.ascontiguousarray(np.asarray(xy, dtype=np.float32))
     grid = grid_for(params, xy.shape[0])
     if shards is None:

@@ -86,13 +86,25 @@ def master_key(seed: int = MASTER_SEED, device=None) -> torch.Tensor:
                         device=device)
 
 
+def _check_u32(data: int) -> int:
+    """A Python int as ``jax.random.fold_in`` takes it: in [0, 2³²), or
+    ``OverflowError`` with JAX's message (it does not wrap)."""
+    if not 0 <= data <= _M32:
+        raise OverflowError(
+            f"Python integer {data} out of bounds for uint32")
+    return data
+
+
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: threefry(key, (0, data)). ``data`` is an
     int or an integer tensor that broadcasts against the key's leading
-    axes; the result has the broadcast leading shape."""
+    axes; the result has the broadcast leading shape. A Python int
+    outside [0, 2³²) raises ``OverflowError`` as JAX does; an integer
+    tensor is masked to its low 32 bits."""
     key = _as_key(key)
     if isinstance(data, int):  # made on the device: no host-to-device copy
-        data = torch.full((), data, dtype=torch.int64, device=key.device)
+        data = torch.full((), _check_u32(data), dtype=torch.int64,
+                          device=key.device)
     data = data.to(key.device, torch.int64) & _M32
     y0, y1 = threefry2x32(key, torch.zeros_like(data), data)
     return torch.stack([y0, y1], dim=-1)
@@ -102,9 +114,10 @@ def fold_in_words(words: tuple[int, int], data: int) -> tuple[int, int]:
     """:func:`fold_in` on a key held as two host ints, for key chains
     short enough that device launches would cost more than the
     arithmetic (the serving layer's per-request keys). Bit-equal to
-    :func:`fold_in` on the same words."""
+    :func:`fold_in` on the same words, and raises as it does for an int
+    outside [0, 2³²)."""
     return _threefry_words(int(words[0]) & _M32, int(words[1]) & _M32, 0,
-                           int(data) & _M32)
+                           _check_u32(int(data)))
 
 
 def design_key(key: torch.Tensor, design_index) -> torch.Tensor:

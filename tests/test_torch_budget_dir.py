@@ -820,3 +820,34 @@ def test_jax_recovers_a_port_directory_crashed_at_each_point(tmp_path,
     j.charge("u", 0.25, charge_id="victim")
     assert j.lifetime("u") == pytest.approx(0.25)
     j.close()
+
+
+def test_replicas_opening_one_directory_at_once_all_boot(tmp_path):
+    """A fleet's replicas open one shared directory together. Each one's
+    boot sweep of stale ``meta.json.tmp.*`` files must not unlink the
+    tmp file another is about to rename (the replica then died at
+    boot): 6 forked processes open a fresh directory at once, 12 times,
+    and every one of them boots."""
+    import multiprocessing as mp
+
+    from dpcorr_torch.serve.fleet import LeaseManager
+
+    ctx = mp.get_context("fork")
+
+    def boot(root, name, barrier):
+        barrier.wait()
+        BudgetDirectory(os.path.join(root, "dir"), shards=4, fsync=False,
+                        lease=LeaseManager(os.path.join(root, "leases"),
+                                           name))
+
+    for r in range(12):
+        root = str(tmp_path / f"round-{r}")
+        os.makedirs(root)
+        barrier = ctx.Barrier(6)
+        procs = [ctx.Process(target=boot, args=(root, f"rep-{i}", barrier))
+                 for i in range(6)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(60)
+        assert [p.exitcode for p in procs] == [0] * 6, f"round {r}"

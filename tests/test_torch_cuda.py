@@ -657,3 +657,97 @@ def test_fleet_of_lease_mode_servers_bit_equal_on_the_card(cuda, tmp_path):
     assert {u: b["l"] for u, b in read_user_balances(
         str(tmp_path / "budget")).items()} == {f"u{i}": 2 * per
                                                for i in range(6)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["unfused", "fused"])
+def test_mesh_pipeline_bit_equal_to_local_on_the_card(cuda, body):
+    """The plan layer's mesh placement over the one card runs the local
+    run's chunks: per-rep outputs and sums bit-equal, one fetch each, K1
+    launched blocks x chunks times on the fused body."""
+    fn = (sim.fused_ni_rep_fn if body == "fused" else sim.ni_rep_fn)(
+        10_000, 0.5, 1.0, 1.0)
+    key = rng.master_key(device=cuda)
+    runs = {}
+    for placement in ("local", "mesh"):
+        pipe = sim.RepBlockPipeline(fn, 3, key=key, block_reps=4096,
+                                    chunk_size=2048, placement=placement)
+        fused_ni.KERNEL_LAUNCHES["fused_ni"] = 0
+        sums, _ = pipe.run(2)
+        launches = fused_ni.KERNEL_LAUNCHES["fused_ni"]
+        assert launches == (4 if body == "fused" else 0)
+        assert pipe.fetches == 1
+        runs[placement] = (sums, [t.cpu() for t in pipe.block_detail(1)])
+    assert runs["local"][0] == runs["mesh"][0]
+    for a, b in zip(runs["local"][1], runs["mesh"][1]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["ni_sign", "int_sign", "ni_subg",
+                                    "int_subg"])
+def test_kernel_cache_aot_bit_equal_to_lazy_and_direct(cuda, family):
+    from dpcorr_torch.models.estimators.registry import serving_entry
+    from dpcorr_torch.serve import warmup
+    from dpcorr_torch.serve.kernels import KernelCache
+    from dpcorr_torch.serve.request import KernelKey
+
+    kkey = KernelKey(family, 10_000, 1.0, 0.5, 0.05, True)
+    z = np.random.default_rng(4).standard_normal((2, 5, 10_000)).astype(
+        np.float32)
+    keys = rng.rep_keys(rng.master_key(4), 5).numpy()
+    on = KernelCache(aot=True)
+    on.get(kkey, 8, example_args=warmup.example_args(kkey, 8, "exact"))
+    got_on = on.run_batch(kkey, keys, z[0], z[1])
+    got_off = KernelCache(aot=False).run_batch(kkey, keys, z[0], z[1])
+    single = serving_entry(family, 1.0, 0.5)
+    direct = torch.stack([torch.stack(single(
+        torch.from_numpy(keys[i]).to(cuda), torch.from_numpy(z[0, i]).to(cuda),
+        torch.from_numpy(z[1, i]).to(cuda))) for i in range(5)]).cpu()
+    for j in range(3):
+        assert got_on[j].tobytes() == got_off[j].tobytes()
+        assert got_on[j].tobytes() == direct[:, j].numpy().tobytes()
+
+
+@pytest.mark.cuda
+def test_fused_block_graph_replay_bit_equal(cuda):
+    """One fused block (key-tree plus K1) captured into a CUDA graph:
+    every replay gives the eager call's bits (chip_smoke.py phase 16f)."""
+    body = sim.fused_ni_rep_fn(10_000, 0.5, 1.0, 1.0)
+    key = rng.master_key(device=cuda)
+
+    def block():
+        return body(rng.rep_keys(rng.design_key(key, 0), 4096))
+
+    eager = [t.clone() for t in block()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        block()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = block()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(static, eager, strict=True):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_preshard_counts_copies_and_mismatches_on_the_card(cuda):
+    from dpcorr_torch import plan
+    from dpcorr_torch.obs import transfer
+    from dpcorr_torch.obs.metrics import Registry
+
+    ctr = transfer.TransferCounters(Registry())
+    x = torch.arange(8, dtype=torch.float32)
+    (on_card,) = plan.preshard((x,), cuda, ctr)
+    assert on_card.device.type == "cuda" and torch.equal(on_card.cpu(), x)
+    plan.preshard((on_card,), cuda, ctr)  # already there: not counted
+    (back,) = plan.preshard((on_card,), "cpu", ctr)
+    assert torch.equal(back, x)
+    snap = ctr.snapshot()
+    assert (snap["device_put"], snap["device_put_bytes"],
+            snap["reshard_mismatch"]) == (2, 64, 1)

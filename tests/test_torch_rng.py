@@ -184,3 +184,35 @@ def test_choice_over_a_key_batch_bit_equal():
         rng.choice(pk, 0, (3,))
     with pytest.raises(ValueError, match="int32"):
         rng.randint(pk, (3,), 0, 2**31)
+
+
+@pytest.mark.parametrize("data", [2**32 + 5, -1, 2**40])
+def test_fold_in_raises_for_ints_outside_uint32_as_jax(data):
+    """A Python int outside [0, 2³²) is refused by both packages (the
+    port used to mask it, so 2³² + 5 folded in as 5)."""
+    with pytest.raises(OverflowError, match="out of bounds for uint32"):
+        jax.random.fold_in(jrng.master_key(7), data)
+    with pytest.raises(OverflowError, match="out of bounds for uint32"):
+        rng.fold_in(rng.master_key(7), data)
+    with pytest.raises(OverflowError, match="out of bounds for uint32"):
+        rng.fold_in_words((0, 7), data)
+
+
+@pytest.mark.parametrize("data", [0, 5, 2**31, 2**32 - 1])
+def test_fold_in_edges_of_uint32_bit_equal(data):
+    want = _words(jax.random.fold_in(jrng.master_key(7), data))
+    np.testing.assert_array_equal(rng.fold_in(rng.master_key(7), data).numpy(),
+                                  want)
+    assert rng.fold_in_words((0, 7), data) == tuple(int(w) for w in want)
+
+
+def test_fold_in_integer_tensors_keep_their_mask():
+    """Integer tensors are masked to their low 32 bits, as JAX wraps an
+    integer array: index 2³² + 5 in a tensor folds in as 5."""
+    key = rng.master_key(7)
+    wide = rng.fold_in(key, torch.tensor([2**32 + 5, -1], dtype=torch.int64))
+    want = _words(jax.random.fold_in(jrng.master_key(7),
+                                     np.array([5, 2**32 - 1], np.uint32)[0]))
+    np.testing.assert_array_equal(wide[0].numpy(), want)
+    np.testing.assert_array_equal(
+        wide[1].numpy(), rng.fold_in(key, 2**32 - 1).numpy())

@@ -1417,3 +1417,49 @@ def test_global_budget_alone_caps_the_server():
         assert "budget_dir" not in srv.stats_snapshot()
     finally:
         srv.close()
+
+
+@pytest.mark.parametrize("seed", [2**32 + 5, -1])
+def test_out_of_range_pinned_seed_refused_before_the_charge(seed, tmp_path):
+    """A pinned seed outside [0, 2³²) cannot be folded into the key-tree:
+    both packages refuse the request before the ledger charge, in process
+    (``OverflowError``) and over HTTP (the same status), with the ledger
+    and the audit trail unchanged and seed 5's noise never served."""
+    audit = str(tmp_path / "audit.jsonl")
+    srv = _server(audit=audit)
+    jsrv = jserve.DpcorrServer(budget=1e6, max_delay_s=0.001, shard="off")
+    req = _mk_req(seed=seed)
+    try:
+        with pytest.raises(OverflowError):
+            srv.submit(req)
+        with pytest.raises(OverflowError):
+            jsrv.submit(_jreq(req))
+        assert srv.ledger.spent("party-x") == 0.0
+        assert srv.ledger.spent("party-y") == 0.0
+        assert read_events(audit) == []
+        body = json.dumps({"family": "ni_sign", "x": req.x.tolist(),
+                           "y": req.y.tolist(), "eps1": 1.0, "eps2": 0.5,
+                           "seed": seed}).encode()
+        codes = []
+        for server in (srv, jsrv):
+            make = make_http_server if server is srv else \
+                jserve.make_http_server
+            httpd = make(server, host="127.0.0.1", port=0)
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+            try:
+                urllib.request.urlopen(urllib.request.Request(
+                    f"http://127.0.0.1:{httpd.server_address[1]}/estimate",
+                    data=body, headers={"Content-Type": "application/json"}))
+            except urllib.error.HTTPError as e:
+                codes.append((e.code, json.load(e)["error"].split(":")[0]))
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+        assert codes[0] == codes[1] == (500, "OverflowError")
+        assert srv.ledger.snapshot() == jsrv.ledger.snapshot()
+        assert srv.ledger.spent("party-x") == 0.0
+        assert read_events(audit) == []
+        assert srv.stats.snapshot()["requests_total"] == 0
+    finally:
+        srv.close()
+        jsrv.close()
