@@ -248,6 +248,39 @@ north-star workload (n = 10⁴ Gaussian pair → NI sign-batch estimate + CI →
         (``torch.profiler``); replays counted here, since
         ``KERNEL_LAUNCHES`` counts in Python.
 
+17. the measuring layer (``dpcorr_torch.utils.{geometry,roofline,
+    profiling,doctor}``, ``dpcorr_torch.obs.{prof,devicemon}``), each
+    part reading the K1 launch count around itself:
+    (a) ``python -m dpcorr_torch doctor --probe --json``: verdict ok,
+        the probe names the card, ``nvcc`` with ``sm_90a``, K1's library
+        current in ``_build/``, no strays;
+    (b) chunk widths on the main path at n = 10⁴: the unfused
+        ``run_sim_one`` (B = 4096; width 2 on its first 256 replications)
+        at widths 2, 64 and each ladder chunk, and the fused pipeline's
+        ``block_detail`` at each ladder chunk, every field against the
+        widest: bit-equal or not and the largest difference;
+    (c) ``autotune`` of the fused (K1) and unfused main-path pipelines
+        and of ``grid-sign`` at n = 1000 into a work-directory cache
+        (``DPCORR_GEOMETRY_CACHE``): winners with probe reps/s; a second
+        call from the cache with no probe; ``obs geometry --json`` lists
+        the three; the unfused v1 grid with ``geometry="auto"`` takes the
+        tuned chunk at n = 1000 and equals 9a's unfused run (bit-equal
+        under one stamp when (b) found the widths bit-equal);
+    (d) the v1 grid unfused, then fused, with ``precompile`` off, then
+        on: bit-equal, ``precompiled`` on no bucket (the knob is inert
+        in the port), the wall time of each arm;
+    (e) the 2²⁰-rep fused pipeline without a ``BlockProfiler``, with one
+        at ``max_syncs=64`` (cadence 1) and with one at ``max_syncs=8``
+        (cadence 8), four turns each: sums bit-equal to phase 5's, one
+        fetch a run, syncs within each profiler's cap, the artifacts
+        read back; seconds of the three (reported only: the card's
+        call-to-call spread is wider than a 3% gate);
+    (f) ``roofline.summarize`` of (e)'s reps/s against the H100's peaks;
+        K1's bound from ``utils.roofline`` equal to phase 7's; the
+        device monitor's watermarks (in use ≤ peak ≤ limit = the card's
+        memory); a ``profiling.trace`` of one fused block whose CUDA
+        events name K1's kernel, with its ``profiler.trace`` span.
+
 Every failure raises. The last line is the device record; before it come
 the per-kernel JSON record and the card line. Run from the repository
 root:
@@ -293,19 +326,6 @@ NOISE_IN_SWEEP = [
     (28_000, (1.0, 1.0), False), (25_000, (1.0, 1.0), True),
     (28_000, (0.5, 0.25), False), (28_000, (0.25, 0.25), False),
 ]
-
-# H100 SXM (NVIDIA data sheet, 700 W): memory rate, SMs, and the boost
-# clock behind its 67 TFLOP/s f32 (132 SMs x 128 FMA x 2 x 1.98 GHz).
-HBM_BYTES_PER_S = 3.35e12
-SMS = 132
-CLOCK_HZ = 1.98e9
-# Results per SM per clock on compute capability 9.0 (CUDA C++
-# Programming Guide, throughput of arithmetic instructions): f32 add,
-# multiply and FMA; 32-bit integer add, logic, shift, compare, min/max and
-# multiply; conversions and special functions. Four warp-instructions
-# issue per clock.
-PIPE_RATES = {"f32": 128, "int32": 64, "sfu": 16}
-ISSUE_RATE = 4 * 32
 
 #: the JAX package's committed coverage at B ≈ 10⁶ for the sub-Gaussian
 #: acceptance points (dpcorr/acceptance.py:109-130), copied here so the
@@ -426,69 +446,6 @@ SIGN_ACCEPTANCE = {
     "sign_low_eps": {"NI": 0.9485453944052419, "INT": 0.9497326266381049},
     "sign_laplace": {"NI": 0.0, "INT": 1.0},
 }
-
-
-def fused_pipe_ops(n: int, eps, compute_int: bool,
-                   philox: bool = True) -> dict:
-    """Operations one replication of the fused function needs, by pipe
-    (Box–Muller, normalise on). Work, not what a kernel issues: one
-    operation per arithmetic, logic or compare operator of the function's
-    definition, and one special-function operation per logf, sqrtf,
-    sinf, cosf, log1pf, division or int-to-float conversion (the least
-    any implementation of a precise one needs). A Philox4x32-10 call
-    gives 4 words in 10 rounds of two 32×32→64 multiplies and two
-    three-input xors (the round keys are made once per replication); a
-    word becomes a uniform by a shift, an or and an f32 subtract. External
-    mode (``philox=False``) reads its uniforms instead."""
-    from dpcorr_torch.ops.fused_ni import layout
-
-    m, _, k, _, _ = layout(n, *eps)
-    ops = {"f32": 0.0, "int32": 0.0, "sfu": 0.0}
-
-    def add(times, f32=0.0, int32=0.0, sfu=0.0):
-        ops["f32"] += times * f32
-        ops["int32"] += times * int32
-        ops["sfu"] += times * sfu
-
-    def draw(times, words):
-        if philox:
-            add(times, int32=words / 4 * 10 * 4 + 2 * words, f32=words)
-
-    def laplace(times):  # u - 1/2, -2|c|, log1p, sign, product
-        add(times, f32=3, sfu=1, int32=1)
-
-    # per observation: u1, u2 (and the flip uniform), Box–Muller (-2 log,
-    # 2 pi u, r cos, r sin; log, sqrt, sin, cos), Cholesky, clip, sums
-    draw(n, 3 if compute_int else 2)
-    add(n, f32=4 + 4 + 2, sfu=4, int32=4)
-    # per batch element: two sign tests and two count adds
-    add(k * m, int32=4)
-    if compute_int:  # flip test, two sign tests, two products, one add
-        add(n, int32=6)
-    # per batch: ux, uy, two Laplace draws, X~ and Y~ (conversion,
-    # division, FMA each), T = m X~ Y~, and the sums of T and T^2
-    draw(k, 2)
-    laplace(2 * k)
-    add(k, sfu=4, f32=2 + 2 + 2)
-    # per replication: centering and receiver draws, the DP means
-    scalars = 5 if compute_int else 2
-    if philox:
-        add(1, int32=(2 if compute_int else 1) * 40 + 2 * scalars,
-            f32=scalars)
-    laplace(scalars)
-    add(4 if compute_int else 2, sfu=2, f32=3)
-    return ops
-
-
-def least_time_ms(ops: dict, reps: int, bytes_: int) -> dict:
-    """Milliseconds each pipe, the issue slots and device memory need for
-    ``reps`` replications, at the rates above."""
-    clocks = SMS * CLOCK_HZ
-    times = {pipe: 1e3 * reps * ops[pipe] / (rate * clocks)
-             for pipe, rate in PIPE_RATES.items()}
-    times["issue"] = 1e3 * reps * sum(ops.values()) / (ISSUE_RATE * clocks)
-    times["bytes"] = 1e3 * bytes_ / HBM_BYTES_PER_S
-    return times
 
 
 def ptxas_report(log: str) -> dict:
@@ -843,7 +800,7 @@ def v1_grid_arms(card: str) -> dict:
         if d_cov > 0.01 or d_len > 0.02:
             raise RuntimeError(f"fused and unfused v1 grids differ on {m}: "
                                f"coverage {d_cov}, ci_len {d_len}")
-    return {"arms": arms, "fused": fused_res}
+    return {"arms": arms, "fused": fused_res, "off": off_res}
 
 
 def grid_bucket_times(card: str) -> dict:
@@ -857,6 +814,7 @@ def grid_bucket_times(card: str) -> dict:
     from dpcorr_torch.ops import fused_ni
     from dpcorr_torch.utils import rng
     from dpcorr_torch.utils.device import time_cuda
+    from dpcorr_torch.utils.roofline import fused_pipe_ops, least_time_ms
 
     gc = GridConfig()
     points = gc.design_points()
@@ -3634,6 +3592,418 @@ def plan_phase(card: str, key, main: dict, fused_res, x, y, xy,
     return parts
 
 
+#: 17b: the unfused run_sim_one's replications and its widths besides the
+#: ladder's; width 2 runs the first WIDTH2_REPS of them (the same keys;
+#: all 4096 at width 2 would take ~30 s of launches)
+CHUNK_BITS_B = 4096
+CHUNK_BITS_WIDTHS = (2, 64)
+WIDTH2_REPS = 256
+#: 17e: profiled and unprofiled runs of the fused pipeline, in turns
+PROFILE_TURNS = 4
+#: the profiled arms' sync caps: cadence 1 and cadence 8 over 64 blocks
+PROFILE_MAX_SYNCS = {"profiled": 64, "profiled_coarse": 8}
+
+
+def doctor_check(card: str) -> dict:
+    """17a: ``python -m dpcorr_torch doctor --probe --json`` in its own
+    process: verdict ok, the probe names the card, nvcc found with
+    sm_90a, K1's library current in ``_build/``, no strays."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "dpcorr_torch", "doctor",
+                          "--probe", "--json"], capture_output=True,
+                         text=True, timeout=300, env=_repo_env())
+    dt = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise RuntimeError(f"17a doctor exited {out.returncode}: "
+                           f"{out.stderr[-2000:]}")
+    rep = json.loads(out.stdout.strip().splitlines()[-1])
+    probe, cache, nvcc = (rep["device_probe"], rep["compile_cache"],
+                          rep["nvcc"])
+    print(f"[{card}] 17a doctor --probe in {dt:.2f} s: verdict "
+          f"{rep['verdict']!r}; probe {json.dumps(probe)}; nvcc "
+          f"{json.dumps(nvcc)}; build cache {json.dumps(cache)}; strays "
+          f"{rep['stray_workers']}", flush=True)
+    if rep["verdict"] != "ok" or not probe.get("ok") or \
+            torch.cuda.get_device_name(0) != probe.get("device"):
+        raise RuntimeError(f"17a doctor: verdict {rep['verdict']!r}, "
+                           f"probe {probe}")
+    if not (nvcc["found"] and nvcc["sm_90a"]):
+        raise RuntimeError(f"17a doctor: nvcc {nvcc}")
+    if not cache["current"].get("fused_ni") or any(
+            s.startswith("fused_ni-") for s in cache["stale"]):
+        raise RuntimeError(f"17a doctor: K1's build cache {cache}")
+    if rep["stray_workers"]:
+        raise RuntimeError(f"17a doctor: strays {rep['stray_workers']}")
+    return {"seconds": dt, "verdict": rep["verdict"]}
+
+
+def _field_gaps(got, want, fields) -> dict:
+    """Per field: bit-equal or not, and the largest absolute difference."""
+    out = {}
+    for f, g, w in zip(fields, got, want, strict=True):
+        g, w = g.double(), w.double()
+        out[f] = {"bit_equal": bool(torch.equal(g, w)),
+                  "max_abs": float((g - w).abs().max())}
+    return out
+
+
+def _print_gaps(card: str, label: str, gaps: dict) -> None:
+    print(f"[{card}] 17b {label}: " + ", ".join(
+        f"{f} {'bit-equal' if g['bit_equal'] else 'differs'} (max |Δ| "
+        f"{g['max_abs']:.3e})" for f, g in gaps.items()), flush=True)
+
+
+def chunk_width_bits(card: str, key) -> dict:
+    """17b: the main path at n = 10⁴, ε = (1, 1), ρ = 0.5 at several
+    chunk widths, each field against the widest: the unfused
+    ``run_sim_one`` (B = 4096) at widths 2, 64 and each ladder chunk,
+    and the fused pipeline's ``block_detail`` at each ladder chunk."""
+    import dataclasses
+
+    from dpcorr_torch.sim import (DETAIL_FIELDS, RepBlockPipeline,
+                                  SimConfig, fused_ni_rep_fn, run_sim_one)
+    from dpcorr_torch.utils import geometry
+    from dpcorr_torch.utils.device import device_kind
+
+    ladder = geometry.LADDERS[device_kind()][0]
+    widths = sorted(set(CHUNK_BITS_WIDTHS + ladder))
+    widest = widths[-1]
+    cfg = SimConfig(n=N, rho=RHO, eps1=EPS[0], eps2=EPS[1],
+                    b=CHUNK_BITS_B, alpha=ALPHA)
+    runs = {}
+    for w in widths:
+        res = run_sim_one(dataclasses.replace(
+            cfg, b=WIDTH2_REPS if w == 2 else CHUNK_BITS_B, chunk_size=w))
+        runs[w] = [res.detail[f] for f in DETAIL_FIELDS]
+    out = {"unfused": {}, "fused": {}}
+    for w in widths[:-1]:
+        cut = len(runs[w][0])
+        out["unfused"][w] = _field_gaps(
+            runs[w], [c[:cut] for c in runs[widest]], DETAIL_FIELDS)
+        _print_gaps(card, f"unfused run_sim_one, width {w} against {widest} "
+                    f"({cut} reps)", out["unfused"][w])
+    fused = {}
+    for c in ladder:
+        pipe = RepBlockPipeline(fused_ni_rep_fn(N, RHO, *EPS, ALPHA), 3,
+                                key=key, block_reps=FUSED_BLOCK,
+                                chunk_size=c)
+        fused[c] = list(pipe.block_detail(0))
+    for c in ladder[:-1]:
+        out["fused"][c] = _field_gaps(fused[c], fused[ladder[-1]],
+                                      ("se2", "cover", "ci_len"))
+        _print_gaps(card, f"fused block_detail, chunk {c} against "
+                    f"{ladder[-1]} ({FUSED_BLOCK} reps)", out["fused"][c])
+    out["all_bit_equal"] = all(
+        g["bit_equal"] for part in ("unfused", "fused")
+        for gaps in out[part].values() for g in gaps.values())
+    print(f"[{card}] 17b verdict: every field bit-equal across chunk "
+          f"widths >= 2: {out['all_bit_equal']}", flush=True)
+    return out
+
+
+def geometry_phase(card: str, key, v1_off, bits_equal: bool,
+                   work: str) -> dict:
+    """17c: ``autotune`` the fused (K1) and unfused main-path pipelines
+    and ``grid-sign`` at n = 1000 into a work-directory cache, read each
+    back from the cache with no probe, list them with ``obs geometry``,
+    and run the unfused v1 grid with ``geometry="auto"`` against phase
+    9a's."""
+    import os
+    import subprocess
+
+    from dpcorr_torch.grid import GridConfig, _rows, _stamp
+    from dpcorr_torch.ops import fused_ni
+    from dpcorr_torch.sim import (DETAIL_FIELDS, SimConfig, _one_rep,
+                                  fused_ni_rep_fn, ni_rep_fn)
+    from dpcorr_torch.utils import geometry
+    from dpcorr_torch.utils.device import device_kind
+
+    old = os.environ.get("DPCORR_GEOMETRY_CACHE")
+    os.environ["DPCORR_GEOMETRY_CACHE"] = f"{work}/geometry.json"
+    kind = device_kind()
+    grid_n = GridConfig().n_grid[0]
+    grid_cfg = SimConfig(n=grid_n, rho=RHO, eps1=EPS[0], eps2=EPS[1])
+    families = {
+        "ni-sign-fused": (fused_ni_rep_fn(N, RHO, *EPS, ALPHA), 3, N),
+        "ni-sign": (ni_rep_fn(N, RHO, *EPS, ALPHA), 3, N),
+        "grid-sign": (lambda k: _one_rep(k, RHO, grid_cfg), 12, grid_n),
+    }
+    out = {}
+    try:
+        for fam, (body, out_len, n) in families.items():
+            runner = geometry.pipeline_runner(body, out_len, key=key)
+            launches0 = fused_ni.KERNEL_LAUNCHES["fused_ni"]
+            t0 = time.perf_counter()
+            geo = geometry.autotune(fam, n, runner, device_kind=kind,
+                                    eps_pairs=[EPS])
+            dt = time.perf_counter() - t0
+            launches = fused_ni.KERNEL_LAUNCHES["fused_ni"] - launches0
+            probes = runner.probes
+            geometry._MEMO.clear()
+            again = geometry.autotune(fam, n, runner, device_kind=kind,
+                                      eps_pairs=[EPS])
+            print(f"[{card}] 17c autotune {fam} n={n}: chunk "
+                  f"{geo.chunk_size}, block {geo.block_reps}, probe "
+                  f"{geo.reps_per_sec:.1f} reps/s ({probes} probe runs, "
+                  f"{dt:.2f} s, K1 launches {launches}); second call "
+                  f"source={again.source}, probe runs "
+                  f"{runner.probes - probes}", flush=True)
+            if geo.source != "autotune" or again.source != "cache" or \
+                    runner.probes != probes or \
+                    (again.chunk_size, again.block_reps) != \
+                    (geo.chunk_size, geo.block_reps):
+                raise RuntimeError(f"17c {fam}: {geo} then {again}, "
+                                   f"{runner.probes - probes} probes")
+            if (launches > 0) != (fam == "ni-sign-fused"):
+                raise RuntimeError(f"17c {fam}: {launches} K1 launches")
+            out[fam] = {"geometry": geo.as_detail(), "seconds": dt,
+                        "probes": probes, "launches": launches}
+        ls = subprocess.run([sys.executable, "-m", "dpcorr_torch", "obs",
+                             "geometry", "--json"], capture_output=True,
+                            text=True, timeout=120, env=_repo_env())
+        if ls.returncode != 0:
+            raise RuntimeError(f"17c obs geometry: {ls.stderr[-2000:]}")
+        listed = {e["family"]: e for e in json.loads(ls.stdout)["entries"]}
+        print(f"[{card}] 17c obs geometry --json: {json.dumps(listed)}",
+              flush=True)
+        if sorted(listed) != sorted(families) or any(
+                e["device_kind"] != kind for e in listed.values()):
+            raise RuntimeError(f"17c obs geometry lists {sorted(listed)}")
+        tuned = out["grid-sign"]["geometry"]["chunk_size"]
+        gcfg = GridConfig(b=GRID_B, backend="bucketed", geometry="auto")
+        rows = _rows(gcfg.design_points())
+        chunks = {r.n: gcfg.sim_config(r).chunk_size for r in rows}
+        if chunks != {n: tuned if n == grid_n else gcfg.chunk_size
+                      for n in gcfg.n_grid}:
+            raise RuntimeError(f"17c: geometry=auto resolved {chunks}")
+        res, dt = run_grid_timed(gcfg)
+        gap = max(float(np.abs(res.detail_all[f].astype(np.float64)
+                               - v1_off.detail_all[f]).max())
+                  for f in DETAIL_FIELDS)
+        same = all(np.array_equal(res.detail_all[f], v1_off.detail_all[f])
+                   for f in DETAIL_FIELDS)
+        row = next(r for r in rows if r.n == grid_n)
+        same_stamp = (_stamp(GridConfig().sim_config(row))
+                      == _stamp(gcfg.sim_config(row)))
+        print(f"[{card}] 17c v1 grid unfused, geometry=auto (chunk "
+              f"{tuned} at n={grid_n}, {gcfg.chunk_size} elsewhere): "
+              f"{dt:.3f} s; against 9a's unfused run: bit-equal {same}, "
+              f"max |Δ| {gap:.3e}; one stamp {same_stamp}", flush=True)
+        if bits_equal or tuned == gcfg.chunk_size:
+            if not (same and same_stamp):
+                raise RuntimeError("17c: the geometry=auto grid is not "
+                                   "bit-equal to 9a's under one stamp")
+        elif gap > 1e-5 or same_stamp:
+            raise RuntimeError(f"17c: geometry=auto grid max |Δ| {gap}, "
+                               f"one stamp {same_stamp}")
+        out["grid"] = {"seconds": dt, "bit_equal": same}
+    finally:
+        if old is None:
+            os.environ.pop("DPCORR_GEOMETRY_CACHE", None)
+        else:
+            os.environ["DPCORR_GEOMETRY_CACHE"] = old
+        geometry._MEMO.clear()
+    return out
+
+
+def precompile_phase(card: str) -> dict:
+    """17d: the v1 grid, unfused then fused, each with ``precompile``
+    off, then on: bit-equal tables, ``precompiled`` on no bucket (eager
+    torch has nothing to build ahead, ``GridConfig.precompile``), the
+    wall time of each arm."""
+    from dpcorr_torch.grid import GridConfig
+    from dpcorr_torch.sim import DETAIL_FIELDS
+
+    out = {}
+    for fused in ("off", "auto"):
+        secs = {"off": [], "on": []}
+        ref = None
+        for pc in ("off", "on"):
+            res, dt = run_grid_timed(GridConfig(
+                b=GRID_B, backend="bucketed", fused=fused, precompile=pc))
+            secs[pc].append(dt)
+            flags = res.timings["precompiled"]
+            if flags.any():
+                raise RuntimeError(f"17d fused={fused} precompile={pc}: "
+                                   f"precompiled {list(flags)}")
+            if ref is None:
+                ref = res
+            elif not all(np.array_equal(res.detail_all[f],
+                                        ref.detail_all[f])
+                         for f in DETAIL_FIELDS):
+                raise RuntimeError(f"17d fused={fused}: precompile={pc} "
+                                   f"is not bit-equal to off")
+        print(f"[{card}] 17d v1 grid fused={fused}: precompile off "
+              f"{secs['off']} s, on {secs['on']} s (bit-equal; "
+              f"precompiled buckets 0)",
+              flush=True)
+        out[fused] = secs
+    return out
+
+
+def profiler_phase(card: str, key, fused_sums: list, work: str) -> dict:
+    """17e: the 2²⁰-rep fused pipeline without a ``BlockProfiler`` and
+    with one at each cap of ``PROFILE_MAX_SYNCS``, in turns: sums
+    bit-equal to phase 5's, one fetch a run, syncs within the cap and
+    only when profiled, the artifacts read back; the seconds of every
+    arm (reported only)."""
+    from dpcorr_torch.obs import prof, transfer
+    from dpcorr_torch.obs.metrics import Registry
+    from dpcorr_torch.ops import fused_ni
+    from dpcorr_torch.sim import RepBlockPipeline, fused_ni_rep_fn
+
+    profilers = {label: prof.BlockProfiler(
+        max_syncs=cap, registry=Registry(),
+        artifact_path=f"{work}/profile_{label}.json")
+        for label, cap in PROFILE_MAX_SYNCS.items()}
+    body = fused_ni_rep_fn(N, RHO, *EPS, ALPHA)
+    pipes = {}
+    for label, p in (("unprofiled", None), *profilers.items()):
+        counters = transfer.TransferCounters(registry=Registry())
+        pipes[label] = (RepBlockPipeline(
+            body, 3, key=key, block_reps=FUSED_BLOCK, chunk_size=FUSED_BLOCK,
+            counters=counters, profiler=p), counters)
+    pipes["unprofiled"][0].run(1, start_block=10_000)  # warm
+    order = tuple(pipes)
+    secs = {label: [] for label in order}
+    launches = {label: 0 for label in order}
+    for turn in range(PROFILE_TURNS):
+        for label in order if turn % 2 == 0 else order[::-1]:
+            pipe, counters = pipes[label]
+            profiler = profilers.get(label)
+            before = counters.snapshot()
+            syncs0 = 0 if profiler is None else int(
+                profiler.syncs_total.value())
+            launches0 = fused_ni.KERNEL_LAUNCHES["fused_ni"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sums, _ = pipe.run(FUSED_BLOCKS)
+            secs[label].append(time.perf_counter() - t0)
+            launches[label] += fused_ni.KERNEL_LAUNCHES["fused_ni"] - launches0
+            fetches = transfer.diff(counters.snapshot(), before)["fetches"]
+            syncs = 0 if profiler is None else int(
+                profiler.syncs_total.value()) - syncs0
+            if list(sums) != fused_sums:
+                raise RuntimeError(f"17e {label}: sums {sums} differ from "
+                                   f"phase 5's {fused_sums}")
+            if fetches != 1:
+                raise RuntimeError(f"17e {label}: {fetches} fetches")
+            if (profiler is not None) != (syncs > 0) or \
+                    syncs > PROFILE_MAX_SYNCS.get(label, 0):
+                raise RuntimeError(f"17e {label}: {syncs} profiler syncs")
+    cadence = {}
+    for label, profiler in profilers.items():
+        runs = prof.read_profile(profiler.artifact_path)["runs"]
+        if len(runs) != PROFILE_TURNS or any(
+                r["transfer"]["fetches"] != 1
+                or r["n_blocks"] != FUSED_BLOCKS for r in runs):
+            raise RuntimeError(f"17e {label}: the artifact holds {runs}")
+        cadence[label] = (runs[-1]["sync_count"], runs[-1]["cadence"])
+    reps = FUSED_BLOCK * FUSED_BLOCKS
+    print(f"[{card}] 17e fused pipeline, {reps} reps, {PROFILE_TURNS} turns "
+          f"each (reported only): " + "; ".join(
+              f"{label} {secs[label]} s" + (
+                  f" ({cadence[label][0]} syncs a run, cadence "
+                  f"{cadence[label][1]})" if label in cadence else "")
+              for label in order)
+          + f"; sums bit-equal to phase 5's, one fetch a run; K1 launches "
+          f"{launches}", flush=True)
+    return {"seconds": secs, "launches": launches,
+            "profiled_reps_per_s": reps / min(secs["profiled"])}
+
+
+def roofline_trace_phase(card: str, key, phase7_bound: float, rps: float,
+                         work: str) -> dict:
+    """17f: 17e's reps/s against the H100's peaks, K1's bound from
+    ``utils.roofline``, the device monitor's watermarks, and a
+    ``torch.profiler`` trace of one fused block naming K1's kernel."""
+    from dpcorr_torch.obs import devicemon, trace
+    from dpcorr_torch.sim import RepBlockPipeline, fused_ni_rep_fn
+    from dpcorr_torch.utils import profiling, roofline
+    from dpcorr_torch.utils.device import device_kind
+
+    model = roofline.analytic_rep_model(N, *EPS)
+    summary = roofline.summarize(rps, model["flops_per_rep"],
+                                 model["bytes_per_rep_floor"],
+                                 roofline.peaks_for(device_kind()))
+    t = roofline.least_time_ms(roofline.fused_pipe_ops(N, EPS, False),
+                               FUSED_BLOCK, FUSED_BLOCK * 24)
+    bound = max(t.values())
+    print(f"[{card}] 17f roofline of 17e's {rps:.1f} reps/s (the "
+          f"analytic model): {json.dumps(summary)}; K1's bound from "
+          f"utils.roofline {bound:.4f} ms by {max(t, key=t.get)} (phase 7: "
+          f"{phase7_bound:.4f} ms)", flush=True)
+    if bound != phase7_bound or round(bound, 4) != 0.3453:
+        raise RuntimeError(f"17f: K1's bound {bound} is not phase 7's "
+                           f"{phase7_bound}")
+    mon = devicemon.DeviceMonitor()
+    mon.sample()
+    wm = mon.watermarks()["cuda:0"]
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[{card}] 17f device watermarks after 17e: {json.dumps(wm)}",
+          flush=True)
+    if not (wm["bytes_in_use"] <= wm["peak_bytes_in_use"]
+            <= wm["bytes_limit"] == total):
+        raise RuntimeError(f"17f: watermarks {wm}, card memory {total}")
+    spans = f"{work}/trace_spans.jsonl"
+    log_dir = f"{work}/trace"
+    pipe = RepBlockPipeline(fused_ni_rep_fn(N, RHO, *EPS, ALPHA), 3, key=key,
+                            block_reps=FUSED_BLOCK, chunk_size=FUSED_BLOCK)
+    pipe.run(1, start_block=20_000)  # warm
+    trace.configure(spans)
+    try:
+        with profiling.trace(log_dir):
+            pipe.run(1, start_block=20_001)
+    finally:
+        trace.configure(None)
+    with open(f"{log_dir}/{profiling.TRACE_FILE}") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kernels if "fused_ni_kernel" in e.get("name", "")]
+    sp = [s for s in trace.read_spans(spans) if s["name"] == "profiler.trace"]
+    k1_us = sum(e.get("dur", 0) for e in k1)
+    print(f"[{card}] 17f torch.profiler trace of one fused block: "
+          f"{len(events)} events, {len(kernels)} kernel events, K1 "
+          f"{len(k1)} ({k1_us} us), profiler.trace spans {len(sp)}",
+          flush=True)
+    if len(k1) != 1 or len(sp) != 1:
+        raise RuntimeError(f"17f: the trace holds {len(k1)} K1 kernel "
+                           f"events and {len(sp)} profiler.trace spans")
+    return {"summary": summary, "bound_ms": bound, "watermarks": wm,
+            "trace_k1_us": k1_us}
+
+
+def measuring_phase(card: str, key, main: dict, v1_off, phase7_bound: float,
+                    work: str) -> dict:
+    """Phase 17 (a)-(f); the K1 launch count is zeroed before each part
+    and read after it (the parts count their own launches as
+    differences, never by zeroing)."""
+    from dpcorr_torch.ops import fused_ni
+
+    parts = {}
+    for label, fn in (
+            ("17a", lambda: doctor_check(card)),
+            ("17b", lambda: chunk_width_bits(card, key)),
+            ("17c", lambda: geometry_phase(
+                card, key, v1_off, parts["17b"]["all_bit_equal"], work)),
+            ("17d", lambda: precompile_phase(card)),
+            ("17e", lambda: profiler_phase(card, key, main["fused"]["sums"],
+                                           work)),
+            ("17f", lambda: roofline_trace_phase(
+                card, key, phase7_bound,
+                parts["17e"]["profiled_reps_per_s"], work))):
+        reset_launches()
+        t0 = time.perf_counter()
+        parts[label] = fn()
+        parts[label + " s"] = time.perf_counter() - t0
+        parts[label + " launches"] = fused_ni.KERNEL_LAUNCHES["fused_ni"]
+        print(f"[{card}] {label}: {parts[label + ' s']:.1f} s, K1 launches "
+              f"{parts[label + ' launches']}", flush=True)
+    return parts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -3651,6 +4021,7 @@ def main() -> int:
     )
     from dpcorr_torch.utils import rng
     from dpcorr_torch.utils.device import card_line, time_cuda
+    from dpcorr_torch.utils.roofline import fused_pipe_ops, least_time_ms
 
     import tempfile
 
@@ -3962,10 +4333,21 @@ def main() -> int:
     x, y = proto_columns(card, cols)
     parts = plan_phase(card, key, {"unfused": unfused, "fused": fused},
                        v1["fused"], x, y, hrs_pair(cols), work.name)
-    work.cleanup()
     plan_launches = {k: v["launches"] for k, v in parts["16a"].items()}
+    plan_grid_launches = parts["16b"]["launches"]
+    graph_replays = parts["16f"]["replays"]
     seconds = {k: round(v, 1) for k, v in parts.items() if k.endswith(" s")}
     print(f"[{card}] phase 16: {time.perf_counter() - t16:.1f} s "
+          f"{json.dumps(seconds)}", flush=True)
+
+    # ---- 17. the measuring layer, the K1 launch count zeroed before each
+    # part and read after it
+    t17 = time.perf_counter()
+    parts = measuring_phase(card, key, {"unfused": unfused, "fused": fused},
+                            v1["off"], bound_ms, work.name)
+    work.cleanup()
+    seconds = {k: round(v, 1) for k, v in parts.items() if k.endswith(" s")}
+    print(f"[{card}] phase 17: {time.perf_counter() - t17:.1f} s "
           f"{json.dumps(seconds)}", flush=True)
     bucket_ms = [v["ms"] for v in buckets.values()]
 
@@ -4005,8 +4387,14 @@ def main() -> int:
         "stream_launches": stream_launches,
         "fleet_launches": fleet_launches,
         "plan_pipeline_launches": plan_launches,
-        "plan_grid_launches": parts["16b"]["launches"],
-        "graph_replays": parts["16f"]["replays"],
+        "plan_grid_launches": plan_grid_launches,
+        "graph_replays": graph_replays,
+        "geometry_probe_launches": parts["17c"]["ni-sign-fused"]["launches"],
+        "profiled_launches": parts["17e"]["launches"]["profiled"],
+        "profiled_seconds": parts["17e"]["seconds"]["profiled"],
+        "unprofiled_seconds": parts["17e"]["seconds"]["unprofiled"],
+        "profiled_coarse_seconds":
+            parts["17e"]["seconds"]["profiled_coarse"],
     }]}
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(record), flush=True)

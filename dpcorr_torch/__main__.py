@@ -28,10 +28,16 @@ Counterpart of the simulation commands of ``python -m dpcorr``:
   killed at each crash point and restarted, results bit-identical and ε
   spent once
 - ``obs``         ``fleet snapshot | chrome | replay``: the fleet
-  telemetry plane (``dpcorr_torch.obs.fleet``)
+  telemetry plane (``dpcorr_torch.obs.fleet``); ``geometry``: the
+  autotuner's cache; ``hlo show | diff``: the JAX package's signature
+  dumps; ``trajectory``: the bench-trajectory report
+- ``doctor``      environment health triage (cards, ``nvcc``, the build
+  cache, stray processes holding a card; ``--probe`` initialises CUDA in
+  a subprocess)
 
 Every command but ``report``, ``protocol scan``, ``federation plan``,
-``federation scan``, ``fleet front`` and ``obs`` (which compute nothing)
+``federation scan``, ``fleet front``, ``obs`` and ``doctor`` (which
+compute nothing)
 runs on the card (``--device cuda``, the default) and raises without one
 unless ``--device cpu`` is given; ``fleet up`` and ``chaos`` pass their
 ``--device`` on to the processes they start. Grids
@@ -183,7 +189,8 @@ def _grid_kwargs(args) -> dict:
                          "per-point cache")
     return dict(b=args.b or 250, seed=args.seed, backend=args.backend,
                 fused=args.fused, bucket_merge=args.bucket_merge,
-                out_dir=args.out, device=_device(args))
+                precompile=args.precompile, out_dir=args.out,
+                device=_device(args))
 
 
 def cmd_grid(args):
@@ -1724,13 +1731,155 @@ def cmd_obs_fleet_replay(args):
                                 sorted(doc["fleet"].items())))
 
 
+def cmd_obs_trajectory(args):
+    """Bench-trajectory dashboard: the repo's BENCH_*/MULTICHIP_*/
+    benchmarks-results artifacts as per-(device_kind, metric) series,
+    naming the first artifact that bent the curve. ``--check`` exits 1
+    when any series regressed below the floor."""
+    from dpcorr_torch.obs import trajectory as traj_mod
+
+    roots = args.root or traj_mod.default_roots(args.repo)
+    report = traj_mod.build_report(roots, args.floor)
+    if args.format == "json":
+        sys.stdout.write(traj_mod.render_json(report))
+    elif args.format == "markdown":
+        sys.stdout.write(traj_mod.render_markdown(report))
+    else:
+        sys.stdout.write(traj_mod.render_console(report))
+    if args.check and report.regressions:
+        sys.exit(1)
+
+
+def cmd_obs_hlo(args):
+    """The JAX package's signature dumps: ``show`` lists one dump's
+    signatures with cost and fingerprint; ``diff`` explains what changed
+    between two. The port writes none (it compiles no HLO)."""
+    from dpcorr_torch.obs import hlo as hlo_mod
+
+    try:
+        if args.hlo_cmd == "show":
+            sigs = hlo_mod.load_dump(args.path)
+            if args.json:
+                print(json.dumps(sigs, indent=2, sort_keys=True))
+            else:
+                sys.stdout.write(hlo_mod.render_show(sigs))
+            return
+        diff = hlo_mod.diff_dumps(hlo_mod.load_dump(args.old),
+                                  hlo_mod.load_dump(args.new))
+        if args.json:
+            print(json.dumps(diff, indent=2, sort_keys=True))
+        else:
+            sys.stdout.write(hlo_mod.render_diff(diff))
+    except (OSError, ValueError) as e:
+        print(f"obs hlo: {e}", file=sys.stderr)
+        sys.exit(1)
+
+
+def cmd_obs_geometry(args):
+    """The geometry autotuner's cache per (device_kind, family, n,
+    dtype): tuned entries with their probe rate and staleness, and any
+    env pin (``DPCORR_BENCH_CHUNK``/``DPCORR_BENCH_BLOCK_REPS``) that
+    outranks them. Exits 1 on a corrupt cache file (the hot path shrugs
+    and re-probes; the CLI must not)."""
+    import os
+
+    from dpcorr_torch.utils import geometry as geo_mod
+
+    path = args.path or geo_mod.cache_path()
+    pin = {k: os.environ[k] for k in ("DPCORR_BENCH_CHUNK",
+                                      "DPCORR_BENCH_BLOCK_REPS")
+           if os.environ.get(k)}
+    if path is None:
+        print("geometry cache disabled (DPCORR_GEOMETRY_CACHE).")
+        rows = []
+    elif not os.path.exists(path):
+        print(f"geometry cache {path}: not present (no run has tuned "
+              f"on this host yet).")
+        rows = []
+    else:
+        try:
+            rows = geo_mod.entries(geo_mod.load_strict(path))
+        except (OSError, ValueError) as e:
+            print(f"obs geometry: corrupt cache {path}: {e}",
+                  file=sys.stderr)
+            sys.exit(1)
+    if args.json:
+        print(json.dumps({"path": path, "env_pin": pin, "entries": rows},
+                         indent=2, sort_keys=True))
+        return
+    if pin:
+        print("env pin (outranks every tuned entry): "
+              + " ".join(f"{k}={v}" for k, v in sorted(pin.items())))
+    if rows:
+        print(f"geometry cache {path}: {len(rows)} tuned entries")
+        for row in rows:
+            if row.get("note"):
+                print(f"  {row['key']}: {row['note']}")
+                continue
+            age = row.get("age_s")
+            age_txt = "unstamped" if age is None else \
+                f"{age / 86400:.1f}d old" if age >= 86400 else \
+                f"{age / 3600:.1f}h old"
+            rps = row.get("reps_per_sec")
+            rps_txt = f"{rps:,.0f} reps/s probe" if rps else "no probe rate"
+            print(f"  [{row['device_kind']}] {row['family']} "
+                  f"n={row['n']} {row['dtype']}: "
+                  f"chunk={row['chunk_size']} block={row['block_reps']} "
+                  f"({rps_txt}, {age_txt}, source=tuned)")
+
+
 def _add_obs(sub) -> None:
-    """``obs fleet snapshot | chrome | replay`` (the JAX command's other
-    ``obs`` subcommands wait for the console, sentinel, provenance and
-    trajectory ports)."""
+    """``obs fleet snapshot | chrome | replay``, ``obs geometry``, ``obs
+    hlo show | diff`` and ``obs trajectory`` (the JAX command's other
+    ``obs`` subcommands wait for the console, sentinel and provenance
+    ports)."""
     po_ = sub.add_parser("obs", help="observability tooling: the fleet "
-                         "telemetry plane")
+                         "telemetry plane, the geometry cache, signature "
+                         "dumps, the bench trajectory")
     obs_sub = po_.add_subparsers(dest="obs_cmd", required=True)
+    potr = obs_sub.add_parser(
+        "trajectory", help="bench-trajectory dashboard: per-(device_kind, "
+        "metric) series over the committed BENCH_*/MULTICHIP_*/"
+        "benchmarks-results artifacts; names the first artifact that "
+        "bent the curve")
+    potr.add_argument("--root", action="append", default=None,
+                      help="artifact root (file or dir, repeatable); "
+                           "default: repo root + benchmarks/results")
+    potr.add_argument("--repo", default=".",
+                      help="repo root for the default artifact roots")
+    potr.add_argument("--floor", type=float, default=0.85,
+                      help="regression floor vs best-so-far (0.85 = "
+                           "flag a drop below 85%%)")
+    potr.add_argument("--format", choices=["console", "json", "markdown"],
+                      default="console")
+    potr.add_argument("--check", action="store_true",
+                      help="exit 1 when any series regressed")
+    potr.set_defaults(fn=cmd_obs_trajectory)
+    poh = obs_sub.add_parser(
+        "hlo", help="show or diff the JAX package's persisted HLO "
+        "signature dumps (cost, memory, fingerprints, op histograms); "
+        "the port writes none")
+    hlo_sub = poh.add_subparsers(dest="hlo_cmd", required=True)
+    pohs = hlo_sub.add_parser("show", help="list one dump's signatures")
+    pohs.add_argument("path", help="dpcorr_hlo_dump JSON path")
+    pohs.add_argument("--json", action="store_true")
+    pohs.set_defaults(fn=cmd_obs_hlo)
+    pohd = hlo_sub.add_parser(
+        "diff", help="explain what changed between two dumps: "
+        "fingerprint flips, FLOP/byte/memory deltas, op-count deltas")
+    pohd.add_argument("old", help="baseline dump")
+    pohd.add_argument("new", help="candidate dump")
+    pohd.add_argument("--json", action="store_true")
+    pohd.set_defaults(fn=cmd_obs_hlo)
+    pog = obs_sub.add_parser(
+        "geometry", help="autotuner cache view: tuned (chunk x block) per "
+        "(device_kind, family, n, dtype) with env-pin provenance and "
+        "staleness; exit 1 on a corrupt cache")
+    pog.add_argument("--path", default=None,
+                     help="cache path (default: the resolved "
+                          "DPCORR_GEOMETRY_CACHE / ~/.cache location)")
+    pog.add_argument("--json", action="store_true")
+    pog.set_defaults(fn=cmd_obs_geometry)
     pof = obs_sub.add_parser("fleet", help="fleet telemetry plane: scrape "
                              "+ merge N instances, union spools, replay "
                              "the fleet ε table")
@@ -1765,6 +1914,44 @@ def _add_obs(sub) -> None:
                       help="instance audit spool (repeatable)")
     pofr.add_argument("--json", action="store_true")
     pofr.set_defaults(fn=cmd_obs_fleet_replay)
+
+
+def cmd_doctor(args):
+    import os
+
+    from dpcorr_torch.utils import doctor
+
+    report = doctor.diagnose(probe=args.probe, sweep=args.sweep)
+    try:
+        if args.json:
+            print(json.dumps(report))
+        else:
+            print(doctor.render_text(report))
+        sys.stdout.flush()
+    except BrokenPipeError:
+        # `doctor | head` must not stack-trace, and the interpreter's
+        # exit-time flush would re-raise: hand it a dead fd instead
+        os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
+
+
+def _add_doctor(sub) -> None:
+    pd_ = sub.add_parser(
+        "doctor", help="environment health report: the cards nvidia-smi "
+        "shows, nvcc and sm_90a, the build cache (dpcorr_torch/_build, "
+        "stale libraries), stray worker processes of this checkout "
+        "holding a card (fan-out workers, chip_smoke.py, plan_ab.py; "
+        "never a service). The JAX doctor's relay check and --queue-dir have no "
+        "counterpart here: a card host has no tunnel relay and no TPU "
+        "validation queue")
+    pd_.add_argument("--probe", action="store_true",
+                     help="also initialise CUDA in a subprocess (its own "
+                          "process group, hard timeout) and report the "
+                          "card's name, compute capability and power limit")
+    pd_.add_argument("--sweep", action="store_true",
+                     help="kill stray worker processes of this checkout "
+                          "that hold a card and were reparented to init")
+    pd_.add_argument("--json", action="store_true")
+    pd_.set_defaults(fn=cmd_doctor)
 
 
 def _add_device(p) -> None:
@@ -2266,6 +2453,12 @@ def main(argv=None):
                            help="eps: merge subG buckets across eps pairs "
                                 "(one call per n, eps per replication; "
                                 "subG + --backend bucketed only)")
+            p.add_argument("--precompile", default="auto",
+                           choices=["off", "auto", "on"],
+                           help="accepted as in python -m dpcorr and "
+                                "inert: eager torch has no bucket program "
+                                "to build ahead, so every value runs the "
+                                "same units (GridConfig.precompile)")
         p.set_defaults(fn=fn)
     p = sub.add_parser("report")
     p.add_argument("--from", dest="src", required=True,
@@ -2279,6 +2472,7 @@ def main(argv=None):
     _add_protocol(sub)
     _add_chaos(sub)
     _add_obs(sub)
+    _add_doctor(sub)
     _add_federation(sub)
     _add_stream(sub)
     args = ap.parse_args(argv)

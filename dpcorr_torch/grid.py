@@ -47,6 +47,7 @@ from dpcorr_torch.models.estimators.common import (
     k_pad_for,
     warn_f32_geometry_band_once,
 )
+from dpcorr_torch.obs import prof as prof_mod
 from dpcorr_torch.obs import trace as obs_trace
 from dpcorr_torch.ops import fused_ni
 from dpcorr_torch.sim import DETAIL_FIELDS, SimConfig
@@ -78,6 +79,25 @@ class GridConfig:
     statistically equal to "off", not bit-equal (a padded noise layout),
     stamped apart. ``device``: where the grid runs; the card unless the
     caller names another.
+
+    ``geometry``: "pinned" (``chunk_size`` as given) or "auto": each
+    bucket's chunk width is read from this host's geometry cache
+    (``utils.geometry.lookup`` for :meth:`grid_family` at the point's n,
+    filled by an ``autotune`` run), else ``chunk_size``. Read-only: the
+    grid never probes. On the card a tuned width can change the unfused
+    body's last bits (within 1e-5; :func:`_stamp`), so its points are
+    stamped with that width and never mix with another width's caches.
+
+    ``precompile``: "off", "auto" or "on", validated as in the JAX
+    package so its command lines parse, and otherwise inert: every value
+    dispatches the same lazy unit, and ``precompiled`` is False in the
+    timings and on ``grid.dispatch``. The JAX package compiles each
+    bucket's XLA program ahead on a thread pool; eager torch has no such
+    build step (K1, the one kernel, is built once per process and the
+    fused buckets were skipped there too), so a warm run would only do
+    each bucket's work twice: on an H100 (80GB HBM3, 700 W) that took the
+    unfused v1 grid from 1.54 s to 9.38 s (``chip_smoke.py`` phase 17d,
+    PERF.md §5).
     """
 
     n_grid: Sequence[int] = (1000, 1500, 2500, 4000, 6000, 9000)
@@ -94,9 +114,11 @@ class GridConfig:
     mixquant_mode: str = "det"
     seed: int = rng.MASTER_SEED
     chunk_size: int = 4096
+    geometry: str = "pinned"
     backend: str = "local"
     fused: str = "off"
     bucket_merge: str = "off"
+    precompile: str = "auto"
     out_dir: str | None = None
     resume: bool = True
     device: Any = None
@@ -115,6 +137,23 @@ class GridConfig:
             out[name] = np.asarray([row[j] for row in rows], dtype=dtype)
         return out
 
+    def grid_family(self) -> str:
+        """The geometry-cache family of this grid's estimator pair
+        (``utils.geometry`` cache key axis)."""
+        return "grid-subg" if self.use_subg else "grid-sign"
+
+    def _resolve_chunk(self, row) -> int:
+        if self.geometry != "auto":
+            return self.chunk_size
+        from dpcorr_torch.utils import geometry as geometry_mod
+        from dpcorr_torch.utils.device import device_kind
+
+        geo = geometry_mod.lookup(
+            self.grid_family(), int(row.n),
+            device_kind=device_kind(self.device),
+            eps_pairs=[(float(row.eps1), float(row.eps2))])
+        return geo.chunk_size if geo is not None else self.chunk_size
+
     def sim_config(self, row) -> SimConfig:
         return SimConfig(
             n=int(row.n), rho=float(row.rho),
@@ -122,7 +161,7 @@ class GridConfig:
             b=self.b, alpha=self.alpha, dgp=self.dgp, dgp_args=self.dgp_args,
             use_subg=self.use_subg, ci_mode=self.ci_mode,
             normalise=self.normalise, mixquant_mode=self.mixquant_mode,
-            seed=self.seed, chunk_size=self.chunk_size,
+            seed=self.seed, chunk_size=self._resolve_chunk(row),
         )
 
 
@@ -166,11 +205,12 @@ def _stamp(cfg: SimConfig) -> str:
 
     mc-mode real-variant runs also stamp the mixquant draw count (2000
     there, real-data-sims.R:161-164), as the JAX package does. The chunk
-    axis is canonicalised (``chunk_size=0``) for every width ≥ 2: the
-    outputs do not depend on it (``sim.chunked``), so a change of width
-    must not invalidate caches it cannot have changed."""
-    if cfg.chunk_size >= 2:
-        cfg = dataclasses.replace(cfg, chunk_size=0)
+    width stays literal, where the JAX package canonicalises every width
+    ≥ 2 (bit-equal there): on the card a reduction over n runs in another
+    order when another number of replications is resident, so the
+    unfused body's last bits depend on the width (``chip_smoke.py``
+    phase 17b, ``tests/test_torch_cuda.py``), and a cache of one width
+    must not load under another."""
     stamp = f"{cfg!r}|prng={rng.impl_tag()}"
     if cfg.mixquant_mode == "mc" and cfg.subg_variant == "real":
         stamp += "|mixquant_nsim=2000"
@@ -207,6 +247,22 @@ def validate_fused(fused: str, backend: str) -> None:
     if fused != "off" and backend != "bucketed":
         raise ValueError(
             f"fused={fused!r} requires backend='bucketed', got {backend!r}")
+
+
+def validate_precompile(precompile: str) -> None:
+    """Fail-fast for the precompile knob (a value check: no value changes
+    what runs, :class:`GridConfig`)."""
+    if precompile not in ("off", "auto", "on"):
+        raise ValueError(
+            f"precompile must be 'off', 'auto' or 'on', got {precompile!r}")
+
+
+def validate_geometry(geometry: str) -> None:
+    """Fail-fast for the geometry knob (a value check: every backend
+    builds its SimConfigs through ``sim_config``)."""
+    if geometry not in ("pinned", "auto"):
+        raise ValueError(
+            f"geometry must be 'pinned' or 'auto', got {geometry!r}")
 
 
 def validate_bucket_merge(bucket_merge: str, backend: str,
@@ -374,6 +430,7 @@ def _run_grid_bucketed(gcfg: GridConfig, rows: list[_Row],
         failures.extend((r.i, e) for r in bucket_rows if r.i not in details)
 
     # Phase 0: scan every bucket's cache
+    t_scan0 = time.perf_counter()
     buckets = []
     for grp in _group(rows, merged):
         t0 = time.perf_counter()
@@ -403,10 +460,13 @@ def _run_grid_bucketed(gcfg: GridConfig, rows: list[_Row],
             continue
         buckets.append(_Bucket(grp, to_run, stamps, paths, fused, cfg, k_pad,
                                time.perf_counter() - t0))
+    prof_mod.note_phase("grid.scan", time.perf_counter() - t_scan0,
+                        buckets=len(buckets))
 
     # Phase 1: dispatch every bucket; nothing is read back here. One span
     # per bucket, under grid.run by the thread's span stack (the port
     # compiles nothing ahead, so ``precompiled`` is always False)
+    t_disp0 = time.perf_counter()
     pending = []
     for bk in buckets:
         t0 = time.perf_counter()
@@ -424,6 +484,8 @@ def _run_grid_bucketed(gcfg: GridConfig, rows: list[_Row],
         finally:
             dsp.end()
         pending.append((bk, raw, bk.scan_s + time.perf_counter() - t0))
+    prof_mod.note_phase("grid.dispatch", time.perf_counter() - t_disp0,
+                        buckets=len(pending))
 
     # Phase 2: fetch in dispatch order; device-side failures surface here.
     # Per-bucket times overlap under dispatch-ahead, so throughput is
@@ -462,10 +524,12 @@ def _run_grid_bucketed(gcfg: GridConfig, rows: list[_Row],
             "merged_eps_pairs": (len({(r.eps1, r.eps2) for r in bk.rows})
                                  if merged else 1),
             "points": len(bk.rows), "points_run": len(bk.to_run),
-            "fused": bool(bk.fused),
+            "fused": bool(bk.fused), "precompiled": False,
             "seconds": dispatch_s + fetch_s,
             "dispatch_s": dispatch_s, "fetch_s": fetch_s,
         })
+    prof_mod.note_phase("grid.fetch", time.perf_counter() - t_fetch0,
+                        points_run=total_ran)
     wall = (time.perf_counter() - t_fetch0) + sum(p[2] for p in pending)
     grid_rps = np.nan if not total_ran else total_ran * gcfg.b / wall
     for t in timings:
@@ -550,6 +614,8 @@ def _assemble_details(design: Mapping[str, np.ndarray], by_i: dict,
 def validate_config(gcfg: GridConfig) -> None:
     """Every knob's fail-fast check, before any work is dispatched."""
     validate_backend(gcfg.backend)
+    validate_geometry(gcfg.geometry)
+    validate_precompile(gcfg.precompile)
     validate_fused(gcfg.fused, gcfg.backend)
     validate_bucket_merge(gcfg.bucket_merge, gcfg.backend, gcfg.use_subg,
                           gcfg.eps_pairs)

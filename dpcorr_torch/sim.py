@@ -474,15 +474,22 @@ class RepBlockPipeline:
     the shard size is a multiple of ``chunk_size``; the sums are folded
     on the host in ascending shard order in float64 at the fetch, equal
     to the local sums on one device and within f32 rounding otherwise.
+
+    ``profiler``: an optional ``obs.prof.BlockProfiler``, used only under
+    ``is not None``: it waits for the accumulators' device at a bounded
+    cadence of blocks (``dpcorr_prof_syncs_total``, never a fetch); a
+    run without one makes its one fetch and nothing more.
     """
 
     def __init__(self, rep_fn: Callable, out_len: int, *,
                  key: torch.Tensor, block_reps: int, chunk_size: int,
                  device=None, placement="local", devices=None,
-                 counters=None, observer=None, aot: bool = False):
+                 counters=None, observer=None, aot: bool = False,
+                 profiler=None):
         from dpcorr_torch import plan as plan_mod
         from dpcorr_torch.obs import transfer as transfer_mod
 
+        self.profiler = profiler
         self.device = resolve_device(device)
         self.rep_fn = rep_fn
         self.out_len = int(out_len)
@@ -554,6 +561,10 @@ class RepBlockPipeline:
         with ``sums`` the tuple of accumulator totals as floats."""
         for sh in self._shards:
             sh.acc.zero_()
+        prof = self.profiler
+        pstate = None if prof is None else prof.run_start(
+            block_reps=self.block_reps, n_blocks=int(n_blocks),
+            start_block=int(start_block), counters=self._counters)
         keys = [self._block_keys(start_block, sh) for sh in self._shards]
         for i in range(start_block, start_block + int(n_blocks)):
             for sh, k in zip(self._shards, keys, strict=True):
@@ -562,9 +573,14 @@ class RepBlockPipeline:
                 for sh in self._shards:
                     sh.acc.add_(sh.out.sum(dim=1))
             self._counters.donated_blocks.inc()
+            if pstate is not None:
+                prof.block_boundary(pstate, i - start_block,
+                                    [sh.acc for sh in self._shards])
             keys = [self._block_keys(i + 1, sh) for sh in self._shards]
         host = self._ex.fetch([sh.acc for sh in self._shards])
         self.fetches += 1
+        if pstate is not None:
+            prof.run_end(pstate)
         if len(host) == 1:
             return (tuple(float(v) for v in host[0]),
                     int(n_blocks) * self.block_reps)

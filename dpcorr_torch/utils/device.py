@@ -1,9 +1,10 @@
-"""Device resolution for the port's entry points, and what the
-measuring scripts (``chip_smoke.py``, ``dpcorr_torch.perf_fused``) read
-from the card."""
+"""Device resolution for the port's entry points, the device kind the
+measuring layer keys on, and what the measuring scripts
+(``chip_smoke.py``, ``dpcorr_torch.perf_fused``) read from the card."""
 
 from __future__ import annotations
 
+import re
 import subprocess
 
 import torch
@@ -20,6 +21,22 @@ def resolve_device(device=None) -> torch.device:
                 "unless the caller passes device='cpu'")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def device_kind(device=None) -> str:
+    """The one name of a device's kind that the geometry cache keys, the
+    roofline's peaks and a measurement's ``device_kind`` stamp use (the
+    trajectory's series): ``"cpu"``, or ``"cuda-"``
+    and the card's model from ``torch.cuda.get_device_name``
+    (``"NVIDIA H100 80GB HBM3"`` → ``"cuda-h100"``). ``device`` resolves
+    as the entry points' does: the card unless the caller names another."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return dev.type
+    name = torch.cuda.get_device_name(dev).lower()
+    m = re.search(r"[a-z]+\d+[a-z]*", name.replace("nvidia", ""))
+    return "cuda-" + (m.group(0) if m else re.sub(r"\W+", "-", name)
+                      .strip("-"))
 
 
 def f32_on(v, device) -> torch.Tensor:

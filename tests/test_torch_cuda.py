@@ -751,3 +751,85 @@ def test_preshard_counts_copies_and_mismatches_on_the_card(cuda):
     snap = ctr.snapshot()
     assert (snap["device_put"], snap["device_put_bytes"],
             snap["reshard_mismatch"]) == (2, 64, 1)
+
+
+@pytest.mark.cuda
+def test_chunk_width_changes_unfused_bits_on_the_card(cuda):
+    """On the card the unfused main path's last bits depend on how many
+    replications are resident (a reduction over n runs in another
+    order), which is why ``grid._stamp`` keeps the literal chunk width:
+    at n = 10⁴ widths 2 and 64 differ from 256 in some field, within
+    1e-5 (a 0/1 cover field may flip at a tie, on ≤ 1% of replications).
+    K1's per-replication outputs are bit-equal at every ladder chunk."""
+    import dataclasses
+
+    from dpcorr_torch.utils import geometry
+
+    cfg = sim.SimConfig(n=10_000, rho=0.5, eps1=1.0, eps2=1.0, b=256)
+    runs = [sim.run_sim_one(dataclasses.replace(cfg, chunk_size=w),
+                            device=cuda).detail for w in (2, 64, 256)]
+    assert any(not torch.equal(other[f], runs[-1][f])
+               for other in runs[:-1] for f in sim.DETAIL_FIELDS)
+    for other in runs[:-1]:
+        for f in sim.DETAIL_FIELDS:
+            gap = (other[f] - runs[-1][f]).abs()
+            if f.endswith("_cover"):
+                assert (gap > 0).float().mean() <= 0.01, f
+            else:
+                assert gap.max() <= 1e-5, f
+    assert grid._stamp(cfg) != grid._stamp(dataclasses.replace(
+        cfg, chunk_size=64))
+    key = rng.master_key(device=cuda)
+    body = sim.fused_ni_rep_fn(10_000, 0.5, 1.0, 1.0)
+    blocks = [sim.RepBlockPipeline(body, 3, key=key, block_reps=1 << 14,
+                                   chunk_size=c).block_detail(0)
+              for c in geometry.LADDERS["cuda-h100"][0]]
+    for other in blocks[:-1]:
+        for a, b in zip(other, blocks[-1], strict=True):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_profiled_pipeline_on_the_card(cuda, tmp_path):
+    """A profiler syncs the card at its cadence: sums bit-equal to the
+    unprofiled run, one fetch, syncs bounded and apart from fetches."""
+    from dpcorr_torch.obs import prof, transfer
+    from dpcorr_torch.obs.metrics import Registry
+
+    key = rng.master_key(device=cuda)
+    body = sim.fused_ni_rep_fn(10_000, 0.5, 1.0, 1.0)
+    counters = transfer.TransferCounters(Registry())
+    profiler = prof.BlockProfiler(max_syncs=4, registry=Registry(),
+                                  artifact_path=str(tmp_path / "p.json"))
+    pipes = [sim.RepBlockPipeline(body, 3, key=key, block_reps=4096,
+                                  chunk_size=4096, counters=counters,
+                                  profiler=p) for p in (None, profiler)]
+    plain = pipes[0].run(9)
+    before = counters.snapshot()
+    assert pipes[1].run(9) == plain
+    assert transfer.diff(counters.snapshot(), before)["fetches"] == 1
+    (run,) = prof.read_profile(str(tmp_path / "p.json"))["runs"]
+    assert run["cadence"] == 2 and run["sync_count"] == 4
+    assert int(profiler.syncs_total.value()) == 4
+    assert all(s["seconds"] > 0 for s in run["samples"])
+
+
+@pytest.mark.cuda
+def test_devicemon_series_on_the_card(cuda):
+    from dpcorr_torch.obs import devicemon
+    from dpcorr_torch.obs.metrics import Registry, parse_exposition
+
+    x = torch.ones(1 << 20, device=cuda)
+    reg = Registry()
+    mon = devicemon.DeviceMonitor(registry=reg)
+    snap = mon.sample()
+    assert sorted(snap) == [f"cuda:{i}"
+                            for i in range(torch.cuda.device_count())]
+    st = snap["cuda:0"]
+    assert x.numel() * 4 <= st["bytes_in_use"] <= st["peak_bytes_in_use"]
+    assert st["bytes_limit"] == torch.cuda.get_device_properties(
+        0).total_memory
+    series = parse_exposition(reg.render())
+    assert series['dpcorr_device_mem_limit_bytes{device="cuda:0"}'] == \
+        st["bytes_limit"]
+    assert not any("live_buffer" in k for k in series)

@@ -314,8 +314,9 @@ def test_stamp_encodes_real_mc_mixquant_nsim():
     assert "mixquant_nsim" not in grid._stamp(cfg)
     assert "mixquant_nsim" not in grid._stamp(
         dataclasses.replace(mc_real, mixquant_mode="det"))
-    # every chunk width ≥ 2 gives the same bits, so the same stamp
-    assert grid._stamp(cfg) == grid._stamp(dataclasses.replace(
+    # on the card the unfused body's last bits depend on the chunk width
+    # (tests/test_torch_cuda.py), so every width has its own stamp
+    assert grid._stamp(cfg) != grid._stamp(dataclasses.replace(
         cfg, chunk_size=7))
     assert grid._stamp(cfg) != grid._stamp(dataclasses.replace(
         cfg, chunk_size=1))

@@ -155,6 +155,10 @@ def test_port_imports_neither_jax_nor_dpcorr():
     assert REPO / "dpcorr_torch" / "grid.py" in files
     assert REPO / "dpcorr_torch" / "serve" / "server.py" in files
     assert REPO / "dpcorr_torch" / "chaos.py" in files
+    for mod in ("utils/geometry.py", "utils/roofline.py",
+                "utils/profiling.py", "utils/doctor.py", "obs/prof.py",
+                "obs/devicemon.py", "obs/hlo.py", "obs/trajectory.py"):
+        assert REPO / "dpcorr_torch" / mod in files
     assert FIGURES in files
     for path in files:
         for mod in _imports(path):
