@@ -280,6 +280,36 @@ north-star workload (n = 10⁴ Gaussian pair → NI sign-batch estimate + CI →
         device monitor's watermarks (in use ≤ peak ≤ limit = the card's
         memory); a ``profiling.trace`` of one fused block whose CUDA
         events name K1's kernel, with its ``profiler.trace`` span.
+18. the operator's tools (``python -m dpcorr_torch obs ...``; they
+    compute nothing on a device), each run as a process that sees no
+    card (``CUDA_VISIBLE_DEVICES`` empty) and cannot import torch, over
+    services running on the card, the K1 launch count zeroed before the
+    phase and read after it (0):
+    (a) one ``serve`` process at phase 12's width (n = 10⁴, ε = (1, 0.5))
+        with ``--audit``, ``--trace``, ``--flight-recorder`` and a ledger,
+        32 requests over ``ni_sign`` and ``int_sign``: ``obs top --once``
+        shows the request count and ε spent of ``/stats``; ``obs top
+        --fleet`` with a dead second target shows it DOWN; ``obs budget
+        --json`` spends what the ledger holds, binary-exact; ``POST
+        /obs/trigger`` slo_page answers 200 and dumps, a bogus reason
+        400; ``obs dump --trace-id`` rebuilds one admitted request's span
+        chain, cost record and ε trail; ``obs chrome`` writes one event
+        per span;
+    (b) phase 13's 3-party, 4-column federation (``ni_sign``, ε = 1,
+        n = 19,433) in process on the card with ledgers, audit trails,
+        transcripts, journals and a scrape endpoint per party: ``obs
+        provenance --json`` finds no divergence and a total equal to
+        ``optimal_eps()`` float for float; a copy with one charge amount
+        halved exits 1 naming ``tampered-charge`` and the party; ``obs
+        top --federation --once`` shows every party's cells done;
+    (c) ``obs watch --once`` over phase 14c's stream workdir, (a)'s trail
+        (with its URL) and (b)'s transcripts and journals: no violation;
+        copies with a WAL byte flipped, a charge line duplicated and a
+        release seq rewound each exit 1 with the expected kind, and a
+        rerun from the same checkpoint raises nothing again; one live
+        ``obs watch --interval 0.5`` over a copy of (a)'s trail: the
+        seconds from a duplicated charge line to the violation and to the
+        serve's ``sentinel_violation`` dump.
 
 Every failure raises. The last line is the device record; before it come
 the per-kernel JSON record and the card line. Run from the repository
@@ -435,6 +465,9 @@ FLEET_PARITY = 16
 PLAN_WARMUP = f"ni_sign:{SERVE_N}:{SERVE_EPS[0]}:{SERVE_EPS[1]}:auto"
 PLAN_SERVE_REQS, PLAN_STREAM_WINDOWS = 8, 2
 GRAPH_BLOCK, GRAPH_CALLS = 1 << 14, 20
+#: phase 18: requests per family through the watched serve, and the live
+#: sentinel's poll interval
+OBS_REQS_PER_FAMILY, OBS_WATCH_INTERVAL_S = 16, 0.5
 
 #: the JAX package's committed coverage at B = 1,015,808 for the sign
 #: acceptance points (dpcorr/acceptance.py:89-108), copied from
@@ -4004,6 +4037,373 @@ def measuring_phase(card: str, key, main: dict, v1_off, phase7_bound: float,
     return parts
 
 
+# ------------------------------------------------------------ phase 18 ----
+#: runs ``python -m dpcorr_torch`` in a process that cannot import torch
+#: (the operator's tools compute nothing on a device)
+_NO_TORCH = ("import sys; sys.modules['torch'] = None; "
+             "from dpcorr_torch.__main__ import main; main(sys.argv[1:])")
+
+
+def _tool_env() -> dict:
+    env = _repo_env()
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return env
+
+
+def obs_tool(*argv, rc: int = 0):
+    """One ``obs`` command in a process that sees no card and cannot
+    import torch; raises unless it exits with ``rc``."""
+    import subprocess
+
+    proc = subprocess.run([sys.executable, "-c", _NO_TORCH, "obs", *argv],
+                          env=_tool_env(), capture_output=True, text=True,
+                          timeout=120)
+    if proc.returncode != rc:
+        raise RuntimeError(f"obs {argv[0]}: rc {proc.returncode}, expected "
+                           f"{rc}: {proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+    return proc
+
+
+def _violations(stdout: str) -> list:
+    return [json.loads(line)["violation"] for line in stdout.splitlines()
+            if line.startswith('{"violation"')]
+
+
+def obs_serve(card: str, work: str, device: str = "cuda") -> dict:
+    """Phase 18a; the serve process stays up for 18c (the caller stops
+    ``out["proc"]``)."""
+    import os
+    import subprocess
+
+    from dpcorr_torch.obs.trace import read_spans
+    from dpcorr_torch.serve import HttpEstimateClient
+
+    d = f"{work}/18a"
+    os.makedirs(d)
+    files = {k: f"{d}/serve_{k}" for k in ("ledger.json", "audit.jsonl",
+                                           "trace.jsonl", "dump.json")}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dpcorr_torch", "serve", "--port", "0",
+         "--device", device, "--instance", "r0", "--budget", "1e12",
+         "--ledger", files["ledger.json"], "--audit", files["audit.jsonl"],
+         "--trace", files["trace.jsonl"],
+         "--flight-recorder", files["dump.json"],
+         "--max-batch", str(SERVE_MAX_BATCH),
+         "--max-delay-ms", str(SERVE_MAX_DELAY_S * 1e3)],
+        env=_repo_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    out = {"proc": proc, "audit": files["audit.jsonl"],
+           "dump": files["dump.json"]}
+    try:
+        banner = _banner_of(proc, 240)["serving"]
+        base = out["url"] = f"http://127.0.0.1:{banner['port']}"
+        reqs = (serve_requests("ni_sign", OBS_REQS_PER_FAMILY, SERVE_N,
+                               60_000_000)
+                + serve_requests("int_sign", OBS_REQS_PER_FAMILY, SERVE_N,
+                                 61_000_000))
+        client = HttpEstimateClient(base, timeout_s=300.0)
+        vals, _lat, dt = drive(client, reqs, 8)
+        if vals.shape != (len(reqs), 3) or not np.isfinite(vals).all():
+            raise RuntimeError("18a: a request got a non-finite answer")
+        stats = json.loads(_http_status(f"{base}/stats")[1])
+        spent = {p: v["spent"] for p, v in stats["ledger"]["parties"].items()}
+        t0 = time.perf_counter()
+        frame = obs_tool("top", "--url", base, "--once").stdout
+        top_s = time.perf_counter() - t0
+        want = [f"traffic     : {stats['requests_total']} admitted",
+                f"party-x={spent['party-x']:.4g}/",
+                f"party-y={spent['party-y']:.4g}/"]
+        if stats["requests_total"] != len(reqs) or \
+                not all(w in frame for w in want):
+            raise RuntimeError(f"18a obs top: {frame!r} does not show {want}")
+        dead = f"http://127.0.0.1:{_free_port()}"
+        fleet = obs_tool("top", "--fleet", f"r0={base},r1={dead}",
+                         "--once").stdout
+        if "1/2 instances up" not in fleet or not any(
+                ln.startswith("r1") and "DOWN" in ln
+                for ln in fleet.splitlines()):
+            raise RuntimeError(f"18a obs top --fleet: {fleet!r}")
+        replayed = json.loads(obs_tool("budget", "--audit", files["audit.jsonl"],
+                                       "--json").stdout)
+        if replayed["spent"] != spent:
+            raise RuntimeError(f"18a obs budget: {replayed['spent']}, the "
+                               f"ledger {spent}")
+        code, _h, body = _post_json(f"{base}/obs/trigger", {
+            "reason": "slo_page", "detail": {"objective": "chip-smoke"}})
+        with open(files["dump.json"]) as fh:
+            dumped = json.load(fh)
+        if code != 200 or body != {"dumped": files["dump.json"], "armed": True} \
+                or dumped["reason"] != "slo_page":
+            raise RuntimeError(f"18a POST /obs/trigger: {code} {body}, dump "
+                               f"reason {dumped['reason']}")
+        code, _h, bogus = _post_json(f"{base}/obs/trigger", {"reason": "bogus"})
+        if code != 400:
+            raise RuntimeError(f"18a a bogus trigger reason got {code} {bogus}")
+        spans = read_spans(files["trace.jsonl"])
+        tid = next(sp["trace_id"] for sp in spans
+                   if sp["name"] == "serve.request")
+        story = json.loads(obs_tool("dump", files["dump.json"], "--trace-id",
+                                    tid, "--json").stdout)
+        if not story["spans"] or story["spans"][0]["name"] != "serve.request" \
+                or (story["cost"] or {}).get("trace_id") != tid \
+                or not story["audit"] \
+                or story["eps_net"] != story["cost"]["eps_charged"]:
+            raise RuntimeError(f"18a obs dump --trace-id {tid}: {story}")
+        chrome = f"{d}/chrome.json"
+        obs_tool("chrome", "--trace", files["trace.jsonl"], "--out", chrome)
+        with open(chrome) as fh:
+            events = [e for e in json.load(fh)["traceEvents"]
+                      if e["ph"] == "X"]
+        if len(events) != len(spans):
+            raise RuntimeError(f"18a obs chrome: {len(events)} events for "
+                               f"{len(spans)} spans")
+    except BaseException:
+        proc.kill()
+        proc.communicate(timeout=60)
+        raise
+    out["line"] = {"requests": len(reqs), "drive_s": dt,
+                   "requests_total": stats["requests_total"],
+                   "spent": spent, "obs_top_s": top_s, "spans": len(spans),
+                   "dump_spans": len(story["spans"]),
+                   "eps_net": story["eps_net"]}
+    print(f"[{card}] 18a serve under the tools: {json.dumps(out['line'])}; "
+          f"obs top shows /stats, r1 DOWN, obs budget = ledger, trigger "
+          f"200/400, obs dump rebuilds trace {tid}, obs chrome one event "
+          f"per span", flush=True)
+    return out
+
+
+def obs_federation(card: str, x, y, work: str, device: str = "cuda") -> dict:
+    """Phase 18b: the federation's files and endpoints under ``obs
+    provenance`` and ``obs top --federation``."""
+    import os
+    import shutil
+
+    from dpcorr_torch.obs.audit import AuditTrail
+    from dpcorr_torch.obs.endpoint import start_obs_server
+    from dpcorr_torch.protocol.federation import (
+        _drive_parties,
+        make_federation_parties,
+    )
+    from dpcorr_torch.protocol.matrix import FederationPlan
+    from dpcorr_torch.serve.ledger import PrivacyLedger
+
+    d = f"{work}/18b"
+    os.makedirs(d)
+    plan = FederationPlan(family="ni_sign", n=len(x), eps=1.0,
+                          parties=FED_PARTIES, seed=PROTO_SEED)
+    ledgers = {p: PrivacyLedger(1e6, path=f"{d}/ledger.{p}.json",
+                                audit=AuditTrail(f"{d}/audit.{p}.jsonl"))
+               for p, _ in FED_PARTIES}
+    parties = make_federation_parties(plan, _fed_data(x, y), ledgers=ledgers,
+                                      transcript_dir=d, journal_dir=d,
+                                      device=device)
+    servers = {n: start_obs_server(p.registry, stats_fn=p.stats_snapshot)
+               for n, p in parties.items()}
+    try:
+        t0 = time.perf_counter()
+        _drive_parties(parties)
+        run_s = time.perf_counter() - t0
+        targets = ",".join(f"{n}=http://127.0.0.1:{port}"
+                           for n, (_srv, port) in sorted(servers.items()))
+        frame = obs_tool("top", "--federation", targets, "--once").stdout
+    finally:
+        for srv, _port in servers.values():
+            srv.shutdown()
+    plan_path = f"{d}/plan.json"
+    with open(plan_path, "w") as fh:
+        json.dump({"plan": plan.to_public()}, fh)
+    audits = [a for p, _ in FED_PARTIES
+              for a in ("--audit", f"{p}={d}/audit.{p}.jsonl")]
+    doc = json.loads(obs_tool("provenance", "--plan", plan_path,
+                              "--transcript-dir", d, *audits,
+                              "--journal-dir", d, "--json").stdout)
+    if not doc["ok"] or doc["divergences"] \
+            or doc["eps"]["total"] != plan.optimal_eps():
+        raise RuntimeError(f"18b obs provenance: ok {doc['ok']}, total "
+                           f"{doc['eps']['total']!r} against optimal_eps "
+                           f"{plan.optimal_eps()!r}: {doc['divergences']}")
+    bad = f"{work}/18b-tampered"
+    shutil.copytree(d, bad)
+    victim = sorted(f for f in os.listdir(bad)
+                    if f.startswith(plan.fed) and f.endswith(".p0.jsonl"))[0]
+    with open(f"{bad}/{victim}") as fh:
+        lines = [json.loads(ln) for ln in fh]
+    hit = next(e for e in lines
+               if e.get("dir") == "send" and e.get("eps", 0) > 0)
+    hit["eps"] = hit["eps"] / 2
+    with open(f"{bad}/{victim}", "w") as fh:
+        fh.writelines(json.dumps(e) + "\n" for e in lines)
+    text = obs_tool("provenance", "--plan", plan_path, "--transcript-dir",
+                    bad, *[a.replace(d, bad) for a in audits],
+                    "--journal-dir", bad, rc=1).stdout
+    if "DIVERGENCE [tampered-charge] party=p0" not in text:
+        raise RuntimeError(f"18b a halved charge was not named: {text}")
+    expect = {n: p.stats_snapshot()["cells_done"]
+              for n, p in parties.items()}
+    rows = {ln.split()[0]: ln.split()[1] for ln in frame.splitlines()
+            if ln.split() and ln.split()[0] in expect}
+    cells = len(plan.cells())
+    want_rows = {n: f"{k}/{cells}" for n, k in expect.items()}
+    if "3/3 parties up" not in frame or "DISAGREE" in frame \
+            or rows != want_rows \
+            or f"cells {sum(expect.values())} done (matrix {cells})" \
+            not in frame:
+        raise RuntimeError(f"18b obs top --federation: {frame!r}, the "
+                           f"parties' cells {expect}")
+    line = {"n": plan.n, "cells": cells, "run_s": run_s,
+            "optimal_eps": plan.optimal_eps(),
+            "total_eps": doc["eps"]["total"],
+            "nodes": doc["counts"]["nodes"], "edges": doc["counts"]["edges"]}
+    print(f"[{card}] 18b federation provenance: {json.dumps(line)}; no "
+          f"divergence, ε float for float at optimal_eps, a halved charge "
+          f"named tampered-charge at p0, obs top --federation every party's "
+          f"cells done", flush=True)
+    return {"dir": d, **line}
+
+
+def _watch(ck: str, *sources, rc: int = 0) -> list:
+    """``obs watch --once --json`` over ``sources`` from checkpoint ``ck``;
+    the violations it printed."""
+    return _violations(obs_tool("watch", "--checkpoint", ck, *sources,
+                                "--once", "--json", rc=rc).stdout)
+
+
+def _flip_byte(path: str) -> None:
+    with open(path, "r+b") as fh:
+        fh.seek(3)
+        fh.write(b"X")
+
+
+def _dup_first_charge(path: str) -> None:
+    with open(path) as fh:
+        first = next(ln for ln in fh if '"kind": "charge"' in ln)
+    with open(path, "a") as fh:
+        fh.write(first)
+
+
+def _rewind_release(path: str) -> None:
+    with open(path) as fh:
+        entry = json.loads(fh.readline())
+    entry.update(window_id="rewound", charge_id="rewound", release_seq=1)
+    with open(path, "a") as fh:
+        fh.write(json.dumps(entry) + "\n")
+
+
+def obs_sentinel(card: str, work: str, stream_dir: str, served: dict,
+                 fed_dir: str) -> dict:
+    """Phase 18c."""
+    import os
+    import shutil
+    import subprocess
+
+    d = f"{work}/18c"
+    os.makedirs(d)
+    found = _watch(f"{d}/all.json", "--stream", f"s14={stream_dir}",
+                   "--audit", f"r0={served['audit']}",
+                   "--url", f"r0={served['url']}",
+                   "--transcripts", f"fed={fed_dir}",
+                   "--journals", f"fed={fed_dir}")
+    if found:
+        raise RuntimeError(f"18c the services' files raised {found}")
+    faults = {}
+    for label, kind in (("wal byte flip", "wal-regression"),
+                        ("duplicated charge", "double-charged-artifact"),
+                        ("rewound release seq", "wal-regression")):
+        copy = f"{d}/{label.replace(' ', '-')}"
+        if label == "duplicated charge":
+            shutil.copyfile(served["audit"], f"{copy}.jsonl")
+            src, fault = ("--audit", f"r0={copy}.jsonl"), (
+                lambda c=copy: _dup_first_charge(f"{c}.jsonl"))
+        else:
+            shutil.copytree(stream_dir, copy)
+            src = ("--stream", f"s14={copy}")
+            fault = (lambda c=copy: _flip_byte(f"{c}/wal.jsonl")) \
+                if label == "wal byte flip" else \
+                (lambda c=copy: _rewind_release(f"{c}/releases.jsonl"))
+        ck = f"{copy}.ck.json"
+        _watch(ck, *src)
+        fault()
+        got = _watch(ck, *src, rc=1)
+        again = _watch(ck, *src)
+        if kind not in {v["kind"] for v in got} or again:
+            raise RuntimeError(f"18c {label}: {got}, rerun {again}")
+        faults[label] = sorted({v["kind"] for v in got})
+    live = f"{d}/live.jsonl"
+    shutil.copyfile(served["audit"], live)
+    ck = f"{d}/live.ck.json"
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _NO_TORCH, "obs", "watch", "--checkpoint",
+         ck, "--audit", f"r0={live}", "--url", f"r0={served['url']}",
+         "--interval", str(OBS_WATCH_INTERVAL_S), "--json"],
+        env=_tool_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        _banner_of(proc, 60)
+        deadline = time.perf_counter() + 30
+        while not os.path.exists(ck):
+            if time.perf_counter() > deadline:
+                raise RuntimeError("18c the live sentinel never polled")
+            time.sleep(0.01)
+        box = []
+
+        def first_violation():
+            for line in proc.stdout:
+                if line.startswith('{"violation"'):
+                    box.append((time.perf_counter(), json.loads(line)))
+                    return
+        reader = threading.Thread(target=first_violation, daemon=True)
+        reader.start()
+        t0 = time.perf_counter()
+        _dup_first_charge(live)
+        t_dump = None
+        while t_dump is None or not box:
+            if time.perf_counter() - t0 > 30:
+                raise RuntimeError(f"18c live: violation {box}, dump at "
+                                   f"{t_dump}")
+            if t_dump is None:
+                with open(served["dump"]) as fh:
+                    if json.load(fh)["reason"] == "sentinel_violation":
+                        t_dump = time.perf_counter()
+            time.sleep(0.005)
+    finally:
+        proc.terminate()
+        proc.communicate(timeout=60)
+    t_violation, hit = box[0]
+    if hit["violation"]["kind"] not in ("double-charged-artifact",
+                                        "wal-regression"):
+        raise RuntimeError(f"18c live: {hit}")
+    line = {"faults": faults, "live_violation_s": t_violation - t0,
+            "live_dump_s": t_dump - t0,
+            "interval_s": OBS_WATCH_INTERVAL_S}
+    print(f"[{card}] 18c sentinel: {json.dumps(line)}; the services' files "
+          f"clean, each fault caught and not raised again on a rerun",
+          flush=True)
+    return line
+
+
+def obs_phase(card: str, work: str, x, y, device: str = "cuda") -> dict:
+    """Phase 18 (a)-(c); the caller sets the launch counts to 0 before."""
+    parts = {}
+    t0 = time.perf_counter()
+    served = obs_serve(card, work, device)
+    try:
+        parts["18a"] = served["line"]
+        parts["18a s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fed = obs_federation(card, x, y, work, device)
+        parts["18b"] = fed
+        parts["18b s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        parts["18c"] = obs_sentinel(card, work, f"{work}/14c", served,
+                                    fed["dir"])
+        parts["18c s"] = time.perf_counter() - t0
+    finally:
+        served["proc"].terminate()
+        served["proc"].communicate(timeout=60)
+    return parts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -4345,11 +4745,28 @@ def main() -> int:
     t17 = time.perf_counter()
     parts = measuring_phase(card, key, {"unfused": unfused, "fused": fused},
                             v1["off"], bound_ms, work.name)
-    work.cleanup()
     seconds = {k: round(v, 1) for k, v in parts.items() if k.endswith(" s")}
     print(f"[{card}] phase 17: {time.perf_counter() - t17:.1f} s "
           f"{json.dumps(seconds)}", flush=True)
     bucket_ms = [v["ms"] for v in buckets.values()]
+
+    # ---- 18. the operator's tools over services on the card, driven with
+    # the launch counts set to 0 just before it and read just after
+    t18 = time.perf_counter()
+    reset_launches()
+    obs_parts = obs_phase(card, work.name, x, y)
+    work.cleanup()
+    obs_launches = fused_ni.KERNEL_LAUNCHES["fused_ni"]
+    print(f"launches in the tools' run: {dict(fused_ni.KERNEL_LAUNCHES)}",
+          flush=True)
+    if obs_launches:
+        raise RuntimeError(f"phase 18: {obs_launches} K1 launches; the "
+                           f"tools and the services they watch have no "
+                           f"kernel of their own")
+    seconds = {k: round(v, 1) for k, v in obs_parts.items()
+               if k.endswith(" s")}
+    print(f"[{card}] phase 18: {time.perf_counter() - t18:.1f} s "
+          f"{json.dumps(seconds)}", flush=True)
 
     record = {"kernels": [{
         "name": "fused_ni",
@@ -4395,6 +4812,7 @@ def main() -> int:
         "unprofiled_seconds": parts["17e"]["seconds"]["unprofiled"],
         "profiled_coarse_seconds":
             parts["17e"]["seconds"]["profiled_coarse"],
+        "obs_launches": obs_launches,
     }]}
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(record), flush=True)

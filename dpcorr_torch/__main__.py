@@ -27,10 +27,15 @@ Counterpart of the simulation commands of ``python -m dpcorr``:
 - ``chaos``       the step-kill sweep: two party processes, the victim
   killed at each crash point and restarted, results bit-identical and ε
   spent once
-- ``obs``         ``fleet snapshot | chrome | replay``: the fleet
-  telemetry plane (``dpcorr_torch.obs.fleet``); ``geometry``: the
-  autotuner's cache; ``hlo show | diff``: the JAX package's signature
-  dumps; ``trajectory``: the bench-trajectory report
+- ``obs``         ``budget | chrome | dump``: audit-trail replay, span
+  export and flight-recorder dumps; ``top``: the live console
+  (``dpcorr_torch.obs.console``); ``provenance``: the federation's
+  ε-provenance DAG (``dpcorr_torch.obs.provenance``); ``watch``: the
+  invariant sentinel (``dpcorr_torch.obs.sentinel``); ``fleet snapshot |
+  chrome | replay``: the fleet telemetry plane
+  (``dpcorr_torch.obs.fleet``); ``geometry``: the autotuner's cache;
+  ``hlo show | diff``: the JAX package's signature dumps;
+  ``trajectory``: the bench-trajectory report
 - ``doctor``      environment health triage (cards, ``nvcc``, the build
   cache, stray processes holding a card; ``--probe`` initialises CUDA in
   a subprocess)
@@ -1828,15 +1833,425 @@ def cmd_obs_geometry(args):
                   f"({rps_txt}, {age_txt}, source=tuned)")
 
 
+def cmd_obs_budget(args):
+    """Replay a privacy-budget audit trail: the per-event ε timeline and
+    the replayed per-party spend table, which must equal the ledger
+    snapshot's ``spent`` values. With ``--budget-dir`` the replay also
+    folds the trail's sharded ``user/<id>`` legs and proves each user's
+    lifetime spend equal to what the directory's shard files reconstruct
+    (snapshot + WAL, the recovery path a restart takes); exit 1 on a
+    mismatch."""
+    from dpcorr_torch.obs.audit import read_events, replay, timeline
+    from dpcorr_torch.obs.budget_replay import USER_PREFIX, read_user_balances
+
+    events = read_events(args.audit)
+    rows = timeline(events, party=args.party)
+    totals = replay(events)
+    dir_check = None
+    if args.budget_dir:
+        replayed_users = {p[len(USER_PREFIX):]: s
+                          for p, s in totals.items()
+                          if p.startswith(USER_PREFIX)}
+        bal = read_user_balances(args.budget_dir)
+        mismatches = []
+        for user in sorted(set(replayed_users) | set(bal)):
+            want = replayed_users.get(user, 0.0)
+            got = bal.get(user, {}).get("l", 0.0)
+            if abs(want - got) > 1e-9:
+                mismatches.append({"user": user, "replayed": want,
+                                   "directory": got})
+        dir_check = {"ok": not mismatches, "users": len(bal),
+                     "replayed_users": len(replayed_users),
+                     "mismatches": mismatches}
+    if args.party is not None:
+        totals = {args.party: totals.get(args.party, 0.0)}
+    if args.json:
+        out = {"events": len(events), "timeline": rows, "spent": totals}
+        if dir_check is not None:
+            out["budget_dir"] = dir_check
+        print(json.dumps(out, indent=2))
+    else:
+        for r in rows:
+            after = " ".join(f"{p}={s:.6g}"
+                             for p, s in sorted(r["spent_after"].items()))
+            print(f"[{r['seq']:6d}] {r['kind']:<8} "
+                  f"trace={r['trace_id'] or '-':<17} {after}")
+        print(f"{len(events)} events; replayed spend:")
+        for p, s in sorted(totals.items()):
+            print(f"  {p}: {s:.6g}")
+        if dir_check is not None:
+            print(f"budget dir: {dir_check['users']} users on disk, "
+                  f"{dir_check['replayed_users']} in the trail — "
+                  f"{'OK' if dir_check['ok'] else 'MISMATCH'}")
+            for m in dir_check["mismatches"]:
+                print(f"  {m['user']}: replayed {m['replayed']:.6g} != "
+                      f"directory {m['directory']:.6g}")
+    if dir_check is not None and not dir_check["ok"]:
+        sys.exit(1)
+
+
+def cmd_obs_chrome(args):
+    """Convert a span JSONL log to Chrome trace-event JSON (open in
+    Perfetto / chrome://tracing)."""
+    from dpcorr_torch.obs.trace import read_spans, write_chrome_trace
+
+    n = len(read_spans(args.trace))
+    write_chrome_trace(args.trace, args.out)
+    print(f"wrote {args.out} ({n} spans)")
+
+
+def cmd_obs_dump(args):
+    """Replay a flight-recorder dump: summary mode lists what the rings
+    held at dump time; ``--trace-id`` rebuilds one request's span chain,
+    cost record and ledger-consistent ε trail from the dump alone."""
+    from dpcorr_torch.obs.recorder import read_dump, reconstruct
+
+    dump = read_dump(args.path)
+    if args.trace_id:
+        rc = reconstruct(dump, args.trace_id)
+        if args.json:
+            print(json.dumps(rc, indent=2))
+            return
+        print(f"trace {args.trace_id} ({len(rc['spans'])} spans)")
+        for s in rc["spans"]:
+            dur = s.get("dur_s")
+            dur_txt = f"{dur * 1e3:9.3f} ms" if dur is not None else \
+                "      open"
+            print(f"  {dur_txt}  {s['name']}")
+        if rc["cost"] is not None:
+            print("cost: " + json.dumps(rc["cost"]))
+        if rc["audit"]:
+            print(f"audit: {len(rc['audit'])} events, "
+                  f"eps_net={json.dumps(rc['eps_net'])}")
+        return
+    summary = {"reason": dump["reason"], "ts": dump["ts"],
+               "detail": dump.get("detail", {}),
+               "spans": len(dump["spans"]),
+               "audit_events": len(dump["audit"]),
+               "log_lines": len(dump["logs"]),
+               "metric_samples": len(dump.get("metric_samples", [])),
+               "cost_records": len(dump["costs"]),
+               "trace_ids": sorted({s.get("trace_id")
+                                    for s in dump["spans"]
+                                    if s.get("trace_id")})}
+    if args.json:
+        print(json.dumps(summary, indent=2))
+        return
+    print(f"flight-recorder dump: reason={summary['reason']} "
+          f"detail={json.dumps(summary['detail'])}")
+    print(f"  {summary['spans']} spans over "
+          f"{len(summary['trace_ids'])} traces, "
+          f"{summary['audit_events']} audit events, "
+          f"{summary['log_lines']} log lines, "
+          f"{summary['cost_records']} cost records")
+    for tid in summary["trace_ids"][:20]:
+        print(f"  trace {tid}")
+    if len(summary["trace_ids"]) > 20:
+        print(f"  ... {len(summary['trace_ids']) - 20} more")
+
+
+def cmd_obs_top(args):
+    """Live ops console over a serve replica's /metrics + /stats — or,
+    with --fleet / --federation, over every replica or federation party
+    process in a target map at once; --stream renders a stream
+    service's."""
+    from dpcorr_torch.obs import console
+
+    if args.federation:
+        rc = console.run_federation_top(args.federation,
+                                        interval_s=args.interval,
+                                        once=args.once)
+    elif args.fleet:
+        rc = console.run_fleet_top(args.fleet, interval_s=args.interval,
+                                   once=args.once)
+    elif args.stream:
+        rc = console.run_stream_top(args.url, interval_s=args.interval,
+                                    once=args.once)
+    else:
+        rc = console.run_top(args.url, interval_s=args.interval,
+                             once=args.once)
+    raise SystemExit(rc)
+
+
+def cmd_obs_provenance(args):
+    """Build the federation ε-provenance DAG: merge every party's
+    transcripts + audit trails + journals against the plan, prove
+    exactly-once charging and byte-identical reuse at the
+    ``2·f·ε·(k−1)`` optimum, and exit 1 naming the offending party on any
+    divergence. ``--out`` writes the JSON document, ``--dot`` the
+    Graphviz rendering, ``--cell I,J`` prints one cell's full story."""
+    from dpcorr_torch.obs.provenance import (
+        build_provenance,
+        discover_federation,
+    )
+
+    plan, transcripts, audits, journals = discover_federation(
+        args.plan, transcript_dir=args.transcript_dir,
+        transcript_specs=args.transcript, audit_specs=args.audit,
+        journal_dir=args.journal_dir)
+    if not any(transcripts.values()):
+        raise SystemExit("no transcripts found: pass --transcript-dir "
+                         "or --transcript NAME=PATH")
+    prov = build_provenance(plan, transcripts, audits=audits,
+                            journals=journals)
+    doc = prov.to_doc()
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as f:
+            json.dump(doc, f, indent=2)
+            f.write("\n")
+    if args.dot:
+        with open(args.dot, "w", encoding="utf-8") as f:
+            f.write(prov.to_dot())
+    if args.cell:
+        i, _, j = args.cell.partition(",")
+        print(json.dumps(prov.cell_story(int(i), int(j)), indent=2))
+    elif args.json:
+        print(json.dumps(doc, indent=2))
+    else:
+        eps = doc["eps"]
+        exact = prov.total_eps == prov.expected_eps
+        print(f"provenance {prov.fed}: "
+              f"{doc['counts']['nodes']} nodes, "
+              f"{doc['counts']['edges']} edges; "
+              f"eps total={eps['total']:.6g} "
+              f"optimal={eps['optimal']:.6g} "
+              f"{'EXACT' if exact else 'MISMATCH'}")
+        for pname, rec in sorted(eps["parties"].items()):
+            print(f"  {pname}: spent={rec['spent']:.6g} "
+                  f"share={rec['share']:.6g}")
+        for d in prov.divergences:
+            print(f"  DIVERGENCE [{d['kind']}] party={d['party']}: "
+                  f"{d['detail']}")
+    if not prov.ok:
+        from dpcorr_torch.obs import recorder as obs_recorder
+
+        obs_recorder.trigger(
+            "federation_scan_violation",
+            divergences=[{"kind": d["kind"], "party": d["party"]}
+                         for d in prov.divergences])
+        sys.exit(1)
+
+
+def cmd_obs_watch(args):
+    """Live invariant sentinel: tail the durable artifacts the services
+    write — audit trails, the stream's ingest WAL and release journal,
+    budget directories, federation transcripts and session journals —
+    and re-prove ε conservation and durability incrementally, within a
+    poll of the write. Typed violations name the offending artifact, arm
+    the offender's flight recorder and page through the burn-rate
+    engine; exit 1 when this run detected anything. Restart-safe from
+    its own checkpoint."""
+    from dpcorr_torch.obs.sentinel import Sentinel
+
+    def specs(pairs, flag):
+        out = {}
+        for spec in pairs or ():
+            name, sep, value = spec.partition("=")
+            if not sep or not name or not value:
+                raise SystemExit(f"{flag} {spec!r}: expected NAME=PATH")
+            out[name] = value
+        return out
+
+    streams = specs(args.stream, "--stream")
+    audits = specs(args.audit, "--audit")
+    budget_dirs = specs(args.budget_dir, "--budget-dir")
+    transcripts = specs(args.transcripts, "--transcripts")
+    journals = specs(args.journals, "--journals")
+    urls = specs(args.url, "--url")
+    if not (streams or audits or transcripts or journals):
+        raise SystemExit("nothing to watch: pass --stream/--audit/"
+                         "--transcripts/--journals NAME=PATH")
+    for name in budget_dirs:
+        if name not in audits:
+            raise SystemExit(f"--budget-dir {name}=...: no matching "
+                             f"--audit {name}=... to fold against")
+    sentinel = Sentinel(args.checkpoint, urls=urls,
+                        instance=args.instance)
+    for name, workdir in sorted(streams.items()):
+        sentinel.add_stream(name, workdir, url=urls.get(name))
+    for name, path in sorted(audits.items()):
+        sentinel.add_audit(name, path, url=urls.get(name),
+                           budget_dir=budget_dirs.get(name))
+    for name, d in sorted(transcripts.items()):
+        sentinel.add_transcripts(name, d)
+    for name, d in sorted(journals.items()):
+        sentinel.add_journals(name, d)
+
+    obs_server = None
+    banner = {"instance": args.instance,
+              "checkpoint": args.checkpoint,
+              "watchers": sentinel.stats()["watchers"]}
+    if args.obs_port is not None:
+        from dpcorr_torch.obs.endpoint import start_obs_server
+
+        obs_server, obs_port = start_obs_server(
+            sentinel.registry, stats_fn=sentinel.stats,
+            port=args.obs_port)
+        banner["obs_port"] = obs_port
+    print(json.dumps({"sentinel": banner}), flush=True)
+
+    def on_violation(v):
+        if args.json:
+            print(json.dumps({"violation": v.to_dict()}), flush=True)
+        else:
+            print(f"VIOLATION [{v.kind}] source={v.source} "
+                  f"artifact={v.artifact}: {v.detail}", flush=True)
+    sentinel.on_violation = on_violation
+    try:
+        rc = sentinel.run(interval_s=args.interval,
+                          max_polls=1 if args.once else args.max_polls)
+    except KeyboardInterrupt:
+        rc = sentinel.rc
+    finally:
+        if obs_server is not None:
+            obs_server.shutdown()
+    if args.json:
+        print(json.dumps({"summary": sentinel.stats()}, indent=2))
+    sys.exit(rc)
+
+
 def _add_obs(sub) -> None:
-    """``obs fleet snapshot | chrome | replay``, ``obs geometry``, ``obs
-    hlo show | diff`` and ``obs trajectory`` (the JAX command's other
-    ``obs`` subcommands wait for the console, sentinel and provenance
-    ports)."""
-    po_ = sub.add_parser("obs", help="observability tooling: the fleet "
-                         "telemetry plane, the geometry cache, signature "
-                         "dumps, the bench trajectory")
+    """Every ``obs`` subcommand of ``python -m dpcorr``, with its flags,
+    outputs and exit codes. None computes on a device: they read files
+    and scrape endpoints, and import no torch."""
+    po_ = sub.add_parser("obs", help="observability tooling: audit-trail "
+                         "replay, Chrome-trace export, flight-recorder "
+                         "dumps, the live console, federation provenance, "
+                         "the invariant sentinel, the fleet telemetry "
+                         "plane, the geometry cache, signature dumps, the "
+                         "bench trajectory")
     obs_sub = po_.add_subparsers(dest="obs_cmd", required=True)
+    pob = obs_sub.add_parser("budget", help="per-party ε-spend timeline "
+                             "replayed from a ledger audit trail")
+    pob.add_argument("--audit", required=True,
+                     help="audit-trail JSONL path (serve --audit)")
+    pob.add_argument("--party", default=None,
+                     help="restrict the timeline to one party")
+    pob.add_argument("--budget-dir", dest="budget_dir", default=None,
+                     help="per-user budget directory root: fold the "
+                          "trail's sharded user/ legs and prove them "
+                          "equal to the directory's on-disk recovery "
+                          "arithmetic (exit 1 on mismatch)")
+    pob.add_argument("--json", action="store_true")
+    pob.set_defaults(fn=cmd_obs_budget)
+    poc = obs_sub.add_parser("chrome", help="convert a span JSONL log "
+                             "to Chrome trace-event JSON (Perfetto)")
+    poc.add_argument("--trace", required=True,
+                     help="span-trace JSONL path (serve --trace)")
+    poc.add_argument("--out", required=True,
+                     help="output Chrome trace JSON path")
+    poc.set_defaults(fn=cmd_obs_chrome)
+    pod = obs_sub.add_parser("dump", help="replay a flight-recorder "
+                             "dump: span chains, cost records and the "
+                             "ε trail")
+    pod.add_argument("path", help="dump path (serve --flight-recorder)")
+    pod.add_argument("--trace-id", dest="trace_id", default=None,
+                     help="reconstruct one request's span chain + "
+                          "cost record + ε trail")
+    pod.add_argument("--json", action="store_true")
+    pod.set_defaults(fn=cmd_obs_dump)
+    pot = obs_sub.add_parser("top", help="live ops console over a "
+                             "serve replica's /metrics + /stats")
+    pot.add_argument("--url", default="http://127.0.0.1:8321",
+                     help="serve base URL")
+    pot.add_argument("--interval", type=float, default=2.0,
+                     help="refresh seconds")
+    pot.add_argument("--fleet", default=None, metavar="TARGETS",
+                     help="multi-instance view: comma-separated "
+                          "name=url targets (bare urls get positional "
+                          "names); overrides --url")
+    pot.add_argument("--federation", default=None, metavar="TARGETS",
+                     help="federation view: comma-separated name=url "
+                          "targets pointing at party --obs-port "
+                          "endpoints; overrides --url and --fleet")
+    pot.add_argument("--stream", action="store_true",
+                     help="render the stream console (windows, "
+                          "watermark, ε/window) instead of the serve one")
+    pot.add_argument("--once", action="store_true",
+                     help="render one frame and exit (scripting)")
+    pot.set_defaults(fn=cmd_obs_top)
+    pop = obs_sub.add_parser(
+        "provenance", help="federation ε-provenance DAG: merge per-party "
+        "transcripts/audits/journals against the plan, prove "
+        "exactly-once charging + byte-identical reuse at the 2fε(k-1) "
+        "optimum; exit 1 names the offending party")
+    pop.add_argument("--plan", required=True,
+                     help="federation plan JSON (`federation plan` "
+                          "output or its `plan` field)")
+    pop.add_argument("--transcript-dir", dest="transcript_dir",
+                     default=None,
+                     help="directory of {session}.{party}.jsonl "
+                          "pair-link transcripts (party inferred from "
+                          "the filename)")
+    pop.add_argument("--transcript", action="append", default=None,
+                     metavar="NAME=PATH",
+                     help="explicit party transcript (repeatable; "
+                          "bare PATH infers the party from the "
+                          "filename)")
+    pop.add_argument("--audit", action="append", default=None,
+                     metavar="NAME=PATH",
+                     help="party audit trail (repeatable) — required "
+                          "to *prove* exactly-once charging rather "
+                          "than infer it from transcripts")
+    pop.add_argument("--journal-dir", dest="journal_dir", default=None,
+                     help="session-journal directory (adds resume "
+                          "lineage to round nodes)")
+    pop.add_argument("--out", default=None,
+                     help="write the provenance JSON document here")
+    pop.add_argument("--dot", default=None,
+                     help="write the Graphviz DOT rendering here")
+    pop.add_argument("--cell", default=None, metavar="I,J",
+                     help="print one cell's full story (rounds, "
+                          "artifacts, charges) instead of the summary")
+    pop.add_argument("--json", action="store_true",
+                     help="print the full document to stdout")
+    pop.set_defaults(fn=cmd_obs_provenance)
+    pow_ = obs_sub.add_parser(
+        "watch", help="live invariant sentinel: tail audit trails, "
+        "stream WAL/journal, budget dirs and transcripts; typed "
+        "violations page, arm the offender's flight recorder and set "
+        "exit 1")
+    pow_.add_argument("--checkpoint", required=True,
+                      help="the sentinel's own fsynced offset/state "
+                           "checkpoint: restarts resume mid-file and "
+                           "never re-alert on re-read")
+    pow_.add_argument("--stream", action="append",
+                      metavar="NAME=WORKDIR",
+                      help="watch a stream workdir (wal.jsonl, "
+                           "releases.jsonl, audit.jsonl, budget_dir)")
+    pow_.add_argument("--audit", action="append", metavar="NAME=PATH",
+                      help="watch a bare audit trail (serve --audit / "
+                           "party --audit)")
+    pow_.add_argument("--budget-dir", dest="budget_dir",
+                      action="append", metavar="NAME=ROOT",
+                      help="ε-conservation leg for --audit NAME: the "
+                           "directory's on-disk user balances must "
+                           "equal the trail's user/ fold")
+    pow_.add_argument("--transcripts", action="append",
+                      metavar="NAME=DIR",
+                      help="watch pair-link transcripts for re-noised "
+                           "or double-charged artifacts")
+    pow_.add_argument("--journals", action="append", metavar="NAME=DIR",
+                      help="watch session-journal snapshots for "
+                           "resume-breaking corruption")
+    pow_.add_argument("--url", action="append", metavar="NAME=URL",
+                      help="NAME's live base URL: its ledger gauges "
+                           "are scraped for the conservation check and "
+                           "its flight recorder armed (POST "
+                           "/obs/trigger) on violation")
+    pow_.add_argument("--interval", type=float, default=1.0,
+                      help="poll seconds (detection latency bound)")
+    pow_.add_argument("--max-polls", dest="max_polls", type=int,
+                      default=None, help="stop after N polls")
+    pow_.add_argument("--once", action="store_true",
+                      help="one poll, then exit with the rc")
+    pow_.add_argument("--instance", default="sentinel")
+    pow_.add_argument("--obs-port", dest="obs_port", type=int,
+                      default=None,
+                      help="the sentinel's own scrape surface "
+                           "(dpcorr_sentinel_* metrics + /stats)")
+    pow_.add_argument("--json", action="store_true")
+    pow_.set_defaults(fn=cmd_obs_watch)
     potr = obs_sub.add_parser(
         "trajectory", help="bench-trajectory dashboard: per-(device_kind, "
         "metric) series over the committed BENCH_*/MULTICHIP_*/"

@@ -273,6 +273,29 @@ def trigger(reason: str, **detail) -> str | None:
         return None
 
 
+def http_trigger(handler) -> tuple[int, dict]:
+    """The ``POST /obs/trigger`` route every front end carries (serve,
+    the stream, the mini endpoint): ``(status, JSON payload)`` for the
+    request ``handler`` (a ``BaseHTTPRequestHandler``) is serving. The
+    reason is validated against :data:`TRIGGER_REASONS` so a typo'd page
+    cannot mint an unknown reason, and ``detail`` must be an object (400
+    otherwise); a valid trigger dumps the installed recorder here, next
+    to its rings, and answers 200 ``{"dumped": path, "armed": bool}``."""
+    try:
+        length = int(handler.headers.get("Content-Length", "0"))
+        body = json.loads(handler.rfile.read(length))
+        reason = body.get("reason")
+        detail = body.get("detail") or {}
+        if reason not in TRIGGER_REASONS:
+            raise ValueError(f"unknown trigger reason {reason!r}")
+        if not isinstance(detail, dict):
+            raise ValueError("detail must be an object")
+    except (ValueError, AttributeError) as e:
+        return 400, {"error": str(e)}
+    path = trigger(reason, **{str(k): v for k, v in detail.items()})
+    return 200, {"dumped": path, "armed": active() is not None}
+
+
 # ------------------------------------------------------ reading dumps ----
 def read_dump(path: str) -> dict:
     """Load a flight-recorder dump strictly: one JSON document with the

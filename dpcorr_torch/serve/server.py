@@ -817,6 +817,12 @@ def make_http_server(server: DpcorrServer, host: str = "127.0.0.1",
                 self._send(404, {"error": f"no route {self.path}"})
 
         def do_POST(self):  # noqa: N802
+            if self.path == "/obs/trigger":
+                # a burn-rate page (obs.slo.http_trigger_hook) or the
+                # sentinel arms THIS instance's flight recorder: the
+                # dump happens here, next to the rings
+                self._send(*obs_recorder.http_trigger(self))
+                return
             if self.path != "/estimate":
                 self._send(404, {"error": f"no route {self.path}"})
                 return

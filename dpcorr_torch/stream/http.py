@@ -92,24 +92,7 @@ def make_stream_http_server(service: StreamService,
 
         def do_POST(self):  # noqa: N802
             if self.path == "/obs/trigger":
-                try:
-                    length = int(self.headers.get("Content-Length", "0"))
-                    body = json.loads(self.rfile.read(length))
-                    reason = body.get("reason")
-                    detail = body.get("detail") or {}
-                    if reason not in obs_recorder.TRIGGER_REASONS:
-                        raise ValueError(
-                            f"unknown trigger reason {reason!r}")
-                    if not isinstance(detail, dict):
-                        raise ValueError("detail must be an object")
-                except (ValueError, json.JSONDecodeError) as e:
-                    self._send(400, {"error": str(e)})
-                    return
-                path = obs_recorder.trigger(
-                    reason, **{str(k): v for k, v in detail.items()})
-                self._send(200, {"dumped": path,
-                                 "armed": obs_recorder.active()
-                                 is not None})
+                self._send(*obs_recorder.http_trigger(self))
                 return
             if self.path != "/ingest":
                 self._send(404, {"error": f"no route {self.path}"})

@@ -506,3 +506,147 @@ def test_serve_user_dir_echoes_its_options_as_jax(tmp_path):
         assert ours[k] == theirs[k], k
     with open(tmp_path / "users" / "meta.json") as fh:
         assert json.load(fh) == {"version": 1, "shards": 4}
+
+
+# --------------------------------------- obs budget | chrome | dump
+@pytest.fixture
+def obs_files(tmp_path):
+    """An audit trail, a span log and a flight-recorder dump written by the
+    port's own obs layer."""
+    from dpcorr_torch.obs.audit import AuditTrail
+    from dpcorr_torch.obs.recorder import FlightRecorder
+    from dpcorr_torch.obs.trace import Tracer
+
+    audit = str(tmp_path / "audit.jsonl")
+    trail = AuditTrail(audit)
+    trail.record("charge", {"a": 2.0, "b": 1.0}, trace_id="t0")
+    trail.record("refund", {"b": 1.0}, trace_id="t1")
+    trail.record("refusal", {"a": 50.0}, trace_id="t2", party="a",
+                 spent=2.0, budget=3.0)
+    trail.close()
+    spans = str(tmp_path / "spans.jsonl")
+    rec = FlightRecorder(str(tmp_path / "dump.json"))
+    tr = Tracer(spans)
+    tr.add_observer(rec.record_span)
+    with tr.span("serve.request"):
+        with tr.span("serve.kernel"):
+            pass
+    with tr.span("serve.request"):
+        pass
+    rec.record_audit({"seq": 0, "kind": "charge", "charges": {"a": 2.0},
+                      "trace_id": rec.snapshot("x")["spans"][0]["trace_id"]})
+    return {"audit": audit, "spans": spans,
+            "dump": rec.dump("breaker_open", bucket="ni_sign/n=128")}
+
+
+def _both_clis(argv, capsys):
+    out = []
+    for fn in (main, jax_main):
+        try:
+            fn(argv)
+            code = 0
+        except SystemExit as e:
+            code = e.code
+        out.append((code, capsys.readouterr().out))
+    assert out[0] == out[1]
+    return out[0]
+
+
+@pytest.mark.parametrize("extra", [["--json"], [],
+                                   ["--party", "a", "--json"]])
+def test_obs_budget_replays_the_trail_as_jax(obs_files, capsys, extra):
+    code, out = _both_clis(["obs", "budget", "--audit", obs_files["audit"],
+                            *extra], capsys)
+    assert code == 0
+    if extra == ["--json"]:
+        doc = json.loads(out)
+        assert doc["events"] == 3 and doc["spent"] == {"a": 2.0, "b": 0.0}
+        assert [r["trace_id"] for r in doc["timeline"]] == ["t0", "t1", "t2"]
+    elif extra:
+        doc = json.loads(out)
+        assert doc["spent"] == {"a": 2.0}
+        assert [r["seq"] for r in doc["timeline"]] == [0, 2]
+    else:
+        assert "refusal" in out and "replayed spend" in out
+
+
+def test_obs_budget_proves_a_budget_directory(tmp_path, capsys):
+    """``--budget-dir`` folds the trail's user legs against the port's
+    directory: OK and exit 0 when they agree; a forged user charge in the
+    trail exits 1 naming the user, in both packages alike."""
+    from dpcorr_torch.obs.audit import AuditTrail
+    from dpcorr_torch.serve.budget_dir import BudgetDirectory
+
+    root = str(tmp_path / "users")
+    bd = BudgetDirectory(root, user_budget=50.0, shards=4)
+    bd.charge("alice", 0.8, charge_id="c1")
+    bd.charge("bob", 0.25, charge_id="c2")
+    bd.close()
+    audit = str(tmp_path / "audit.jsonl")
+    trail = AuditTrail(audit)
+    trail.record("charge", {"user/alice": 0.8}, trace_id="c1",
+                 charge_id="c1")
+    trail.record("charge", {"user/bob": 0.25}, trace_id="c2",
+                 charge_id="c2")
+    argv = ["obs", "budget", "--audit", audit, "--budget-dir", root]
+    code, out = _both_clis(argv + ["--json"], capsys)
+    assert code == 0
+    assert json.loads(out)["budget_dir"] == {
+        "ok": True, "users": 2, "replayed_users": 2, "mismatches": []}
+    trail.record("charge", {"user/alice": 3.0}, trace_id="z",
+                 charge_id="forged")
+    trail.close()
+    code, out = _both_clis(argv, capsys)
+    assert code == 1
+    assert "MISMATCH" in out and "alice: replayed 3.8 != directory 0.8" in out
+
+
+def test_obs_chrome_writes_the_jax_trace(obs_files, tmp_path, capsys):
+    outs = {}
+    for pkg, fn in (("port", main), ("jax", jax_main)):
+        path = str(tmp_path / f"chrome.{pkg}.json")
+        fn(["obs", "chrome", "--trace", obs_files["spans"], "--out", path])
+        assert capsys.readouterr().out == f"wrote {path} (3 spans)\n"
+        with open(path) as f:
+            outs[pkg] = json.load(f)
+    assert outs["port"] == outs["jax"]
+    names = [e["name"] for e in outs["port"]["traceEvents"]
+             if e.get("ph") == "X"]
+    assert sorted(names) == ["serve.kernel", "serve.request",
+                             "serve.request"]
+
+
+@pytest.mark.parametrize("trace", [False, True])
+@pytest.mark.parametrize("as_json", [False, True])
+def test_obs_dump_replays_as_jax(obs_files, capsys, trace, as_json):
+    from dpcorr_torch.obs.recorder import read_dump
+
+    dump = read_dump(obs_files["dump"])
+    tid = dump["spans"][0]["trace_id"]
+    argv = ["obs", "dump", obs_files["dump"]]
+    argv += ["--trace-id", tid] if trace else []
+    argv += ["--json"] if as_json else []
+    code, out = _both_clis(argv, capsys)
+    assert code == 0
+    if trace and as_json:
+        story = json.loads(out)
+        assert [s["name"] for s in story["spans"]] == ["serve.request",
+                                                       "serve.kernel"]
+        assert story["eps_net"] == {"a": 2.0}
+    elif trace:
+        assert out.startswith(f"trace {tid} (2 spans)")
+    elif as_json:
+        doc = json.loads(out)
+        assert doc["reason"] == "breaker_open" and doc["spans"] == 3
+        assert len(doc["trace_ids"]) == 2
+    else:
+        assert out.startswith("flight-recorder dump: reason=breaker_open")
+
+
+def test_obs_file_commands_run_without_torch(obs_files, tmp_path):
+    for argv in (["obs", "budget", "--audit", obs_files["audit"], "--json"],
+                 ["obs", "dump", obs_files["dump"], "--json"],
+                 ["obs", "chrome", "--trace", obs_files["spans"], "--out",
+                  str(tmp_path / "c.json")]):
+        proc = _no_torch(argv, tmp_path)
+        assert proc.returncode == 0, proc.stderr

@@ -1463,3 +1463,118 @@ def test_out_of_range_pinned_seed_refused_before_the_charge(seed, tmp_path):
     finally:
         srv.close()
         jsrv.close()
+
+
+# ------------------------------------------------- POST /obs/trigger ----
+
+def _page(instance):
+    from dpcorr_torch.obs.slo import Alert
+
+    return Alert(objective="latency", instance=instance, severity="page",
+                 previous="ok", burn_short=20.0, burn_long=15.0,
+                 window=("page", 300.0, 3600.0, 14.4), at=0.0)
+
+
+def test_slo_page_over_http_dumps_the_serve_replica(tmp_path):
+    """A burn-rate page sent through ``obs.slo.http_trigger_hook`` to a
+    ``serve`` replica with a flight recorder installed dumps that
+    recorder, inside the replica, with ``slo_page`` in its history."""
+    from dpcorr_torch.obs import recorder
+    from dpcorr_torch.obs.slo import http_trigger_hook
+
+    rec = recorder.FlightRecorder(str(tmp_path / "dump.json"))
+    srv = _server(audit=AuditTrail())
+    srv.attach_recorder(rec)
+    httpd, base = _start_http(srv)
+    try:
+        srv.estimate(_mk_req(seed=4), timeout=60)
+        http_trigger_hook({"r0": base})(_page("r0"))
+        assert rec.reasons == ["slo_page"]
+        doc = recorder.read_dump(rec.path)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.close()
+        recorder.install(None)
+        rec.detach_logging("dpcorr")
+    assert doc["reason"] == "slo_page"
+    assert doc["detail"]["instance"] == "r0"
+    assert doc["detail"]["objective"] == "latency"
+    assert [e["kind"] for e in doc["audit"]] == ["charge"]
+
+
+def _post_raw(url, blob):
+    try:
+        with urllib.request.urlopen(urllib.request.Request(
+                url, data=blob,
+                headers={"Content-Type": "application/json"})) as r:
+            return r.status, json.load(r)
+    except urllib.error.HTTPError as e:
+        return e.code, json.load(e)
+
+
+def test_obs_trigger_codes_and_bodies_match_jax(tmp_path):
+    """The route's answers against the JAX server's on the same bodies:
+    200 ``{"dumped", "armed"}`` for a known reason (with and without a
+    recorder installed), 400 naming an unknown reason or a non-object
+    ``detail``, 404 for any other POST route."""
+    from dpcorr.obs import recorder as jrecorder
+    from dpcorr_torch.obs import recorder
+
+    bodies = [
+        ({"reason": "slo_page", "detail": {"objective": "o"}}, True),
+        ({"reason": "sentinel_violation"}, True),
+        ({"reason": "bogus"}, True),
+        ({"reason": "cli", "detail": [1, 2]}, True),
+        ({"reason": "cli"}, False),
+    ]
+    answers = {}
+    for pkg, mod, make, srv in (
+            ("port", recorder, make_http_server, _server()),
+            ("jax", jrecorder, jserve.make_http_server,
+             jserve.DpcorrServer(budget=1e6, max_delay_s=0.001,
+                                 shard="off"))):
+        rec = mod.FlightRecorder(str(tmp_path / f"{pkg}.json"))
+        httpd = make(srv, host="127.0.0.1", port=0)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        got = []
+        try:
+            for body, armed in bodies:
+                mod.install(rec if armed else None)
+                code, doc = _post_raw(f"{base}/obs/trigger",
+                                      json.dumps(body).encode())
+                if "dumped" in doc:
+                    doc["dumped"] = doc["dumped"] is not None
+                got.append((code, doc))
+            got.append(_post_raw(f"{base}/obs/trigger", b"{not json"))
+            got.append(_post_raw(f"{base}/nope", b"{}"))
+            got.append(rec.reasons)
+        finally:
+            mod.install(None)
+            httpd.shutdown()
+            httpd.server_close()
+            srv.close()
+        answers[pkg] = got
+    port = answers["port"]
+    assert [c for c, _ in port[:7]] == [200, 200, 400, 400, 200, 400, 404]
+    assert port[0][1] == {"dumped": True, "armed": True}
+    assert port[4][1] == {"dumped": False, "armed": False}
+    assert port[2][1] == {"error": "unknown trigger reason 'bogus'"}
+    assert port[7] == ["slo_page", "sentinel_violation"]
+    port[5][1]["error"] = answers["jax"][5][1]["error"] = "<decode error>"
+    assert port == answers["jax"]
+
+
+def test_obs_trigger_refuses_a_body_that_is_not_an_object():
+    """A JSON body that is not an object gets a 400 (the JAX handler's
+    ``body.get`` raises there and the connection drops unanswered)."""
+    srv = _server()
+    httpd, base = _start_http(srv)
+    try:
+        code, doc = _post_raw(f"{base}/obs/trigger", b"[1, 2]")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        srv.close()
+    assert code == 400 and "object has no attribute 'get'" in doc["error"]

@@ -157,7 +157,8 @@ def test_port_imports_neither_jax_nor_dpcorr():
     assert REPO / "dpcorr_torch" / "chaos.py" in files
     for mod in ("utils/geometry.py", "utils/roofline.py",
                 "utils/profiling.py", "utils/doctor.py", "obs/prof.py",
-                "obs/devicemon.py", "obs/hlo.py", "obs/trajectory.py"):
+                "obs/devicemon.py", "obs/hlo.py", "obs/trajectory.py",
+                "obs/console.py", "obs/provenance.py", "obs/sentinel.py"):
         assert REPO / "dpcorr_torch" / mod in files
     assert FIGURES in files
     for path in files:
