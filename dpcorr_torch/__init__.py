@@ -9,6 +9,16 @@ The package exports resolve lazily (PEP 562), so the torch-free parts
 scan``) import where torch is not installed.
 """
 
+import os as _os
+
+if _os.environ.get("DPCORR_SYNCWATCH") == "1":
+    # before any port module allocates a lock: the witness wraps the
+    # threading.Lock/RLock factories, and only locks created after
+    # enable() are watched
+    from dpcorr_torch.utils import syncwatch as _syncwatch
+
+    _syncwatch.enable()
+
 _EXPORTS = {
     "KERNEL_LAUNCHES": "dpcorr_torch.ops.fused_ni",
     "fused_ni_sums": "dpcorr_torch.ops.fused_ni",

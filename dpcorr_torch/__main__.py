@@ -39,10 +39,14 @@ Counterpart of the simulation commands of ``python -m dpcorr``:
 - ``doctor``      environment health triage (cards, ``nvcc``, the build
   cache, stray processes holding a card; ``--probe`` initialises CUDA in
   a subprocess)
+- ``lint``        the AST-based privacy/RNG/concurrency invariant checker
+  over the port's own source (``dpcorr_torch.analysis``); ``--deep`` adds
+  the call-graph families, ``--witness DIR`` diffs runtime lock-order
+  artifacts (``DPCORR_SYNCWATCH=1``) against the static lock model
 
 Every command but ``report``, ``protocol scan``, ``federation plan``,
-``federation scan``, ``fleet front``, ``obs`` and ``doctor`` (which
-compute nothing)
+``federation scan``, ``fleet front``, ``obs``, ``doctor`` and ``lint``
+(which compute nothing)
 runs on the card (``--device cuda``, the default) and raises without one
 unless ``--device cpu`` is given; ``fleet up`` and ``chaos`` pass their
 ``--device`` on to the processes they start. Grids
@@ -2369,6 +2373,22 @@ def _add_doctor(sub) -> None:
     pd_.set_defaults(fn=cmd_doctor)
 
 
+def cmd_lint(args):
+    from dpcorr_torch.analysis import cli as lint_cli
+
+    sys.exit(lint_cli.run(args))
+
+
+def _add_lint(sub) -> None:
+    from dpcorr_torch.analysis import cli as lint_cli
+
+    pl_ = sub.add_parser("lint", help="AST-based privacy/RNG/concurrency "
+                         "invariant checker over the port's own source "
+                         "(imports no torch)")
+    lint_cli.add_arguments(pl_)
+    pl_.set_defaults(fn=cmd_lint)
+
+
 def _add_device(p) -> None:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to run: the card (default; raises without "
@@ -2888,6 +2908,7 @@ def main(argv=None):
     _add_chaos(sub)
     _add_obs(sub)
     _add_doctor(sub)
+    _add_lint(sub)
     _add_federation(sub)
     _add_stream(sub)
     args = ap.parse_args(argv)

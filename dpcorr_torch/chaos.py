@@ -249,7 +249,7 @@ def clear() -> None:
 
 
 def active() -> ChaosPlan | None:
-    # unlocked read: benign stale read (racing disarm)
+    # dpcorr-lint: ignore[lock-unguarded-read] — benign stale read (racing disarm)
     return _plan
 
 
@@ -258,7 +258,7 @@ def point(name: str) -> None:
     point (and this thread, for thread-scoped plans); on the planned
     traversal the process dies (``exit``) or :class:`SimulatedCrash`
     propagates (``raise``)."""
-    # unlocked read: hot-path probe, re-checked under _lock
+    # dpcorr-lint: ignore[lock-unguarded-read] — hot-path probe, re-checked under _lock
     plan = _plan
     if plan is None:
         return
@@ -422,7 +422,7 @@ def fault(name: str) -> None:
     """Declare one fault site. No-op unless an armed plan names this
     point and the traversal falls in its firing window; then sleep
     (``sleep``) or raise :class:`SimulatedFault` (``fail``)."""
-    # unlocked read: hot-path probe, re-read under _lock
+    # dpcorr-lint: ignore[lock-unguarded-read] — hot-path probe, re-read under _lock
     if not _fault_plans:
         return
     if name not in _KNOWN_FAULTS:

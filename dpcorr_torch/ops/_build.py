@@ -132,5 +132,6 @@ def load(name: str) -> ctypes.CDLL:
     first use."""
     with _LOCK:
         if name not in _LIBS:
+            # dpcorr-lint: ignore[blocking-under-lock] — one build per library per process: a second loader waits for the compile instead of racing it
             _LIBS[name] = ctypes.CDLL(str(build_all([name])[name]))
         return _LIBS[name]

@@ -94,6 +94,7 @@ def batch_plan(xy: np.ndarray, windows: int = 4,
             shard = "a" if b % 2 == 0 else "b"
             ts = w * WINDOW_S + (b + 0.5) * WINDOW_S \
                 / (batches_per_window + 1)
+            # dpcorr-lint: ignore[sync-in-loop] — host rows: no device value in reach
             out.append((f"shard-{shard}:w{w}b{b}", ts, part.tolist()))
     out.append(("heartbeat:final", windows * WINDOW_S + 1e6, []))
     return out
@@ -161,6 +162,7 @@ def release_cost(xy, family: str, device, reps: int) -> dict:
     release_once(xy, family, device)
     times = []
     for _ in range(reps):
+        # dpcorr-lint: ignore[sync-in-loop] — timing barrier: the clock starts on an idle card
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         release_once(xy, family, device)

@@ -438,6 +438,7 @@ class Coalescer:
         for kkey, ps in by_kernel.items():
             # flush spans ride the launch list; each ends when its
             # future resolves
+            # dpcorr-lint: ignore[span-no-finally] — flush spans ride the launch list; each ends when its future resolves
             fspans = [self.tracer.start_span(
                 "serve.flush", parent=p.span.context,
                 family=kkey.family, n=kkey.n, batch_size=len(ps))
@@ -449,6 +450,7 @@ class Coalescer:
                 continue
             # the kernel span covers dispatch → fetch; it ends at the
             # fetch barrier below
+            # dpcorr-lint: ignore[span-no-finally] — kernel span spans dispatch→fetch; ends at the fetch barrier below
             ksp = self.tracer.start_span(
                 "serve.kernel", parent=fspans[0],
                 family=kkey.family, n=kkey.n, batch_size=len(ps))

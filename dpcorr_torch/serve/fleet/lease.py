@@ -249,6 +249,7 @@ class LeaseManager:
             epoch = (int(cur["epoch"]) if cur is not None else 0) + 1
             claim = self._claim_path(shard, epoch)
             # the claim must be durable before the grant proceeds
+            # dpcorr-lint: ignore[blocking-under-lock] — the claim must be durable before the grant proceeds
             if not self._win_claim(claim, now):
                 return False
             # claim won but nothing granted yet: a crash here (the
@@ -261,6 +262,7 @@ class LeaseManager:
                    "epoch": epoch, "granted_at": now,
                    "expires_at": now + self.ttl_s}
             # the lease must be durable before the grant is visible
+            # dpcorr-lint: ignore[blocking-under-lock] — the lease must be durable before the grant is visible
             _atomic_write(self._lease_path(shard), json.dumps(rec))
             try:
                 os.unlink(claim)
@@ -294,6 +296,7 @@ class LeaseManager:
             rec["renewed_at"] = now
             rec["expires_at"] = now + self.ttl_s
             # the heartbeat must be durable before the grant is extended
+            # dpcorr-lint: ignore[blocking-under-lock] — the heartbeat must be durable before the grant is extended
             _atomic_write(self._lease_path(shard), json.dumps(rec))
             mine["expires_at"] = rec["expires_at"]
             self._count("renewed")
@@ -302,11 +305,13 @@ class LeaseManager:
     def renew_all(self) -> int:
         with self._lock:
             # each renew's durable write is the heartbeat itself
+            # dpcorr-lint: ignore[blocking-under-lock] — each renew's durable write is the heartbeat itself
             return sum(self.renew(s) for s in sorted(self._mine))
 
     def _lost(self, shard: int) -> None:
         # callers hold _lock (an RLock); not re-taken, so on_lost sees
         # the same hold depth
+        # dpcorr-lint: ignore[lock-unguarded-write] — callers hold _lock (RLock); not re-taken so on_lost sees the same hold depth
         self._mine.pop(shard, None)
         self._count("lost")
         if self._on_lost is not None:
@@ -344,6 +349,7 @@ class LeaseManager:
                     else self.acquire_on_demand)
             # on-demand takeover: the admission path waits out the
             # durable grant
+            # dpcorr-lint: ignore[blocking-under-lock] — on-demand takeover: the admission path must wait out the durable grant
             if want and self.acquire(shard):
                 return
             self._count("refused")
@@ -375,6 +381,7 @@ class LeaseManager:
                 rec["expires_at"] = self.clock()
                 rec["released"] = True
                 # the handback must be durable before the journal closes
+                # dpcorr-lint: ignore[blocking-under-lock] — the handback must be durable before the journal closes
                 _atomic_write(self._lease_path(shard), json.dumps(rec))
             self._count("released")
             if self._on_lost is not None:
@@ -384,6 +391,7 @@ class LeaseManager:
         with self._lock:
             for shard in sorted(self._mine):
                 # each release's durable write is the handback itself
+                # dpcorr-lint: ignore[blocking-under-lock] — each release's durable write is the handback itself
                 self.release(shard)
 
     # -- views -------------------------------------------------------

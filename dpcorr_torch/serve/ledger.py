@@ -272,6 +272,7 @@ class PrivacyLedger:
                     self._charge_ids.pop(next(iter(self._charge_ids)))
             chaos.point("ledger.pre_persist")
             # spend must be durable before the ack leaves the lock
+            # dpcorr-lint: ignore[blocking-under-lock] — spend must be durable before the ack leaves the lock
             self._persist_locked()
             chaos.point("ledger.post_persist")
             # observers fire only after the spend is durably on disk —
@@ -324,6 +325,7 @@ class PrivacyLedger:
             if charge_id is not None:
                 self._charge_ids.pop(charge_id, None)
             # refund must be durable before the ack leaves the lock
+            # dpcorr-lint: ignore[blocking-under-lock] — refund must be durable before the ack leaves the lock
             self._persist_locked()
             if self._events is not None:
                 self._events.inc(kind="refund")

@@ -145,10 +145,13 @@ def pinned_request_key(master, req: EstimateRequest,
     exactly reproducible. ``master`` is a port key; returns the (2,)
     int64 key on the CPU, bit-equal to
     ``dpcorr.serve.server.pinned_request_key``."""
+    # dpcorr-lint: ignore[rng-raw-api] — rng.stream on host words: no launch, bit-equal to the JAX key
     w = rng.fold_in_words(_master_words(master),
                           rng.stream_index("serve/pinned"))
+    # dpcorr-lint: ignore[rng-raw-api] — rng.design_key on host words, as above
     w = rng.fold_in_words(w, seed)
     for d in request_digest_words(req):
+        # dpcorr-lint: ignore[rng-raw-api] — rng.design_key on host words, as above
         w = rng.fold_in_words(w, d)
     return _key_tensor(w)
 
@@ -156,8 +159,10 @@ def pinned_request_key(master, req: EstimateRequest,
 def boot_request_key(master, nonce: int, counter: int) -> torch.Tensor:
     """Noise key of a server-assigned stream: ``stream(master,
     "serve/boot") → fold_in(nonce) → fold_in(counter)``, on the CPU."""
+    # dpcorr-lint: ignore[rng-raw-api] — rng.stream on host words, as above
     w = rng.fold_in_words(_master_words(master),
                           rng.stream_index("serve/boot"))
+    # dpcorr-lint: ignore[rng-raw-api] — rng.design_key twice on host words, as above
     return _key_tensor(rng.fold_in_words(rng.fold_in_words(w, nonce),
                                          counter))
 
@@ -437,6 +442,7 @@ class DpcorrServer:
             if err is None:
                 # done-callback: fut is already settled, result() cannot
                 # block under the lock
+                # dpcorr-lint: ignore[blocking-under-lock] — done-callback: fut is already settled, result() cannot block
                 self._idem_done[idem] = fut.result()
                 self._idem_done.move_to_end(idem)
                 while len(self._idem_done) > self._idem_cap:
@@ -514,6 +520,7 @@ class DpcorrServer:
         key = self._request_key(req, seed)
         # the request's root span closes on the flush thread when the
         # response lands
+        # dpcorr-lint: ignore[span-no-finally] — request root span; closes on the flush thread when the response lands
         root = self.tracer.start_span("serve.request", family=req.family,
                                       n=req.n, seed=seed)
         # the cost record opens with the root span and shares its trace

@@ -320,6 +320,7 @@ def _run_detail_flat_eps(cfg_noeps: SimConfig, keys: torch.Tensor,
 def summarize(detail: Mapping[str, torch.Tensor], rho: float) -> dict:
     """Reference summary rows (vert-cor.R:421-443): per method mse, bias,
     var, coverage, ci_length. One device-to-host copy, then f64."""
+    # dpcorr-lint: ignore[sync-in-loop] — after the run, one copy per detail field (ROADMAP perf_opt: one stacked copy)
     host = {k: v.detach().cpu().numpy().astype(np.float64)
             for k, v in detail.items()}
     out = {}

@@ -303,6 +303,7 @@ class StreamService:
                 self._batches.inc(kind="late")
                 raise
             # WAL-before-ack: the batch is durable before the ack forms
+            # dpcorr-lint: ignore[blocking-under-lock] — WAL-before-ack: the batch is durable before the ack forms
             seq = self.wal.append(batch_id, float(ts), rows)
             chaos.point("stream.mid_window")
             self._seen.add(batch_id)
@@ -310,6 +311,7 @@ class StreamService:
             if rows:
                 self._rows.inc(len(rows))
             # release charge+journal must serialize with admission
+            # dpcorr-lint: ignore[blocking-under-lock] — release charge+journal must serialize with admission
             released, refused = self._close_ready_locked()
             self._publish_gauges_locked()
             return {"ok": True, "deduped": False, "seq": seq,

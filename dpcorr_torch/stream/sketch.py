@@ -107,6 +107,7 @@ def _words(key) -> tuple[int, int]:
 
 def _sub(words: tuple[int, int], name: str) -> tuple[int, int]:
     """``rng.stream`` on host words."""
+    # dpcorr-lint: ignore[rng-raw-api] — rng.stream on host words: no launch, bit-equal to the tensor key
     return rng.fold_in_words(words, rng.stream_index(name))
 
 
@@ -593,6 +594,7 @@ def _estimate_parts(xy_pad, params: ReleaseParams, grid: ChunkGrid,
         kern = _int_sign_kernel(
             "sign_norm" if params.normalise else "sign_raw", grid.n_chunk)
         return [kern(chunk(c), c, grid.n,
+                     # dpcorr-lint: ignore[rng-raw-api] — rng.chunk_key on host words, as _sub
                      _key_on(rng.fold_in_words(flip_base, c), device),
                      p_keep, mo if params.normalise else None)
                 for c in ids]
@@ -602,6 +604,7 @@ def _estimate_parts(xy_pad, params: ReleaseParams, grid: ChunkGrid,
     eps_s = f32_on(eps_s, device)
     kern = _int_subg_kernel(bool(sender_is_x), grid.n_chunk)
     return [kern(chunk(c), c, grid.n,
+                 # dpcorr-lint: ignore[rng-raw-api] — rng.chunk_key on host words, as _sub
                  _key_on(rng.fold_in_words(noise_base, c), device),
                  lam_s, lam_r, eps_s) for c in ids]
 

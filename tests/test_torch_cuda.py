@@ -250,6 +250,29 @@ def test_fused_grid_launches_once_per_bucket(cuda, tmp_path):
 
 
 @pytest.mark.cuda
+def test_witnessed_fused_grid_bit_equal_to_unwatched(cuda):
+    """The fused grid under the lock witness (``DPCORR_SYNCWATCH``'s
+    wrapper) launches K1 once per bucket as without it, gives the same
+    table bit for bit, and the witness saw the run's port locks."""
+    from dpcorr_torch.utils import syncwatch
+
+    gc = grid.GridConfig(**GRID2, backend="bucketed", fused="auto")
+    want = grid.run_grid(gc)
+    before = fused_ni.KERNEL_LAUNCHES["fused_ni"]
+    syncwatch.enable()
+    try:
+        got = grid.run_grid(gc)
+        snap = syncwatch.snapshot()
+    finally:
+        syncwatch.disable()
+    assert fused_ni.KERNEL_LAUNCHES["fused_ni"] == before + 2
+    assert any(site.startswith("dpcorr_torch/plan/") for site in snap["locks"])
+    assert snap["inversions"] == []
+    for col, v in want.detail_all.items():
+        np.testing.assert_array_equal(got.detail_all[col], v)
+
+
+@pytest.mark.cuda
 def test_unfused_grid_card_agrees_with_cpu(cuda):
     """The unfused bucketed grid launches no kernel, and the card agrees
     with the CPU on the same keys for at least 99% of rows."""
