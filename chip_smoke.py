@@ -7,8 +7,10 @@ north-star workload (n = 10⁴ Gaussian pair → NI sign-batch estimate + CI →
 
 1. card name and power limit (``nvidia-smi``);
 2. builds every kernel from ``dpcorr_torch/csrc`` (one ``nvcc`` per source,
-   started together) and prints what ``ptxas`` reports for each variant
-   (registers, stack frame, spills; the main-path variant must not spill);
+   started together) and prints what ``ptxas`` reports for each of K1's
+   48 variants (16 modes × planes with the batch noise in shared memory,
+   planes with the noise drawn in the sweep, no planes; registers, stack
+   frame, spills; the main-path variant must not spill);
 3. holds the fused kernel against its plain PyTorch version in all 16
    modes (8 flag combinations × external or in-kernel uniforms) at every
    lane-group layout the kernel branches on (m' = 1, 8, 16 with leftovers,
@@ -21,7 +23,8 @@ north-star workload (n = 10⁴ Gaussian pair → NI sign-batch estimate + CI →
 4. the unfused path: ``RepBlockPipeline`` on the key-tree, 2¹⁶ reps;
 5. the fused path: the same pipeline through the kernel's in-kernel
    Philox mode, 2²⁰ reps, and ``sim_detail_fused`` (NI + INT), 2¹⁶ reps,
-   with the kernel's launch count read around this phase;
+   with the kernel's launch count and the stage ladder's (which must be
+   0: it is a diagnostic) read around this phase;
 6. gates: coverage in [0.90, 0.99] on every path; fused against unfused
    mse and ci_len within 5% and coverage within 0.01; fused INT against
    the unfused ``run_sim_one``; launches > 0;
@@ -331,6 +334,44 @@ north-star workload (n = 10⁴ Gaussian pair → NI sign-batch estimate + CI →
     (d) ``fastnorm.gen_gaussian_bm`` at n = 10⁶ on the card within 1e-5
         of the CPU per element, its sample correlation within 0.005 of
         ρ = 0.5, and its time.
+20. K1's stage ladder (``dpcorr_torch.bisect``, ``ops/ladder.py`` →
+    ``csrc/fused_ni_ladder.cu``, the counterpart of
+    ``benchmarks/pallas_bisect.py``'s kernel) and K1 above its
+    shared-memory cap on the planes:
+    (a) ``ptxas`` registers and spills of the ladder's 14 variants (L1-L5
+        × external or in-kernel bits, L4-L5 with planes and without); the
+        ladder kernel against its plain version at L1-L5, B = 256 random
+        bits, at n = 1000, 10⁴, the m' = 16 layout and n = 40,000 (L4-L5
+        without planes): every replication within 1e-5 × Σ|terms| at
+        L1-L4, ≥ 99% at L5 (a sign at a tie moves it by 1/m); in-kernel
+        mode bit-equal to external mode on ``philox_bits``; where the
+        planes fit, L4-L5's variant without them forced bit-equal to the
+        one with them in both modes; the bisect's L4-L5 probes in
+        process at n = 40,000;
+    (b) each level's ms at B = 2¹⁴, n = 10⁴, in-kernel (L6 = K1 at the
+        same shape, L7 = K1 at B = 4096), its plain version's ms, its
+        bound (``utils.roofline.ladder_pipe_ops``) and the increment from
+        the level before; L6 within 10% of phase 7's K1 time;
+    (c) ``python -m dpcorr_torch.bisect`` as a process, started beside
+        phase 19 and waited on before (b)'s times, the launch counts its
+        probes report read from its report: health OK, seven probes ok
+        and finite, no culprit, the ladder launched once in each of L1-L5
+        and K1 once in each of L6-L7 (the probes' own ms, taken beside
+        phase 19, are not printed);
+    (d) K1's variant without planes against its plain version in all 16
+        modes at n = 28,673 (NI) / 25,601 (INT), 40,000 and 10⁵ at
+        ε = (1, 1), and 10⁵ at ε = (0.25, 0.25) (m = m' = 128), B = 256,
+        as phase 3 holds the variant with planes; the variant forced at
+        every phase 3 layout (n ≤ 20,000) bit-equal to the one with
+        planes in all 16 modes; its in-kernel NI time at n = 10⁵,
+        B = 2¹⁴ and n = 10⁶, B = 2¹⁰ beside its bound;
+    (e) the v1 sign grid cut to one bucket at n = 40,000, ε = (1, 1)
+        (8 ρ × 250), ``fused="auto"`` then ``"off"``, the launch counts
+        set to 0 before each arm and read after it: one K1 launch, of the
+        variant without planes, where the earlier gate (``fits_on_chip``)
+        sent the bucket unfused (0 launches); coverage in [0.90, 0.99]
+        per method and arm; the arms' mean ρ̂ − ρ within 4 Monte-Carlo
+        standard errors.
 
 Every failure raises. The last line is the device record; before it come
 the per-kernel JSON record and the card line. Run from the repository
@@ -343,7 +384,6 @@ from __future__ import annotations
 
 import json
 import math
-import re
 import sys
 import threading
 import time
@@ -421,8 +461,8 @@ STREAM_REPS = 2048
 SUBG_CHUNK = 8192
 
 #: the main-path variant's template flags (external, INT, ndtri, normalise,
-#: noise in shared memory)
-MAIN_VARIANT = (0, 0, 0, 1, 1)
+#: noise in shared memory, planes in shared memory)
+MAIN_VARIANT = (0, 0, 0, 1, 1, 1)
 
 #: phase 9: the reference's grids at their published sizes, B = 250 per
 #: point (vert-cor.R:486-499, ver-cor-subG.R:245)
@@ -502,30 +542,13 @@ SIGN_ACCEPTANCE = {
 }
 
 
-def ptxas_report(log: str) -> dict:
-    """``{(external, int, ndtri, normalise, noise in shared memory):
-    (registers, stack frame, spill stores, spill loads)}`` for each
-    kernel variant, from ``nvcc -Xptxas=-v`` output."""
-    report, entry, frame = {}, None, (0, 0, 0)
-    for line in log.splitlines():
-        if hit := re.search(r"Compiling entry function '(\S+)'", line):
-            entry, frame = hit.group(1), (0, 0, 0)
-        elif hit := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                              r"stores, (\d+) bytes spill loads", line):
-            frame = tuple(int(v) for v in hit.groups())
-        elif (hit := re.search(r"Used (\d+) registers", line)) and entry:
-            flags = tuple(int(v) for v in re.findall(r"Lb([01])E", entry))
-            report[flags] = (int(hit.group(1)), *frame)
-            entry = None
-    return report
-
-
 def mode_label(flags) -> str:
-    ext, ci, nd, norm, noise_smem = flags
+    ext, ci, nd, norm, noise_smem, planes = flags
     return (f"{'external' if ext else 'philox'} {'NI+INT' if ci else 'NI'} "
             f"{'ndtri' if nd else 'boxmuller'} "
             f"{'normalise' if norm else 'raw'} "
-            f"noise in {'smem' if noise_smem else 'sweep'}")
+            + (f"noise in {'smem' if noise_smem else 'sweep'}" if planes
+               else "no planes"))
 
 
 def within_tolerance(got, want):
@@ -535,21 +558,22 @@ def within_tolerance(got, want):
     return close & torch.isclose(got[:, 2], want[:, 2], rtol=0.0, atol=1e-5)
 
 
-def compare_mode(n: int, eps, kw: dict, gen, rho):
-    """One mode at one geometry, B = ``COMPARE_B``: per uniform source
-    (external random, in-kernel Philox laid out by its plain twin) the
-    share of replications within tolerance of the plain version and the
-    largest |error| per output; and whether in-kernel mode equals external
-    mode on ``philox_uniforms`` bit for bit."""
+def compare_mode(n: int, eps, kw: dict, gen, rho, b: int = COMPARE_B):
+    """One mode at one geometry, ``b`` replications (``rho`` of that
+    length): per uniform source (external random, in-kernel Philox laid
+    out by its plain twin) the share of replications within tolerance of
+    the plain version and the largest |error| per output; and whether
+    in-kernel mode equals external mode on ``philox_uniforms`` bit for
+    bit."""
     from dpcorr_torch.ops import fused_ni
 
     rows = fused_ni.n_uniform_rows(n, *eps, kw["compute_int"])
     # dpcorr-lint: ignore[rng-raw-api] — random uniforms to hold the kernel's external mode against its plain version, not DP noise
-    u = torch.rand(COMPARE_B, rows, 128, device="cuda",
+    u = torch.rand(b, rows, 128, device="cuda",
                    generator=gen) * (1 - 2e-7) + 1e-7
-    zeros = torch.zeros(COMPARE_B, 2, dtype=torch.int32, device="cuda")
+    zeros = torch.zeros(b, 2, dtype=torch.int32, device="cuda")
     # dpcorr-lint: ignore[rng-raw-api] — random seeds for the same comparison, not DP noise
-    seeds = torch.randint(-2**31, 2**31, (COMPARE_B, 2), generator=gen,
+    seeds = torch.randint(-2**31, 2**31, (b, 2), generator=gen,
                           device="cuda", dtype=torch.int64).to(torch.int32)
     pu = fused_ni.philox_uniforms(seeds, n, *eps, kw["compute_int"],
                                   kw["normalise"])
@@ -4732,13 +4756,463 @@ def witness_phase(card: str, want_grid, work: str,
     return parts
 
 
+# ------------------------------------------------------------ phase 20 ----
+#: phase 20a: the ladder's comparison layouts (m' = 8 at n = 1000 and
+#: 10⁴, m = 11 in m' = 16 with leftovers, and m' = 8 at n = 40,000, where
+#: L4-L5 keep no planes) and replications
+LADDER_GEOMETRIES = [(1_000, (1.0, 1.0)), (10_000, (1.0, 1.0)),
+                     (9_000, (1.5, 0.5)), (40_000, (1.0, 1.0))]
+LADDER_B = 256
+#: phase 20b: K1's probe shape (the script's L7)
+LADDER_BIG_B = 4096
+#: phase 20d: (n, ε, compute_int) above the cap on the planes, at phase
+#: 3's B = 256 (external uniforms: 1.6-2 MB a replication at n = 10⁵, so
+#: 0.4-0.5 GB a case); the timed in-kernel shapes (n, B)
+REGEN_CASES = [(28_673, (1.0, 1.0), False), (25_601, (1.0, 1.0), True),
+               (40_000, (1.0, 1.0), False), (40_000, (1.0, 1.0), True),
+               (100_000, (1.0, 1.0), False), (100_000, (1.0, 1.0), True),
+               (100_000, (0.25, 0.25), False),
+               (100_000, (0.25, 0.25), True)]
+REGEN_B = COMPARE_B
+REGEN_TIMED = [(100_000, 1 << 14), (1_000_000, 1 << 10)]
+#: phase 20e: the one-bucket grid above the cap
+CAP_GRID_N = 40_000
+BISECT_TIMEOUT_S = 900
+
+
+def ladder_levels_ptxas(card: str) -> dict:
+    """20a(1): ``ptxas`` registers and spills of the ladder's 14 variants
+    (L4-L5 with planes and without), by level name, bit source and
+    planes."""
+    from dpcorr_torch.bisect import LEVELS
+    from dpcorr_torch.ops import _build
+
+    log = _build.log_path("fused_ni_ladder")
+    if not log.exists():
+        raise RuntimeError(f"no compiler report beside this build of "
+                           f"fused_ni_ladder ({log})")
+    report = _build.ptxas_report(log.read_text())
+    want = [(lv, ext, pl) for lv in range(1, 6) for ext in (0, 1)
+            for pl in ((0, 1) if lv >= 4 else (0,))]
+    if sorted(report) != want:
+        raise RuntimeError(f"ptxas reported ladder variants "
+                           f"{sorted(report)}, expected {want}")
+    out = {}
+    for (lv, ext, pl), (regs, stack, st, ld) in sorted(report.items()):
+        src = ("external" if ext else "in-kernel") + (
+            "" if pl or lv < 4 else ", no planes")
+        out.setdefault(LEVELS[lv - 1], {})[src] = {
+            "registers": regs, "stack": stack, "spill_stores": st,
+            "spill_loads": ld}
+        print(f"ptxas fused_ni_ladder [L{lv} {LEVELS[lv - 1]} {src}]: "
+              f"{regs} registers, {stack} bytes stack frame, {st} bytes "
+              f"spill stores, {ld} bytes spill loads", flush=True)
+    return out
+
+
+def ladder_against_plain(card: str) -> dict:
+    """20a(2): the ladder kernel against its plain version at L1-L5 on
+    random external bits, in-kernel mode against external mode on
+    ``philox_bits``, and at L4-L5 where the planes fit the variant
+    without them forced, bit-equal to the one with them in both modes.
+    Returns per level the largest |error| and the largest error over
+    Σ|terms|. These launches do not count."""
+    from dpcorr_torch import bisect
+    from dpcorr_torch.bisect import LEVELS, RHO
+    from dpcorr_torch.ops import fused_ni, ladder
+
+    # dpcorr-lint: ignore[rng-raw-api,rng-literal-seed] — a fixed generator for the comparison's inputs, not DP noise
+    gen = torch.Generator(device="cuda").manual_seed(2026)
+    errs = {}
+    for n, eps in LADDER_GEOMETRIES:
+        m, m_pad, k, leftover, _ = fused_ni.layout(n, *eps)
+        # dpcorr-lint: ignore[rng-raw-api] — random bits to hold the kernel's external mode against its plain version, not DP noise
+        bits = torch.randint(-2**31, 2**31, (LADDER_B, ladder.bit_rows(
+            n, *eps), 128), generator=gen, device="cuda",
+            dtype=torch.int64).to(torch.int32)
+        # dpcorr-lint: ignore[rng-raw-api] — random seeds for the same comparison, not DP noise
+        seeds = torch.randint(-2**31, 2**31, (LADDER_B, 2), generator=gen,
+                              device="cuda", dtype=torch.int64).to(
+                                  torch.int32)
+        laid = ladder.philox_bits(seeds, n, *eps)
+        for level in ladder.KERNEL_LEVELS:
+            got = ladder.ladder_sums(seeds, RHO, n, *eps, level, bits)
+            inside = ladder.ladder_sums(seeds, RHO, n, *eps, level)
+            outside = ladder.ladder_sums(seeds, RHO, n, *eps, level, laid)
+            # dpcorr-lint: ignore[sync-in-loop] — the kernel must finish before its plain version runs on the same buffers
+            torch.cuda.synchronize()
+            want = ladder.ladder_plain(bits, RHO, n, *eps, level)
+            mag = ladder.ladder_plain(bits, RHO, n, *eps, level,
+                                      magnitude=True)
+            diff = (got - want).abs()
+            # dpcorr-lint: ignore[sync-in-loop] — a check, case by case: the values are needed on the host
+            share = (diff <= 1e-5 * mag).float().mean().item()
+            # dpcorr-lint: ignore[sync-in-loop] — a check, case by case: the values are needed on the host
+            abs_err, rel_err = diff.max().item(), (diff / mag).max().item()
+            same = torch.equal(inside, outside)
+            kept = ladder.planes_kept(n, *eps, level)
+            forced = None
+            if kept:  # the variant without planes, forced, both sources
+                forced = (torch.equal(got, ladder.ladder_sums(
+                    seeds, RHO, n, *eps, level, bits, _regen=True))
+                    and torch.equal(inside, ladder.ladder_sums(
+                        seeds, RHO, n, *eps, level, _regen=True)))
+            name = LEVELS[level - 1]
+            e = errs.setdefault(name, {"max_abs_err": 0.0,
+                                       "max_err_over_terms": 0.0})
+            e["max_abs_err"] = max(e["max_abs_err"], abs_err)
+            e["max_err_over_terms"] = max(e["max_err_over_terms"], rel_err)
+            print(f"[{card}] 20a L{level} {name} n={n} eps={eps} m={m} "
+                  f"m'={m_pad} k={k} left={leftover}: within 1e-5 x "
+                  f"sum|terms| of the plain version {share:.4f} of "
+                  f"{LADDER_B}; max |err| {abs_err:.4g} ({rel_err:.3g} of "
+                  f"sum|terms|); in-kernel == external on philox_bits: "
+                  f"{same}; planes {'kept' if kept else 'none'}"
+                  + ("" if forced is None else
+                     f", forced variant without planes bit-equal: "
+                     f"{forced}"), flush=True)
+            need = 0.99 if level == 5 else 1.0
+            if not torch.isfinite(got).all() or share < need:
+                raise RuntimeError(f"20a: the ladder kernel disagrees with "
+                                   f"its plain version at L{level}, n={n} "
+                                   f"eps={eps}: {share} within tolerance")
+            if not same or not torch.isfinite(inside).all():
+                raise RuntimeError(f"20a: in-kernel ladder mode differs "
+                                   f"from external mode on philox_bits at "
+                                   f"L{level}, n={n} eps={eps}")
+            if forced is False:
+                raise RuntimeError(f"20a: the ladder's variant without "
+                                   f"planes differs from the one with them "
+                                   f"at L{level}, n={n} eps={eps}")
+    for level in ("center", "matmul"):  # the bisect's probes above the cap
+        res = bisect.probe_level(level, n=CAP_GRID_N)
+        print(f"[{card}] 20a bisect probe {level} at n={CAP_GRID_N}: "
+              f"{json.dumps(res)}", flush=True)
+        if not (res["ok"] and res["finite"]):
+            raise RuntimeError(f"20a: the probe {level} at n={CAP_GRID_N} "
+                               f"failed: {res}")
+    return errs
+
+
+def ladder_times(card: str, k1_ms: float) -> dict:
+    """20b: each level's ms at B = 2¹⁴, n = 10⁴, in-kernel (CUDA events;
+    L6 = K1 at the same shape, L7 = K1 at B = 4096), beside its bound
+    and its plain version's ms on random bits of the same shape, and the
+    increment from the level before. These launches do not count."""
+    from dpcorr_torch.bisect import LEVELS, RHO
+    from dpcorr_torch.ops import fused_ni, ladder
+    from dpcorr_torch.utils.device import time_cuda
+    from dpcorr_torch.utils.roofline import ladder_pipe_ops, least_time_ms
+
+    b = FUSED_BLOCK
+    seeds = torch.stack([torch.arange(b, dtype=torch.int32),
+                         torch.zeros(b, dtype=torch.int32)], 1).cuda()
+    rho_b = torch.full((b,), RHO, device="cuda")
+    # dpcorr-lint: ignore[rng-raw-api] — timing bits for the plain version, not DP noise
+    bits = torch.randint(-2**31, 2**31, (b, ladder.bit_rows(N, *EPS), 128),
+                         device="cuda", dtype=torch.int64).to(torch.int32)
+    u = None
+    out, prev = {}, None
+    for level in range(1, 8):
+        name = LEVELS[level - 1]
+        reps = b if level < 7 else LADDER_BIG_B
+        if level <= 5:
+            ms = time_cuda(lambda: ladder.ladder_sums(
+                seeds, RHO, N, *EPS, level), 20)
+            plain_ms = time_cuda(lambda: ladder.ladder_plain(
+                bits, RHO, N, *EPS, level), 3)
+            bytes_ = reps * (8 + 4)
+        else:
+            s, r = seeds[:reps], rho_b[:reps]
+            ms = time_cuda(lambda: fused_ni.fused_ni_sums(s, r, N, *EPS), 20)
+            if u is None:
+                # dpcorr-lint: ignore[rng-raw-api] — timing uniforms for the plain version, not DP noise
+                u = torch.rand(b, fused_ni.n_uniform_rows(N, *EPS), 128,
+                               device="cuda") * (1 - 2e-7) + 1e-7
+            plain_ms = time_cuda(lambda: fused_ni.fused_ni_plain(
+                s, r, u[:reps], n=N, eps1=EPS[0], eps2=EPS[1]), 3)
+            bytes_ = reps * (8 + 4 + 12)
+        times = least_time_ms(ladder_pipe_ops(level, N, EPS), reps, bytes_)
+        by = max(times, key=times.get)
+        inc = None if prev is None or level == 7 else ms - prev
+        out[name] = {"level": level, "batch": reps, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": times[by],
+                     "bound_by": by, "increment_ms": inc}
+        print(f"[{card}] 20b L{level} {name}, B={reps}, n={N}, in-kernel: "
+              f"{ms:.4f} ms"
+              + (f" (+{inc:.4f} ms on L{level - 1})" if inc is not None
+                 else "")
+              + f"; bound {times[by]:.4f} ms by {by} ({times[by] / ms:.1%})"
+              f"; plain version {plain_ms:.4f} ms", flush=True)
+        if level <= 6:
+            prev = ms
+    l6 = out["full"]["ms"]
+    print(f"[{card}] 20b L6 {l6:.4f} ms against phase 7's K1 {k1_ms:.4f} ms "
+          f"({l6 / k1_ms - 1.0:+.2%}; gate ±10%)", flush=True)
+    if abs(l6 / k1_ms - 1.0) > 0.10:
+        raise RuntimeError(f"20b: L6 {l6} ms is not phase 7's K1 time "
+                           f"{k1_ms} ms")
+    return out
+
+
+def start_bisect(work: str) -> dict:
+    """20c, started: ``python -m dpcorr_torch.bisect`` as a process on the
+    card, running beside phase 19 (its eight processes start one at a
+    time). It is stopped at exit if a phase fails first: SIGTERM lets the
+    orchestrator kill its probe's process group."""
+    import atexit
+    import subprocess
+
+    out = f"{work}/bisect.json"
+    log = open(f"{work}/bisect.log", "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dpcorr_torch.bisect", "--out", out],
+        stdout=log, stderr=subprocess.STDOUT, text=True, env=_repo_env())
+    started = {"proc": proc, "t0": time.perf_counter(), "out": out,
+               "log": log}
+    atexit.register(stop_bisect, started)
+    return started
+
+
+def stop_bisect(started: dict) -> None:
+    import subprocess
+
+    proc = started["proc"]
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    started["log"].close()
+
+
+def bisect_process(card: str, started: dict) -> dict:
+    """20c: the bisect started beside phase 19, waited on. Its probes
+    report their own launches (each in its own process). Their ``ms``
+    are left out: they ran beside phase 19's processes (20b times every
+    level on an idle card)."""
+    from dpcorr_torch.bisect import LEVELS
+
+    proc = started["proc"]
+    rc = proc.wait(timeout=BISECT_TIMEOUT_S)
+    dt = time.perf_counter() - started["t0"]
+    started["log"].seek(0)
+    said = started["log"].read()
+    stop_bisect(started)
+    if rc != 0:
+        raise RuntimeError(f"20c: bisect exited {rc}: {said[-4000:]}")
+    with open(started["out"]) as f:
+        report = json.load(f)
+    probes = report["probes"]
+    results = [p["result"] for p in probes]
+    ok = (report["culprit"] is None and not report["wedged"]
+          and report["health"].startswith("HEALTH-OK")
+          and [p["level"] for p in probes] == LEVELS
+          and all(isinstance(r, dict) and r["ok"] and r["finite"]
+                  for r in results))
+    launches = {"fused_ni_ladder": sum(r["launches"] for r in results[:5]),
+                "fused_ni": sum(r["launches"] for r in results[5:])}
+    for p in probes:
+        r = {k: v for k, v in p["result"].items() if k != "ms"}
+        print(f"[{card}] 20c probe {p['level']}: {json.dumps(r)}",
+              flush=True)
+    print(f"[{card}] 20c bisect process {dt:.1f} s from its start beside "
+          f"phase 19: health "
+          f"{report['health']!r} ({report['initial_health_s']} s), "
+          f"culprit {report['culprit']}, wedged {report['wedged']}, "
+          f"launches reported by the probes {launches}", flush=True)
+    if not ok or launches != {"fused_ni_ladder": 5, "fused_ni": 2}:
+        raise RuntimeError(f"20c: bisect report not clean: {report}")
+    return {"seconds": dt, "launches": launches}
+
+
+def regen_against_plain(card: str) -> float:
+    """20d(1): K1's variant without planes against its plain version in
+    all 16 modes above the cap; returns the largest |ΣT| error. These
+    launches do not count."""
+    from dpcorr_torch.ops import fused_ni
+
+    # dpcorr-lint: ignore[rng-raw-api,rng-literal-seed] — a fixed generator for the comparison's inputs, not DP noise
+    gen = torch.Generator(device="cuda").manual_seed(2027)
+    rho = torch.linspace(-0.6, 0.9, REGEN_B, device="cuda")
+    worst = 0.0
+    for n, eps, compute_int in REGEN_CASES:
+        c = fused_ni._Consts(n, *eps, (0.0, 0.0), (1.0, 1.0))
+        if c.planes_kept(compute_int):
+            raise RuntimeError(f"20d: n={n} eps={eps} keeps its planes")
+        for gauss in ("boxmuller", "ndtri"):
+            for normalise in (True, False):
+                kw = dict(normalise=normalise, compute_int=compute_int,
+                          gauss=gauss)
+                fracs, errs, bit_equal = compare_mode(n, eps, kw, gen, rho,
+                                                      REGEN_B)
+                worst = max(worst, errs[0][0], errs[1][0])
+                print(f"[{card}] 20d no planes n={n} eps={eps} m={c.m} "
+                      f"m'={c.m_pad} int={int(compute_int)} {gauss} "
+                      f"norm={int(normalise)}: within tol external "
+                      f"{fracs[0]:.4f} philox {fracs[1]:.4f} of {REGEN_B}; "
+                      f"in-kernel == external on philox_uniforms: "
+                      f"{bit_equal}; max |err| "
+                      f"{[f'{e:.3g}' for e in errs[0] + errs[1]]}",
+                      flush=True)
+                if min(fracs) < 0.99 or not bit_equal:
+                    raise RuntimeError(f"20d: the variant without planes "
+                                       f"disagrees: n={n} eps={eps} {kw} "
+                                       f"{fracs} {bit_equal}")
+    return worst
+
+
+def regen_forced_bits(card: str) -> int:
+    """20d(2): at every phase 3 layout, the variant without planes forced
+    gives the bits of the variant with them, in all 16 modes. Returns
+    the cases held. These launches do not count."""
+    from dpcorr_torch.ops import fused_ni
+
+    # dpcorr-lint: ignore[rng-raw-api,rng-literal-seed] — a fixed generator for the comparison's inputs, not DP noise
+    gen = torch.Generator(device="cuda").manual_seed(2028)
+    rho = torch.linspace(-0.6, 0.9, COMPARE_B, device="cuda")
+    # dpcorr-lint: ignore[rng-raw-api] — random seeds for the comparison, not DP noise
+    seeds = torch.randint(-2**31, 2**31, (COMPARE_B, 2), generator=gen,
+                          device="cuda", dtype=torch.int64).to(torch.int32)
+    cases = 0
+    for n, eps in COMPARE_GEOMETRIES:
+        for compute_int in (False, True):
+            rows = fused_ni.n_uniform_rows(n, *eps, compute_int)
+            # dpcorr-lint: ignore[rng-raw-api] — random uniforms for the comparison, not DP noise
+            u = torch.rand(COMPARE_B, rows, 128, device="cuda",
+                           generator=gen) * (1 - 2e-7) + 1e-7
+            for uu in (None, u):
+                for gauss in ("boxmuller", "ndtri"):
+                    for normalise in (True, False):
+                        kw = dict(normalise=normalise, gauss=gauss,
+                                  compute_int=compute_int, uniforms=uu)
+                        kept = fused_ni.fused_ni_sums(seeds, rho, n, *eps,
+                                                      **kw)
+                        forced = fused_ni.fused_ni_sums(seeds, rho, n, *eps,
+                                                        **kw, _regen=True)
+                        if not torch.equal(kept, forced):
+                            raise RuntimeError(
+                                f"20d: the forced variant differs from the "
+                                f"one with planes: n={n} eps={eps} "
+                                f"external={uu is not None} {kw.keys()}")
+                        cases += 1
+    print(f"[{card}] 20d forced variant without planes bit-equal to the one "
+          f"with planes in {cases} cases (9 layouts x 16 modes, B = "
+          f"{COMPARE_B})", flush=True)
+    return cases
+
+
+def regen_times(card: str) -> dict:
+    """20d(3): the variant without planes, in-kernel NI, timed at
+    n = 10⁵, B = 2¹⁴ and n = 10⁶, B = 2¹⁰ beside the bound of the same
+    work (the function's, not the variant's second draw). These launches
+    do not count."""
+    from dpcorr_torch.ops import fused_ni
+    from dpcorr_torch.utils import rng
+    from dpcorr_torch.utils.device import time_cuda
+    from dpcorr_torch.utils.roofline import fused_pipe_ops, least_time_ms
+
+    key = rng.master_key(device="cuda")
+    out = {}
+    for n, b in REGEN_TIMED:
+        seeds = rng.kernel_seeds(rng.rep_keys(key, b)).contiguous()
+        rho_b = torch.full((b,), RHO, device="cuda")
+        got = fused_ni.fused_ni_sums(seeds, rho_b, n, *EPS)
+        if not torch.isfinite(got).all():
+            raise RuntimeError(f"20d: NaN/Inf at n={n}")
+        ms = time_cuda(lambda: fused_ni.fused_ni_sums(seeds, rho_b, n, *EPS),
+                       3)
+        times = least_time_ms(fused_pipe_ops(n, EPS, False), b,
+                              b * (8 + 4 + 12))
+        by = max(times, key=times.get)
+        blocks = fused_ni.blocks_per_sm(n, *EPS)
+        out[n] = {"batch": b, "ms": ms, "bound_ms": times[by],
+                  "bound_by": by, "blocks_per_sm": blocks}
+        print(f"[{card}] 20d no planes, in-kernel NI, n={n}, B={b}: "
+              f"{ms:.4f} ms, bound {times[by]:.4f} ms by {by} "
+              f"({times[by] / ms:.1%}); {blocks} blocks per SM", flush=True)
+    return out
+
+
+def cap_grid(card: str) -> dict:
+    """20e: the v1 sign grid cut to one bucket above the cap, fused then
+    unfused, the launch counts set to 0 before each arm and read after
+    it."""
+    from dpcorr_torch.grid import GridConfig
+    from dpcorr_torch.ops import fused_ni
+
+    eps = (1.0, 1.0)
+    old_gate = fused_ni.fits_on_chip(CAP_GRID_N, *eps, compute_int=True)
+    arms = {}
+    for fused in ("auto", "off"):
+        reset_launches()
+        res, dt = run_grid_timed(GridConfig(
+            n_grid=(CAP_GRID_N,), eps_pairs=(eps,), b=GRID_B,
+            backend="bucketed", fused=fused))
+        launches = dict(fused_ni.KERNEL_LAUNCHES)
+        d = res.detail_all
+        err = d["ni_hat"] - d["rho_true"]
+        arms[fused] = {"seconds": dt, "launches": launches, "err": err,
+                       "ni_cover": float(d["ni_cover"].mean()),
+                       "int_cover": float(d["int_cover"].mean())}
+        print(f"[{card}] 20e grid n={CAP_GRID_N} eps={eps}, fused={fused}: "
+              f"{len(err)} reps in {dt:.3f} s; K1 launches {launches}; "
+              f"fused buckets {int(res.timings['fused'].sum())}; coverage "
+              f"NI {arms[fused]['ni_cover']:.4f} INT "
+              f"{arms[fused]['int_cover']:.4f}; mean rho_hat - rho "
+              f"{err.mean():+.5f}", flush=True)
+        for m in ("ni_cover", "int_cover"):
+            if not 0.90 <= arms[fused][m] <= 0.99:
+                raise RuntimeError(f"20e {fused}: {m} {arms[fused][m]} "
+                                   f"outside [0.90, 0.99]")
+    if arms["auto"]["launches"] != {"fused_ni": 1, "fused_ni_regen": 1} \
+            or arms["off"]["launches"]["fused_ni"]:
+        raise RuntimeError(f"20e: launches {arms['auto']['launches']} / "
+                           f"{arms['off']['launches']}; expected one K1 "
+                           f"launch without planes, then none")
+    ef, eo = arms["auto"]["err"], arms["off"]["err"]
+    se = math.sqrt(ef.var(ddof=1) / len(ef) + eo.var(ddof=1) / len(eo))
+    gap = abs(ef.mean() - eo.mean())
+    print(f"[{card}] 20e fused - unfused mean rho_hat {ef.mean() - eo.mean():+.5f}"
+          f" ({gap / se:.2f} MC standard errors of {se:.5f}; gate 4); the "
+          f"earlier gate fits_on_chip={old_gate} sent this bucket unfused "
+          f"(0 K1 launches)", flush=True)
+    if gap > 4 * se or old_gate:
+        raise RuntimeError(f"20e: fused and unfused mean rho_hat differ by "
+                           f"{gap} > 4 x {se}")
+    return {"launches": arms["auto"]["launches"],
+            "seconds": {k: v["seconds"] for k, v in arms.items()},
+            "z": gap / se}
+
+
+def ladder_phase(card: str, bisect_run: dict, k1_ms: float) -> dict:
+    """Phase 20, part by part with each part's seconds; 20c waits for the
+    bisect started beside phase 19, so 20b's times run after it ends."""
+    parts = {}
+    for label, fn in (
+            ("20a ptxas", lambda: ladder_levels_ptxas(card)),
+            ("20a", lambda: ladder_against_plain(card)),
+            ("20c", lambda: bisect_process(card, bisect_run)),
+            ("20b", lambda: ladder_times(card, k1_ms)),
+            ("20d", lambda: regen_against_plain(card)),
+            ("20d forced", lambda: regen_forced_bits(card)),
+            ("20d times", lambda: regen_times(card)),
+            ("20e", lambda: cap_grid(card))):
+        t0 = time.perf_counter()
+        parts[label] = fn()
+        parts[label + " s"] = time.perf_counter() - t0
+    return parts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
     from dpcorr_torch.grid import GridConfig
-    from dpcorr_torch.ops import _build, fused_ni
+    from dpcorr_torch.ops import _build, fused_ni, ladder
     from dpcorr_torch.sim import (
         DETAIL_FIELDS,
         SimConfig,
@@ -4770,14 +5244,14 @@ def main() -> int:
     if not log.exists():
         raise RuntimeError(f"no compiler report beside this build of "
                            f"fused_ni ({log}); remove its library to rebuild")
-    report = ptxas_report(log.read_text())
+    report = _build.ptxas_report(log.read_text())
     for flags, (regs, stack, st, ld) in sorted(report.items()):
         print(f"ptxas fused_ni [{mode_label(flags)}]: {regs} registers, "
               f"{stack} bytes stack frame, {st} bytes spill stores, {ld} "
               f"bytes spill loads", flush=True)
-    if len(report) != 32:
+    if len(report) != 48:
         raise RuntimeError(f"ptxas reported {len(report)} fused_ni "
-                           f"variants, expected 32")
+                           f"variants, expected 48")
     if any(report[MAIN_VARIANT][2:]):
         raise RuntimeError(f"the main-path variant spills: "
                            f"{report[MAIN_VARIANT]}")
@@ -4785,10 +5259,11 @@ def main() -> int:
     # ---- 3. kernel against its plain version (these launches do not count)
     worst_err = compare_kernel_with_plain()
 
-    # ---- 4-5. the main path, unfused then fused: every launch count is
-    # set to 0 just before and read just after
-    for name in fused_ni.KERNEL_LAUNCHES:
-        fused_ni.KERNEL_LAUNCHES[name] = 0
+    # ---- 4-5. the main path, unfused then fused: every launch count (K1's
+    # and the ladder's) is set to 0 just before and read just after
+    for counts in (fused_ni.KERNEL_LAUNCHES, ladder.KERNEL_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
     key = rng.master_key(device="cuda")
     unfused = run_pipeline(ni_rep_fn(N, RHO, *EPS, ALPHA), 1 << 14, 1 << 11,
                            UNFUSED_REPS >> 14, key)
@@ -4803,12 +5278,17 @@ def main() -> int:
     torch.cuda.synchronize()
     detail_s = time.perf_counter() - t0
     launches = dict(fused_ni.KERNEL_LAUNCHES)
+    ladder_main = dict(ladder.KERNEL_LAUNCHES)
     print(f"[{card}] fused pipeline: {json.dumps(fused)}", flush=True)
     # dpcorr-lint: ignore[sync-in-loop] — a check, case by case: the values are needed on the host
     d = {f: v.double().mean().item() for f, v in zip(DETAIL_FIELDS, detail)}
     print(f"[{card}] sim_detail_fused {DETAIL_REPS} reps in {detail_s:.3f} s:"
           f" {json.dumps(d)}", flush=True)
-    print(f"launches in the main path's run: {launches}", flush=True)
+    print(f"launches in the main path's run: {launches}, the ladder "
+          f"{ladder_main}", flush=True)
+    if ladder_main["fused_ni_ladder"]:
+        raise RuntimeError(f"the main path launched the stage ladder "
+                           f"{ladder_main} times: it is a diagnostic")
 
     # ---- 6. gates
     for field in DETAIL_FIELDS:
@@ -5103,8 +5583,8 @@ def main() -> int:
     # report)
     t19 = time.perf_counter()
     reset_launches()
+    bisect_run = start_bisect(work.name)  # 20c, beside phase 19
     wit_parts = witness_phase(card, v1["fused"], work.name)
-    work.cleanup()
     wit_launches = wit_parts["grid"]["launches"]
     print(f"launches in the lint and witness run: this process "
           f"{dict(fused_ni.KERNEL_LAUNCHES)}, the witnessed grid "
@@ -5117,6 +5597,24 @@ def main() -> int:
                if k.endswith(" s")}
     print(f"[{card}] phase 19: {time.perf_counter() - t19:.1f} s "
           f"{json.dumps(seconds)}", flush=True)
+
+    # ---- 20. K1's stage ladder and K1 above its shared-memory cap; the
+    # bisect's probes report their launches, 20e's grid arms read the
+    # counts around themselves
+    t20 = time.perf_counter()
+    for name in ladder.KERNEL_LAUNCHES:
+        ladder.KERNEL_LAUNCHES[name] = 0
+    lad = ladder_phase(card, bisect_run, ms)
+    work.cleanup()
+    seconds = {k: round(v, 1) for k, v in lad.items() if k.endswith(" s")}
+    print(f"[{card}] phase 20: {time.perf_counter() - t20:.1f} s "
+          f"{json.dumps(seconds)}", flush=True)
+    levels = lad["20b"]
+    for name, t in levels.items():
+        t["ptxas"] = lad["20a ptxas"].get(name)
+        t.update(lad["20a"].get(name, {}))
+    top = levels["matmul"]
+    regen_t = lad["20d times"]
 
     record = {"kernels": [{
         "name": "fused_ni",
@@ -5164,6 +5662,30 @@ def main() -> int:
             parts["17e"]["seconds"]["profiled_coarse"],
         "obs_launches": obs_launches,
         "witness_launches": wit_launches,
+        "bisect_launches": lad["20c"]["launches"]["fused_ni"],
+        "cap_grid_launches": lad["20e"]["launches"]["fused_ni"],
+        "regen_launches": lad["20e"]["launches"]["fused_ni_regen"],
+        "regen_max_abs_err": lad["20d"],
+        "regen_forced_bit_equal_cases": lad["20d forced"],
+        "regen_ms": {str(n): t["ms"] for n, t in regen_t.items()},
+        "regen_bound_ms": {str(n): t["bound_ms"] for n, t in regen_t.items()},
+        "regen_batch": {str(n): t["batch"] for n, t in regen_t.items()},
+    }, {
+        "name": "fused_ni_ladder",
+        "route": "cuda",
+        "source": "dpcorr_torch/csrc/fused_ni_ladder.cu",
+        "replaces": "benchmarks/pallas_bisect.py:100",
+        "launches": lad["20c"]["launches"]["fused_ni_ladder"],
+        "main_path_launches": ladder_main["fused_ni_ladder"],
+        "max_abs_err": max(v["max_abs_err"] for k, v in lad["20a"].items()
+                           if k != "prng"),
+        "ms": top["ms"],
+        "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"],
+        "bound_by": "bytes" if top["bound_by"] == "bytes" else "operations",
+        "library_ms": None,
+        "batch": top["batch"],
+        "levels": levels,
     }]}
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(record), flush=True)

@@ -78,22 +78,32 @@
 //      position for both centerings.
 // The planes stay in shared memory (2 x 4 B + 1 B with INT per position),
 // so device memory carries only the 24 B per replication and each
-// transcendental runs once per observation; this caps n near 28,600 at
-// m = 8 (25,600 with INT), and the wrapper raises above the cap. The 8 B
-// of noise per batch join the planes when they fit (`noise_fits`, as at
-// n = 10^4); near the cap a second variant of each mode, chosen at
-// launch, has the lanes that hold a batch's counts draw its noise in the
-// sweep instead (a call's two batches in one lane, in neighbouring lanes
-// joined by a shuffle, or at m' = 128 in one warp's two consecutive
-// chunks), so the noise never lowers the cap and the main path's variant
-// carries none of that code.
+// transcendental runs once per observation, as long as they fit: up to
+// n = 28,672 at m = 8 (25,600 with INT). The 8 B of noise per batch join
+// the planes when they fit (`noise_fits`, as at n = 10^4); near the cap a
+// second variant of each mode, chosen at launch, has the lanes that hold
+// a batch's counts draw its noise in the sweep instead (a call's two
+// batches in one lane or in neighbouring lanes joined by a shuffle; at
+// m' = 128, where they lie in two chunks, each chunk's first lane draws
+// the call), so the noise never lowers the cap and the main path's
+// variant carries none of that code.
+// Above the cap a third variant keeps no planes (kPlanes = false): pass 1
+// draws, clips and sums each observation without storing it, and the
+// sweep draws it again at its position, from the same Philox counters in
+// in-kernel mode or the same uniforms in external mode, by the same
+// arithmetic (`observe`, every rounding pinned), so wherever both
+// variants can run they give the same bits. It draws its batch noise in
+// the sweep. Its int32 pipe does about twice the Philox work of the
+// variant with planes, and each transcendental runs twice.
+//
+// The device functions it shares with its stage ladder (Philox, the
+// uniforms, the draws, the sweep's counts) are in fused_ni_common.cuh.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (dpcorr_torch/ops/_build.py). No fast-math: the
 // tolerances against the plain version assume precise logf/sinf/cosf.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fused_ni_common.cuh"
 
 extern "C" {
 // Mirrored by the ctypes Structure in dpcorr_torch/ops/fused_ni.py:
@@ -108,136 +118,37 @@ struct FusedNiParams {
 
 namespace {
 
-constexpr int kLanes = 128;
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-// dynamic shared memory one block may take on sm_90 (227 KB), less a
-// margin for the static scratch; `_SMEM_LIMIT` in fused_ni.py mirrors it
-constexpr size_t kSmemLimit = 232448 - 2048;
-constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr float kTwoPi = 6.28318530717958647692f;
-
-// second counter word of each in-kernel stream
-constexpr uint32_t kTagPairs = 0, kTagFlips = 1, kTagBatch = 2,
-                   kTagScalar = 3;
-
-// Philox4x32-10 round keys: they depend on the replication only.
-struct RoundKeys {
-  uint32_t x[10], y[10];
-};
-
-__device__ __forceinline__ RoundKeys round_keys(int2 seed) {
-  RoundKeys rk;
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    rk.x[i] = static_cast<uint32_t>(seed.x) + i * 0x9E3779B9u;
-    rk.y[i] = static_cast<uint32_t>(seed.y) + i * 0xBB67AE85u;
+// x and y of one observation from its two uniforms, clipped at
+// +-sqrt(2 ln n) with normalise. Pass 1 and the sweep of the variant
+// without planes both call it; each rounding is pinned, so the two give
+// the same bits whatever the compiler contracts around them.
+template <bool kNdtri, bool kNorm>
+__device__ __forceinline__ void observe(float u1, float u2, float rho,
+                                        float crho, const FusedNiParams& p,
+                                        float& x, float& y) {
+  float z1, z2;
+  gauss_pair<kNdtri>(u1, u2, z1, z2);
+  x = __fmaf_rn(p.sig0, z1, p.mu0);
+  y = __fmaf_rn(p.sig1, correlate(rho, crho, z1, z2), p.mu1);
+  if (kNorm) {
+    x = fminf(fmaxf(x, -p.l_clip), p.l_clip);
+    y = fminf(fmaxf(y, -p.l_clip), p.l_clip);
   }
-  return rk;
-}
-
-// Philox4x32-10 (Random123) on counter (c0, c1, 0, 0).
-__device__ __forceinline__ uint4 philox(uint32_t c0, uint32_t c1,
-                                        const RoundKeys& rk) {
-  uint4 c = make_uint4(c0, c1, 0u, 0u);
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
-    const uint32_t lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
-    const uint32_t lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ rk.x[i], lo1, hi0 ^ c.w ^ rk.y[i], lo0);
-  }
-  return c;
-}
-
-// 23-bit rule of pallas_ni.py `_uniform`, (b23 + 0.5) 2^-23: the float
-// 1 + b23 2^-23 is built in the exponent field, and subtracting 1 - 2^-24
-// is exact, so the result equals the rule bit for bit.
-__device__ __forceinline__ float unit23(uint32_t bits) {
-  return __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u),
-                   0x1.fffffep-1f);
-}
-
-__device__ __forceinline__ float sign_f(float v) {
-  return v > 0.f ? 1.f : (v < 0.f ? -1.f : 0.f);
-}
-
-// sign(v - mu) for finite v and mu (no flush to zero, so v - mu is 0 only
-// when v == mu)
-__device__ __forceinline__ int sign_of(float v, float mu) {
-  return (v > mu) - (v < mu);
-}
-
-// Inverse-CDF Laplace(0, 1) of pallas_ni.py `_laplace_from_uniform`.
-__device__ __forceinline__ float laplace1(float u) {
-  const float c = u - 0.5f;
-  return -sign_f(c) * log1pf(-2.f * fabsf(c));
-}
-
-// Horner step without contraction: acc * x + c rounded twice, as the
-// plain version's separate PyTorch ops round it. The rational chains
-// cancel near the central/tail seam, where a fused multiply-add would
-// move z by up to ~1e-4 and flip the sign of values near the mean.
-__device__ __forceinline__ float horner(const float* c, int len, float x) {
-  float acc = c[0];
-  for (int i = 1; i < len; ++i) acc = __fadd_rn(__fmul_rn(acc, x), c[i]);
-  return acc;
-}
-
-// Acklam's inverse normal CDF, pallas_ni.py `_ndtri_inline`.
-__device__ __forceinline__ float ndtri_acklam(float p) {
-  const float a[6] = {-3.969683028665376e+01f, 2.209460984245205e+02f,
-                      -2.759285104469687e+02f, 1.383577518672690e+02f,
-                      -3.066479806614716e+01f, 2.506628277459239e+00f};
-  const float b[6] = {-5.447609879822406e+01f, 1.615858368580409e+02f,
-                      -1.556989798598866e+02f, 6.680131188771972e+01f,
-                      -1.328068155288572e+01f, 1.0f};
-  const float c[6] = {-7.784894002430293e-03f, -3.223964580411365e-01f,
-                      -2.400758277161838e+00f, -2.549732539343734e+00f,
-                      4.374664141464968e+00f, 2.938163982698783e+00f};
-  const float d[5] = {7.784695709041462e-03f, 3.224671290700398e-01f,
-                      2.445134137142996e+00f, 3.754408661907416e+00f, 1.0f};
-  const float q = p - 0.5f;
-  const float r = __fmul_rn(q, q);
-  const float central = __fmul_rn(q, horner(a, 6, r)) / horner(b, 6, r);
-  const float pt = fminf(p, 1.0f - p);
-  const float s = sqrtf(__fmul_rn(-2.0f, logf(pt)));
-  float tail = horner(c, 6, s) / horner(d, 5, s);
-  tail = q < 0.0f ? tail : -tail;
-  return fabsf(q) <= 0.47575f ? central : tail;  // 0.5 - 0.02425
-}
-
-template <bool kNdtri>
-__device__ __forceinline__ void gauss_pair(float u1, float u2, float& z1,
-                                           float& z2) {
-  if (kNdtri) {
-    z1 = ndtri_acklam(u1);
-    z2 = ndtri_acklam(u2);
-  } else {
-    const float rad = sqrtf(-2.0f * logf(u1));
-    float s, c;
-    sincosf(kTwoPi * u2, &s, &c);
-    z1 = rad * c;
-    z2 = rad * s;
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
 }
 
 // kNoiseSmem: the batch noise is drawn in pass 1 into shared memory;
-// else the sweep draws it where it forms T_j (`noise_fits`)
-template <bool kExt, bool kInt, bool kNdtri, bool kNorm, bool kNoiseSmem>
+// else the sweep draws it where it forms T_j (`noise_fits`). kPlanes: x,
+// y and the flips are kept in shared memory; else the sweep draws them
+// again (`plane_bytes` above `kSmemLimit`)
+template <bool kExt, bool kInt, bool kNdtri, bool kNorm, bool kNoiseSmem,
+          bool kPlanes>
 __global__ void __launch_bounds__(kThreads, 2)
     fused_ni_kernel(const int2* __restrict__ seeds,
                     const float* __restrict__ rhos,
                     const float* __restrict__ uniforms,
                     float* __restrict__ out, const FusedNiParams p) {
+  static_assert(kPlanes || !kNoiseSmem,
+                "the variant without planes draws its noise in the sweep");
   extern __shared__ __align__(16) unsigned char smem[];
   // the clipped sums (read by every thread after the first barrier), and
   // the sweep's sums (written while slower warps may still read `red`)
@@ -258,7 +169,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int warp = tid >> 5;
   const int b = blockIdx.x;
   const float rho = rhos[b];
-  const float crho = sqrtf(1.0f - rho * rho);
+  const float crho = cholesky_c(rho);
   const float* u =
       kExt ? uniforms + static_cast<size_t>(b) * p.u_rows * kLanes : nullptr;
   const RoundKeys rk = round_keys(seeds[b]);
@@ -333,7 +244,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         const float4 bb = *reinterpret_cast<const float4*>(u + plane + o0);
         u1[0] = a.x; u1[1] = a.y; u1[2] = a.z; u1[3] = a.w;
         u2[0] = bb.x; u2[1] = bb.y; u2[2] = bb.z; u2[3] = bb.w;
-        if (kInt) {
+        if (kInt && kPlanes) {
           const float4 f =
               *reinterpret_cast<const float4*>(u + row_flip * kLanes + o0);
           uf[0] = f.x; uf[1] = f.y; uf[2] = f.z; uf[3] = f.w;
@@ -344,17 +255,19 @@ __global__ void __launch_bounds__(kThreads, 2)
           const bool live = q[c] >= 0;
           u1[c] = live ? u[q[c]] : 0.5f;
           u2[c] = live ? u[plane + q[c]] : 0.5f;
-          if (kInt) uf[c] = live ? u[row_flip * kLanes + q[c]] : 0.5f;
+          if (kInt && kPlanes)
+            uf[c] = live ? u[row_flip * kLanes + q[c]] : 0.5f;
         }
       }
     } else {
-      const uint4 a = philox(2u * r, kTagPairs, rk);
-      const uint4 bb = philox(2u * r + 1u, kTagPairs, rk);
-      u1[0] = unit23(a.x);  u2[0] = unit23(a.y);
-      u1[1] = unit23(a.z);  u2[1] = unit23(a.w);
-      u1[2] = unit23(bb.x); u2[2] = unit23(bb.y);
-      u1[3] = unit23(bb.z); u2[3] = unit23(bb.w);
-      if (kInt) {
+      uint32_t w1[4], w2[4];
+      quad_words(static_cast<uint32_t>(r), rk, w1, w2);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        u1[c] = unit23(w1[c]);
+        u2[c] = unit23(w2[c]);
+      }
+      if (kInt && kPlanes) {
         const uint4 f = philox(static_cast<uint32_t>(r), kTagFlips, rk);
         uf[0] = unit23(f.x); uf[1] = unit23(f.y);
         uf[2] = unit23(f.z); uf[3] = unit23(f.w);
@@ -364,22 +277,14 @@ __global__ void __launch_bounds__(kThreads, 2)
     signed char fv[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      float z1, z2;
-      gauss_pair<kNdtri>(u1[c], u2[c], z1, z2);
-      float x = p.mu0 + p.sig0 * z1;
-      float y = p.mu1 + p.sig1 * (rho * z1 + crho * z2);
-      if (kNorm) {
-        x = fminf(fmaxf(x, -p.l_clip), p.l_clip);
-        y = fminf(fmaxf(y, -p.l_clip), p.l_clip);
-        if (q[c] >= 0) {
-          sum_x += x;
-          sum_y += y;
-        }
+      observe<kNdtri, kNorm>(u1[c], u2[c], rho, crho, p, xv[c], yv[c]);
+      if (kNorm && q[c] >= 0) {
+        sum_x += xv[c];
+        sum_y += yv[c];
       }
-      xv[c] = x;
-      yv[c] = y;
-      if (kInt) fv[c] = uf[c] < p.p_keep ? 1 : -1;
+      if (kInt && kPlanes) fv[c] = uf[c] < p.p_keep ? 1 : -1;
     }
+    if (!kPlanes) continue;
     if (vec) {  // positions past n are padding that no later step reads
       *reinterpret_cast<float4*>(xs + o0) = make_float4(xv[0], xv[1], xv[2],
                                                         xv[3]);
@@ -454,43 +359,92 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   // ---- sweep: each lane reads four consecutive positions (one 16-byte
   // load per plane, 128 positions a warp: one chunk), so a batch of
-  // m' <= 128 positions lies within one warp. Signs of a batch element are
-  // packed as four byte counters (x > mu, x < mu, y > mu, y < mu), summed
-  // over the lane's positions and then by xor shuffles over the m'/4 lanes
-  // of the batch; the batch's first lane forms T_j. Counts stay <= m <=
-  // 128, so the bytes never carry. At m' = 128 a warp takes two
-  // consecutive chunks in turn, so the batches of one Philox call meet in
-  // one warp.
-  const int pos_shift = __ffs(mp) - 1;                 // log2 m'
-  const int seg_lanes = mp >= 4 ? mp >> 2 : 1;         // lanes per batch
-  const bool pair_chunks = !kNoiseSmem && mp == kLanes;
+  // m' <= 128 positions lies within one warp. The signs of a batch's
+  // elements are summed as packed byte counts in the lane and then by
+  // shuffles over the batch's lanes (`batch_counts`); the batch's first
+  // lane forms T_j. Every variant walks the chunks in the same order, so
+  // all sum T_j in the same order and give the same bits.
+  const int pos_shift = __ffs(mp) - 1;  // log2 m'
   float tot_t = 0.f, tot_t2 = 0.f;
   int core = 0;
-  uint32_t carry_z = 0u, carry_w = 0u;  // m' = 128: batch 2h + 1's words
-  for (int it = 0;; ++it) {
-    const int chunk = pair_chunks
-                          ? (it >> 1) * (2 * kWarps) + 2 * warp + (it & 1)
-                          : it * kWarps + warp;
+  for (int chunk = warp;; chunk += kWarps) {
     const int base = chunk * kLanes;
     if (base >= end) break;          // warp-uniform
     const int q0 = base + 4 * lane;  // base + 128 <= plane: in bounds
-    const float4 x4 = *reinterpret_cast<const float4*>(xs + q0);
-    const float4 y4 = *reinterpret_cast<const float4*>(ys + q0);
-    const float xv[4] = {x4.x, x4.y, x4.z, x4.w};
-    const float yv[4] = {y4.x, y4.y, y4.z, y4.w};
+    float xv[4], yv[4];
+    int fv[4];
+    if (kPlanes) {
+      const float4 x4 = *reinterpret_cast<const float4*>(xs + q0);
+      const float4 y4 = *reinterpret_cast<const float4*>(ys + q0);
+      xv[0] = x4.x; xv[1] = x4.y; xv[2] = x4.z; xv[3] = x4.w;
+      yv[0] = y4.x; yv[1] = y4.y; yv[2] = y4.z; yv[3] = y4.w;
+      if (kInt) {
+        const char4 f4 = *reinterpret_cast<const char4*>(flips + q0);
+        fv[0] = f4.x; fv[1] = f4.y; fv[2] = f4.z; fv[3] = f4.w;
+      }
+    } else {
+      // the observation at each position (-1: padding); a lane's live
+      // positions hold consecutive observations
+      int o[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int q = q0 + c;
+        const int e = q & (mp - 1);
+        o[c] = q >= end ? -1
+               : q >= kmp ? km + (q - kmp)
+               : e < m    ? (q >> pos_shift) * m + e
+                          : -1;
+      }
+      float u1[4], u2[4], uf[4];
+      if (kExt) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const bool live = o[c] >= 0;
+          u1[c] = live ? u[q0 + c] : 0.5f;
+          u2[c] = live ? u[plane + q0 + c] : 0.5f;
+          if (kInt) uf[c] = live ? u[row_flip * kLanes + q0 + c] : 0.5f;
+        }
+      } else {  // the words pass 1 drew: tag 0 at o / 2, tag 1 at o / 4
+        uint32_t at = 0xFFFFFFFFu, at_f = 0xFFFFFFFFu;
+        uint4 w = make_uint4(0u, 0u, 0u, 0u), wf = w;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          u1[c] = u2[c] = uf[c] = 0.5f;
+          if (o[c] < 0) continue;
+          const uint32_t ob = static_cast<uint32_t>(o[c]);
+          if (ob >> 1 != at) {
+            at = ob >> 1;
+            w = philox(at, kTagPairs, rk);
+          }
+          u1[c] = unit23(ob & 1u ? w.z : w.x);
+          u2[c] = unit23(ob & 1u ? w.w : w.y);
+          if (kInt) {
+            if (ob >> 2 != at_f) {
+              at_f = ob >> 2;
+              wf = philox(at_f, kTagFlips, rk);
+            }
+            const uint32_t sel = ob & 3u;
+            uf[c] = unit23(sel == 0u   ? wf.x
+                           : sel == 1u ? wf.y
+                           : sel == 2u ? wf.z
+                                       : wf.w);
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        observe<kNdtri, kNorm>(u1[c], u2[c], rho, crho, p, xv[c], yv[c]);
+        if (kInt) fv[c] = uf[c] < p.p_keep ? 1 : -1;
+      }
+    }
     uint32_t pk[4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {  // bitwise, not branching, on the masks
+    for (int c = 0; c < 4; ++c) {
       const int q = q0 + c;
-      const bool elem = (q < kmp) & ((q & (mp - 1)) < m);
-      pk[c] = static_cast<uint32_t>(elem & (xv[c] > mu_x)) |
-              static_cast<uint32_t>(elem & (xv[c] < mu_x)) << 8 |
-              static_cast<uint32_t>(elem & (yv[c] > mu_y)) << 16 |
-              static_cast<uint32_t>(elem & (yv[c] < mu_y)) << 24;
+      pk[c] = sign_bytes((q < kmp) & ((q & (mp - 1)) < m), xv[c], yv[c],
+                         mu_x, mu_y);
     }
     if (kInt) {
-      const char4 f4 = *reinterpret_cast<const char4*>(flips + q0);
-      const int fv[4] = {f4.x, f4.y, f4.z, f4.w};
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int q = q0 + c;
@@ -500,23 +454,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
     }
     if (base >= kmp) continue;  // warp-uniform: leftovers only
-    // the lane's batches j0 .. j0 + nb - 1: one (m' >= 4, in the batch's
-    // first lane), two (m' = 2) or four (m' = 1)
     uint32_t cnt[4];
-    int nb;
-    if (mp >= 4) {
-      cnt[0] = pk[0] + pk[1] + pk[2] + pk[3];
-      for (int off = 1; off < seg_lanes; off <<= 1)
-        cnt[0] += __shfl_xor_sync(kFull, cnt[0], off);
-      nb = (lane & (seg_lanes - 1)) == 0 ? 1 : 0;
-    } else if (mp == 2) {
-      cnt[0] = pk[0] + pk[1];
-      cnt[1] = pk[2] + pk[3];
-      nb = 2;
-    } else {
-      cnt[0] = pk[0]; cnt[1] = pk[1]; cnt[2] = pk[2]; cnt[3] = pk[3];
-      nb = 4;
-    }
+    const int nb = batch_counts(pk, mp, lane, cnt);
     const int j0 = q0 >> pos_shift;
     // noise kept out of shared memory: the (ux, uy) of the lane's batches,
     // from the same words pass 1 would have drawn
@@ -543,22 +482,21 @@ __global__ void __launch_bounds__(kThreads, 2)
           un[4 * h + 2] = unit23(w.z);
           un[4 * h + 3] = unit23(w.w);
         }
-      } else if (pair_chunks) {  // call h at chunk 2h, kept for 2h + 1
-        if ((j0 & 1) == 0) {
-          uint4 w = make_uint4(0u, 0u, 0u, 0u);
-          if (nb == 1 && j0 < p.k)
-            w = philox(static_cast<uint32_t>(j0 >> 1), kTagBatch, rk);
-          un[0] = unit23(w.x);
-          un[1] = unit23(w.y);
-          carry_z = w.z;
-          carry_w = w.w;
-        } else {
-          un[0] = unit23(carry_z);
-          un[1] = unit23(carry_w);
+      } else if (mp <= 2) {  // the lane's batches are whole calls
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (2 * h >= nb || j0 + 2 * h >= p.k) break;
+          const uint4 w = philox(static_cast<uint32_t>((j0 >> 1) + h),
+                                 kTagBatch, rk);
+          un[4 * h] = unit23(w.x);
+          un[4 * h + 1] = unit23(w.y);
+          un[4 * h + 2] = unit23(w.z);
+          un[4 * h + 3] = unit23(w.w);
         }
-      } else {  // 4 <= m' <= 64: the call's first lane draws, the
-                // other batch's lane takes z, w by a shuffle
-        const int lead = lane & ~(2 * seg_lanes - 1);
+      } else {  // m' >= 4: the call's first lane draws, the other batch's
+                // lane takes z, w by a shuffle (at m' = 128 the two
+                // batches lie in two chunks, and each draws the call)
+        const int lead = lane & ~((mp >> 1) - 1);  // 2 (m' / 4) lanes a call
         uint4 w = make_uint4(0u, 0u, 0u, 0u);
         if (lane == lead && j0 < p.k)
           w = philox(static_cast<uint32_t>(j0 >> 1), kTagBatch, rk);
@@ -571,17 +509,13 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (i >= nb || j0 + i >= p.k) break;
-      const uint32_t v = cnt[i];
-      const int cx = static_cast<int>(v & 0xFFu) -
-                     static_cast<int>((v >> 8) & 0xFFu);
-      const int cy = static_cast<int>((v >> 16) & 0xFFu) -
-                     static_cast<int>(v >> 24);
+      const int2 cc = count_pair(cnt[i]);
       const float2 nz =
           kNoiseSmem ? noise[j0 + i]
                      : make_float2(laplace1(un[2 * i]) * p.scale_x,
                                    laplace1(un[2 * i + 1]) * p.scale_y);
-      const float xt = __fadd_rn(frac[cx + m], nz.x);
-      const float yt = __fadd_rn(frac[cy + m], nz.y);
+      const float xt = __fadd_rn(frac[cc.x + m], nz.x);
+      const float yt = __fadd_rn(frac[cc.y + m], nz.y);
       const float t = mf * xt * yt;
       tot_t += t;
       tot_t2 += t * t;
@@ -621,6 +555,12 @@ size_t plane_bytes(const FusedNiParams& p, bool compute_int) {
   return plane * 2 * sizeof(float) + (compute_int ? plane : 0);
 }
 
+// whether the planes are kept in shared memory: they fit, and the caller
+// did not ask for the variant without them
+bool planes_kept(const FusedNiParams& p, bool compute_int, bool regen) {
+  return !regen && plane_bytes(p, compute_int) <= kSmemLimit;
+}
+
 // whether the batch noise joins the planes in shared memory
 bool noise_fits(const FusedNiParams& p, bool compute_int) {
   return plane_bytes(p, compute_int) + p.k * sizeof(float2) <= kSmemLimit;
@@ -629,14 +569,20 @@ bool noise_fits(const FusedNiParams& p, bool compute_int) {
 // the variant of one mode for these parameters, and its dynamic shared
 // memory, with the attributes set that let it take that much
 template <bool kExt, bool kInt, bool kNdtri, bool kNorm>
-cudaError_t prepare(const FusedNiParams& p, const void** kern,
+cudaError_t prepare(const FusedNiParams& p, bool regen, const void** kern,
                     size_t* smem) {
-  const bool fits = noise_fits(p, kInt);
-  *kern = fits ? reinterpret_cast<const void*>(
-                     fused_ni_kernel<kExt, kInt, kNdtri, kNorm, true>)
-               : reinterpret_cast<const void*>(
-                     fused_ni_kernel<kExt, kInt, kNdtri, kNorm, false>);
-  *smem = plane_bytes(p, kInt) + (fits ? p.k * sizeof(float2) : 0);
+  const bool planes = planes_kept(p, kInt, regen);
+  const bool fits = planes && noise_fits(p, kInt);
+  *kern = !planes ? reinterpret_cast<const void*>(
+                        fused_ni_kernel<kExt, kInt, kNdtri, kNorm, false,
+                                        false>)
+          : fits ? reinterpret_cast<const void*>(
+                       fused_ni_kernel<kExt, kInt, kNdtri, kNorm, true, true>)
+                 : reinterpret_cast<const void*>(
+                       fused_ni_kernel<kExt, kInt, kNdtri, kNorm, false,
+                                       true>);
+  *smem = planes ? plane_bytes(p, kInt) + (fits ? p.k * sizeof(float2) : 0)
+                 : 0;
   cudaError_t err = cudaFuncSetAttribute(
       *kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(*smem));
@@ -649,38 +595,44 @@ cudaError_t prepare(const FusedNiParams& p, const void** kern,
 template <bool kExt, bool kInt, bool kNdtri, bool kNorm>
 cudaError_t launch_one(const void* seeds, const void* rhos,
                        const void* uniforms, void* out, int batch,
-                       const FusedNiParams& p, cudaStream_t stream) {
+                       const FusedNiParams& p, bool regen,
+                       cudaStream_t stream) {
   const void* kern = nullptr;
   size_t smem = 0;
-  cudaError_t err = prepare<kExt, kInt, kNdtri, kNorm>(p, &kern, &smem);
+  cudaError_t err =
+      prepare<kExt, kInt, kNdtri, kNorm>(p, regen, &kern, &smem);
   if (err != cudaSuccess) return err;
   const auto* s = static_cast<const int2*>(seeds);
   const auto* r = static_cast<const float*>(rhos);
   const auto* u = static_cast<const float*>(uniforms);
   auto* o = static_cast<float*>(out);
-  if (noise_fits(p, kInt))
-    fused_ni_kernel<kExt, kInt, kNdtri, kNorm, true>
+  if (!planes_kept(p, kInt, regen))
+    fused_ni_kernel<kExt, kInt, kNdtri, kNorm, false, false>
+        <<<batch, kThreads, smem, stream>>>(s, r, u, o, p);
+  else if (noise_fits(p, kInt))
+    fused_ni_kernel<kExt, kInt, kNdtri, kNorm, true, true>
         <<<batch, kThreads, smem, stream>>>(s, r, u, o, p);
   else
-    fused_ni_kernel<kExt, kInt, kNdtri, kNorm, false>
+    fused_ni_kernel<kExt, kInt, kNdtri, kNorm, false, true>
         <<<batch, kThreads, smem, stream>>>(s, r, u, o, p);
   return cudaGetLastError();
 }
 
 template <bool kExt, bool kInt, bool kNdtri, bool kNorm>
-cudaError_t blocks_one(const FusedNiParams& p, int* blocks) {
+cudaError_t blocks_one(const FusedNiParams& p, bool regen, int* blocks) {
   const void* kern = nullptr;
   size_t smem = 0;
-  cudaError_t err = prepare<kExt, kInt, kNdtri, kNorm>(p, &kern, &smem);
+  cudaError_t err =
+      prepare<kExt, kInt, kNdtri, kNorm>(p, regen, &kern, &smem);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern,
                                                        kThreads, smem);
 }
 
 using LaunchFn = cudaError_t (*)(const void*, const void*, const void*,
-                                 void*, int, const FusedNiParams&,
+                                 void*, int, const FusedNiParams&, bool,
                                  cudaStream_t);
-using BlocksFn = cudaError_t (*)(const FusedNiParams&, int*);
+using BlocksFn = cudaError_t (*)(const FusedNiParams&, bool, int*);
 
 // index = external*8 + compute_int*4 + ndtri*2 + normalise
 #define FUSED_NI_MODES(fn)                                                  \
@@ -707,24 +659,27 @@ extern "C" {
 
 // Launches one block per replication on `stream`; returns cudaGetLastError()
 // of the launch (0 on success). `uniforms` is read only when `external`.
+// The variant with planes runs where they fit in shared memory, the one
+// without them elsewhere or where `regen` asks for it.
 int fused_ni_launch(const void* seeds, const void* rhos, const void* uniforms,
                     void* out, int batch, const FusedNiParams* params,
                     int external, int compute_int, int ndtri, int normalise,
-                    void* stream) {
+                    int regen, void* stream) {
   if (batch <= 0) return 0;
   const int idx = mode_index(external, compute_int, ndtri, normalise);
   return static_cast<int>(kLaunch[idx](seeds, rhos, uniforms, out, batch,
-                                       *params,
+                                       *params, regen != 0,
                                        static_cast<cudaStream_t>(stream)));
 }
 
-// Blocks of one mode that the card keeps resident on one SM at these
-// parameters, into *blocks; returns the CUDA error code (0 on success).
+// Blocks of one mode and variant that the card keeps resident on one SM
+// at these parameters, into *blocks; returns the CUDA error code (0 on
+// success).
 int fused_ni_blocks_per_sm(const FusedNiParams* params, int external,
                            int compute_int, int ndtri, int normalise,
-                           int* blocks) {
+                           int regen, int* blocks) {
   const int idx = mode_index(external, compute_int, ndtri, normalise);
-  return static_cast<int>(kBlocks[idx](*params, blocks));
+  return static_cast<int>(kBlocks[idx](*params, regen != 0, blocks));
 }
 
 const char* fused_ni_error_string(int code) {

@@ -300,8 +300,9 @@ def _fused_bucket_ok(gcfg: GridConfig, cfg: SimConfig) -> str | None:
     opt-in (``fused="auto"``), the bucketed backend, a CUDA device, det
     mixquant (the kernel emits scalars; the MC quantile draws from the
     key-tree), the Gaussian DGP without subG or streaming, and the
-    kernel's geometry: m ≤ 128 and k ≥ 2 (``use_fused_ni``) and one
-    replication's planes in shared memory (``fits_on_chip``)."""
+    kernel's geometry: m ≤ 128 and k ≥ 2 (``use_fused_ni``, the JAX
+    package's rule), at every n: above the shared-memory cap on the
+    planes the kernel's variant without them runs."""
     validate_fused(gcfg.fused, "bucketed")  # pure value check here
     if gcfg.fused == "off" or gcfg.backend != "bucketed":
         return None
@@ -311,9 +312,7 @@ def _fused_bucket_ok(gcfg: GridConfig, cfg: SimConfig) -> str | None:
         return None
     if resolve_device(gcfg.device).type != "cuda":
         return None
-    ok = (fused_ni.use_fused_ni(cfg.n, cfg.eps1, cfg.eps2)
-          and fused_ni.fits_on_chip(cfg.n, cfg.eps1, cfg.eps2,
-                                    compute_int=True))
+    ok = fused_ni.use_fused_ni(cfg.n, cfg.eps1, cfg.eps2)
     return "sign" if ok else None
 
 

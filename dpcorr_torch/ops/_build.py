@@ -4,10 +4,11 @@ Every ``dpcorr_torch/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``,
 and every ``dpcorr_torch/csrc/*.cpp`` (host code: the RDS reader) by the
 host compiler, into its own shared library with a plain C interface, at
 first use, into ``dpcorr_torch/_build/`` (listed in ``.gitignore``). The
-library's name carries a digest of its source and flags, so an edited
-source is rebuilt and a stale one is never loaded. Sources build in
-parallel: one compiler per source, all started together. A failed build
-raises with the compiler's output.
+library's name carries a digest of its source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source or header is rebuilt and a
+stale library is never loaded. Sources build in parallel: one compiler
+per source, all started together. A failed build raises with the
+compiler's output.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -69,9 +71,12 @@ def _flags(src: Path) -> tuple:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` or ``.cpp`` is built."""
+    """Where the library of ``csrc/<name>.cu`` or ``.cpp`` is built. The
+    digest covers the source, every ``csrc/*.cuh`` header for a ``.cu``
+    (the kernels share device code through them) and the flags."""
     src = source_path(name)
-    digest = hashlib.sha256(src.read_bytes()
+    headers = sorted(CSRC.glob("*.cuh")) if src.suffix == ".cu" else []
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in (src, *headers))
                             + " ".join(_flags(src)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
@@ -81,6 +86,26 @@ def log_path(name: str) -> Path:
     spills) for the library at :func:`library_path`, under the same
     digest, so it always describes that build."""
     return library_path(name).with_suffix(".log")
+
+
+def ptxas_report(log: str) -> dict:
+    """``{template arguments: (registers, stack frame, spill stores, spill
+    loads)}`` for each kernel variant, from ``nvcc -Xptxas=-v`` output.
+    The key holds the integer and bool template arguments in order: for
+    K1 (external, int, ndtri, normalise, noise in shared memory, planes
+    in shared memory), for the ladder (level, external, planes)."""
+    report, entry, frame = {}, None, (0, 0, 0)
+    for line in log.splitlines():
+        if hit := re.search(r"Compiling entry function '(\S+)'", line):
+            entry, frame = hit.group(1), (0, 0, 0)
+        elif hit := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", line):
+            frame = tuple(int(v) for v in hit.groups())
+        elif (hit := re.search(r"Used (\d+) registers", line)) and entry:
+            flags = tuple(int(v) for v in re.findall(r"L[ib](\d+)E", entry))
+            report[flags] = (int(hit.group(1)), *frame)
+            entry = None
+    return report
 
 
 def build_all(names=None) -> dict[str, Path]:

@@ -15,9 +15,11 @@ CUDA tensor launches the kernel (external uniforms or the in-kernel Philox
 generator) or raises. There is no fallback from one to the other.
 
 Applicability is the JAX package's: m ≤ 128 and k ≥ 2
-(:func:`use_fused_ni`). On the card the replication's x and y planes live
-in shared memory, which bounds n at about 28,600 at m = 8 (25,600 with
-INT; ``_Consts.plane_bytes``).
+(:func:`use_fused_ni`), at every n. On the card the replication's x and y
+planes live in shared memory where they fit, up to n = 28,672 at m = 8
+(25,600 with INT; :func:`fits_on_chip`); above that the kernel's variant
+without planes draws each observation again in its sweep, bit-equal to
+the variant with planes wherever both can run.
 """
 
 from __future__ import annotations
@@ -36,12 +38,14 @@ LANES = 128
 _TWO_PI = float(np.float32(2.0 * math.pi))
 #: dynamic shared memory one block may use on an H100 (227 KB), less a
 #: margin for the kernel's static scratch (reductions, quotient table);
-#: ``kSmemLimit`` in csrc/fused_ni.cu
+#: ``kSmemLimit`` in csrc/fused_ni_common.cuh
 _SMEM_LIMIT = 232448 - 2048
 _GAUSS = ("boxmuller", "ndtri")
 
-#: launches of each kernel, counted where the wrapper launches it
-KERNEL_LAUNCHES = {"fused_ni": 0}
+#: launches of each kernel, counted where the wrapper launches it;
+#: ``fused_ni_regen`` counts the launches that took the variant without
+#: planes, each also counted under ``fused_ni``
+KERNEL_LAUNCHES = {"fused_ni": 0, "fused_ni_regen": 0}
 
 
 def pad_m(m: int) -> int:
@@ -71,10 +75,11 @@ def use_fused_ni(n: int, eps1: float, eps2: float) -> bool:
 def fits_on_chip(n: int, eps1: float, eps2: float,
                  compute_int: bool = True) -> bool:
     """True iff one replication's planes fit in the kernel's shared
-    memory (``_Consts.plane_bytes`` ≤ ``_SMEM_LIMIT``), the cap on n that
-    :func:`use_fused_ni` does not check and a launch enforces."""
-    c = _Consts(n, eps1, eps2, (0.0, 0.0), (1.0, 1.0))
-    return c.plane_bytes(compute_int) <= _SMEM_LIMIT
+    memory (``_Consts.plane_bytes`` ≤ ``_SMEM_LIMIT``): where the launch
+    switches from the variant that keeps them there to the one that draws
+    each observation again in its sweep."""
+    return _Consts(n, eps1, eps2, (0.0, 0.0),
+                   (1.0, 1.0)).planes_kept(compute_int)
 
 
 def n_uniform_rows(n: int, eps1: float = 1.0, eps2: float = 1.0,
@@ -200,9 +205,15 @@ class _Consts:
 
     def plane_bytes(self, compute_int: bool) -> int:
         """Shared memory of one replication's planes: x and y (f32) and,
-        with INT, one flip byte per position. It caps n."""
+        with INT, one flip byte per position."""
         plane = self.rows * LANES
         return plane * 8 + (plane if compute_int else 0)
+
+    def planes_kept(self, compute_int: bool, regen: bool = False) -> bool:
+        """Which variant a launch takes, as ``planes_kept`` in
+        csrc/fused_ni.cu: the one with planes in shared memory where they
+        fit, unless ``regen`` asks for the one without them."""
+        return not regen and self.plane_bytes(compute_int) <= _SMEM_LIMIT
 
     def noise_in_smem(self, compute_int: bool) -> bool:
         """Whether the kernel keeps the (x, y) noise of each batch (f32)
@@ -391,8 +402,12 @@ def _typed(lib: ctypes.CDLL) -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(_Params),
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_void_p]
         lib.fused_ni_launch.restype = ctypes.c_int
+        lib.fused_ni_blocks_per_sm.argtypes = [
+            ctypes.POINTER(_Params)] + [ctypes.c_int] * 5 + [
+            ctypes.POINTER(ctypes.c_int)]
+        lib.fused_ni_blocks_per_sm.restype = ctypes.c_int
         lib.fused_ni_error_string.argtypes = [ctypes.c_int]
         lib.fused_ni_error_string.restype = ctypes.c_char_p
         lib._dpcorr_typed = True
@@ -419,9 +434,10 @@ def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 def _call(lib: ctypes.CDLL, seeds, rho, uniforms, out, c: _Consts,
-          normalise, compute_int, gauss) -> None:
+          normalise, compute_int, gauss, regen=False) -> None:
     """One launch of ``lib``'s kernel on the current stream, on tensors
-    the caller has checked; raises if the launch is refused."""
+    the caller has checked; raises if the launch is refused. ``regen``
+    forces the variant without planes."""
     params = _params(c, compute_int)
     dev = seeds.device
     with torch.cuda.device(dev):
@@ -431,25 +447,21 @@ def _call(lib: ctypes.CDLL, seeds, rho, uniforms, out, c: _Consts,
             None if uniforms is None else uniforms.data_ptr(),
             out.data_ptr(), seeds.shape[0], ctypes.byref(params),
             int(uniforms is not None), int(compute_int),
-            int(gauss == "ndtri"), int(normalise), stream)
+            int(gauss == "ndtri"), int(normalise), int(regen), stream)
     _raise_on(lib, err, "kernel launch")
 
 
 def blocks_per_sm(n: int, eps1: float, eps2: float, *,
                   compute_int: bool = False) -> int:
     """Blocks (replications) of the in-kernel Box–Muller mode with
-    ``normalise`` that the card keeps resident on one SM, by the CUDA
-    occupancy calculator. Card only."""
+    ``normalise`` that the card keeps resident on one SM at this n, by the
+    CUDA occupancy calculator. Card only."""
     c = _Consts(n, eps1, eps2, (0.0, 0.0), (1.0, 1.0))
     lib = _library()
-    fn = lib.fused_ni_blocks_per_sm
-    fn.argtypes = [ctypes.POINTER(_Params)] + [ctypes.c_int] * 4 + [
-        ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
     blocks = ctypes.c_int(0)
-    _raise_on(lib, fn(ctypes.byref(_params(c, compute_int)), 0,
-                      int(compute_int), 0, 1, ctypes.byref(blocks)),
-              "occupancy query")
+    _raise_on(lib, lib.fused_ni_blocks_per_sm(
+        ctypes.byref(_params(c, compute_int)), 0, int(compute_int), 0, 1, 0,
+        ctypes.byref(blocks)), "occupancy query")
     return blocks.value
 
 
@@ -466,7 +478,7 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 
 def _launch(seeds, rho, uniforms, c: _Consts, normalise, compute_int,
-            gauss) -> torch.Tensor:
+            gauss, regen=False) -> torch.Tensor:
     b = seeds.shape[0]
     dev = seeds.device
     u_rows = c.u_rows(compute_int)
@@ -474,18 +486,14 @@ def _launch(seeds, rho, uniforms, c: _Consts, normalise, compute_int,
     _check(rho, "rho", torch.float32, (b,), dev)
     if uniforms is not None:
         _check(uniforms, "uniforms", torch.float32, (b, u_rows, LANES), dev)
-    smem = c.plane_bytes(compute_int)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"n={c.n} needs {smem} bytes of shared memory per replication; "
-            f"the kernel holds one replication's planes on chip and takes "
-            f"at most {_SMEM_LIMIT}")
     out = torch.empty(b, 3, dtype=torch.float32, device=dev)
     if b == 0:
         return out
     _call(_library(), seeds, rho, uniforms, out, c, normalise, compute_int,
-          gauss)
+          gauss, regen)
     KERNEL_LAUNCHES["fused_ni"] += 1
+    if not c.planes_kept(compute_int, regen):
+        KERNEL_LAUNCHES["fused_ni_regen"] += 1
     return out
 
 
@@ -493,7 +501,8 @@ def fused_ni_sums(seeds: torch.Tensor, rho, n: int, eps1: float,
                   eps2: float, mu=(0.0, 0.0), sigma=(1.0, 1.0),
                   normalise: bool = True, compute_int: bool = False,
                   gauss: str = "boxmuller",
-                  uniforms: torch.Tensor | None = None) -> torch.Tensor:
+                  uniforms: torch.Tensor | None = None, *,
+                  _regen: bool = False) -> torch.Tensor:
     """(B, 3) f32 (ΣT_j, ΣT_j², η̂_INT) for a batch of replications.
 
     ``seeds``: (B, 2) int32 per-replication seed words
@@ -501,7 +510,9 @@ def fused_ni_sums(seeds: torch.Tensor, rho, n: int, eps1: float,
     (B,) tensor. ``uniforms``: optional (B, n_uniform_rows, 128) f32
     external uniforms; required on the CPU, where the plain version runs.
     On a CUDA tensor the kernel is launched (in-kernel Philox without
-    ``uniforms``); any other device raises."""
+    ``uniforms``); any other device raises. ``_regen`` forces the kernel's
+    variant without planes where the planes would fit (for the checks
+    that hold the two variants bit-equal; not a user option)."""
     if not use_fused_ni(n, eps1, eps2):
         m, k = batch_geometry(n, eps1, eps2)
         raise ValueError(f"fused kernel needs m <= {LANES} and k >= 2, got "
@@ -525,7 +536,8 @@ def fused_ni_sums(seeds: torch.Tensor, rho, n: int, eps1: float,
                               gauss=gauss)
     if dev.type != "cuda":
         raise ValueError(f"fused_ni runs on cuda or cpu tensors, got {dev}")
-    return _launch(seeds, rho_b, uniforms, c, normalise, compute_int, gauss)
+    return _launch(seeds, rho_b, uniforms, c, normalise, compute_int, gauss,
+                   _regen)
 
 
 def ni_result(st: torch.Tensor, st2: torch.Tensor, k: int,

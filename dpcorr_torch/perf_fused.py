@@ -1,14 +1,18 @@
 """Measures the fused kernel, the fused path's block and the design
 grid's buckets on one card.
 
-    python -m dpcorr_torch.perf_fused [--old-source PATH]
+    python -m dpcorr_torch.perf_fused [--old-source PATH [--kernel-only]]
 
 1. With ``--old-source``: the kernel against an earlier version of
-   ``csrc/fused_ni.cu`` (same C interface), built here with the same
-   ``nvcc`` flags, timed in turns (old, new, new, old) with CUDA events at
-   the main path's launch shape (B = 2¹⁴ replications, n = 10⁴,
-   ε = (1, 1)), in-kernel and external-uniform modes. Launches go straight
-   to each library, so neither side pays the wrapper's checks.
+   ``csrc/fused_ni.cu`` (the same C interface, or the one before the
+   ``regen`` argument), built here with the same ``nvcc`` flags, with
+   each side's ``ptxas`` registers and spills for the main path's
+   variant, timed in turns (old, new, new, old, three times) with CUDA
+   events at the main path's launch shape (B = 2¹⁴ replications,
+   n = 10⁴, ε = (1, 1)), in-kernel and external-uniform modes. Launches
+   go straight to each library, so neither side pays the wrapper's
+   checks. A source that includes ``fused_ni_common.cuh`` needs its own
+   commit's header beside it.
 2. The fused path itself (``RepBlockPipeline`` over
    ``sim.fused_ni_rep_fn``), 32 blocks of 2¹⁴ replications, split by the
    stages the path marks (``sim.stage``, ``sim.FUSED_STAGES``): host time
@@ -45,15 +49,18 @@ from dpcorr_torch.utils.device import card_line, time_cuda
 N, EPS, RHO, ALPHA = 10_000, (1.0, 1.0), 0.5, 0.05
 BLOCK = 1 << 14
 BLOCKS = 32
+AB_ROUNDS = 3
+#: template arguments of the main path's K1 variant in ``ptxas`` reports
+MAIN_VARIANT = (0, 0, 0, 1, 1, 1)
 
 
 def emit(card: str, what: str, **fields) -> None:
     print(json.dumps({"card": card, "what": what, **fields}), flush=True)
 
 
-def build_library(src: Path, name: str) -> ctypes.CDLL:
+def build_library(src: Path, name: str) -> tuple[ctypes.CDLL, str]:
     """``src`` compiled as the port's kernels are, into the build
-    directory, and loaded."""
+    directory, and loaded; with the compiler's report."""
     from dpcorr_torch.ops import _build
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -65,16 +72,56 @@ def build_library(src: Path, name: str) -> ctypes.CDLL:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}"
                            f"{proc.stderr}")
-    return ctypes.CDLL(str(target))
+    return ctypes.CDLL(str(target)), proc.stdout + proc.stderr
+
+
+def _old_launcher(lib: ctypes.CDLL, source: str):
+    """A launcher of an earlier library with ``fused_ni._call``'s
+    arguments. Sources from before the variant without planes take no
+    ``regen`` argument; their launch is typed without it."""
+    from dpcorr_torch.ops import fused_ni
+
+    fused_ni._typed(lib)
+    if "int regen" in source:
+        return lambda *args: fused_ni._call(lib, *args)
+    lib.fused_ni_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.POINTER(fused_ni._Params), ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+    def launch(seeds, rho, uniforms, out, c, normalise, compute_int, gauss):
+        params = fused_ni._params(c, compute_int)
+        stream = torch.cuda.current_stream(seeds.device).cuda_stream
+        err = lib.fused_ni_launch(
+            seeds.data_ptr(), rho.data_ptr(),
+            None if uniforms is None else uniforms.data_ptr(),
+            out.data_ptr(), seeds.shape[0], ctypes.byref(params),
+            int(uniforms is not None), int(compute_int),
+            int(gauss == "ndtri"), int(normalise), stream)
+        fused_ni._raise_on(lib, err, "kernel launch")
+    return launch
 
 
 def kernel_ab(card: str, old_source: Path) -> None:
-    """Phase 1: old and new kernel in turns, both modes."""
-    from dpcorr_torch.ops import fused_ni
+    """Phase 1: old and new kernel in turns, both modes, with the
+    ``ptxas`` registers and spills of each side's main-path variant."""
+    from dpcorr_torch.ops import _build, fused_ni
     from dpcorr_torch.utils import rng
 
-    libs = {"new": fused_ni._library(),
-            "old": fused_ni._typed(build_library(old_source, "fused_ni_old"))}
+    new_lib = fused_ni._library()
+    old_lib, old_log = build_library(old_source, "fused_ni_old")
+    launch = {"new": lambda *args: fused_ni._call(new_lib, *args),
+              "old": _old_launcher(old_lib, old_source.read_text())}
+    # the main path's variant: philox, NI, Box-Muller, normalise, noise in
+    # shared memory (and, where the source has the flag, planes kept)
+    main = {"new": _build.ptxas_report(
+                _build.log_path("fused_ni").read_text())[MAIN_VARIANT]}
+    old_report = _build.ptxas_report(old_log)
+    main["old"] = old_report.get(MAIN_VARIANT, old_report.get(
+        MAIN_VARIANT[:-1]))
+    emit(card, "kernel_ab_ptxas", variant="philox NI boxmuller normalise",
+         fields=["registers", "stack_frame", "spill_stores", "spill_loads"],
+         old=main["old"], new=main["new"])
     c = fused_ni._Consts(N, *EPS, (0.0, 0.0), (1.0, 1.0))
     seeds = rng.kernel_seeds(rng.rep_keys(rng.master_key(device="cuda"),
                                           BLOCK)).contiguous()
@@ -86,14 +133,14 @@ def kernel_ab(card: str, old_source: Path) -> None:
     for mode, uniforms, reps in (("in-kernel", None, 50),
                                  ("external", u, 20)):
         times = {"old": [], "new": []}
-        for side in ("old", "new", "new", "old"):
+        for side in ("old", "new", "new", "old") * AB_ROUNDS:
             times[side].append(time_cuda(
-                lambda lib=libs[side]: fused_ni._call(
-                    lib, seeds, rho, uniforms, out, c, True, False,
-                    "boxmuller"), reps))
+                lambda f=launch[side]: f(seeds, rho, uniforms, out, c, True,
+                                         False, "boxmuller"), reps))
         emit(card, "kernel_ab", mode=mode, batch=BLOCK, n=N, eps=EPS,
-             order="old, new, new, old", reps_per_timing=reps,
-             old_ms=times["old"], new_ms=times["new"],
+             order=f"(old, new, new, old) x {AB_ROUNDS}",
+             reps_per_timing=reps, old_ms=times["old"],
+             new_ms=times["new"],
              speedup=float(np.mean(times["old"]) / np.mean(times["new"])))
 
 
@@ -221,6 +268,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-source", type=Path,
                     help="an earlier csrc/fused_ni.cu to time against")
+    ap.add_argument("--kernel-only", action="store_true",
+                    help="stop after the kernel A/B (phase 1)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("perf_fused: needs a CUDA device", file=sys.stderr)
@@ -230,6 +279,8 @@ def main(argv=None) -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
     if args.old_source is not None:
         kernel_ab(card, args.old_source)
+    if args.kernel_only:
+        return 0
     block_split(card)
     grid_split(card)
     return 0

@@ -14,7 +14,8 @@ Counterpart of ``dpcorr/utils/roofline.py``: a measured reps/s becomes
 - **K1's per-pipe work model** (:func:`fused_pipe_ops`,
   :func:`least_time_ms`): the operations one replication of the fused
   function needs, by pipe, and the least time the card needs for them
-  at sm_90's per-SM rates; ``chip_smoke.py`` bounds K1 with it.
+  at sm_90's per-SM rates; ``chip_smoke.py`` bounds K1 with it, and each
+  level of K1's stage ladder (:func:`ladder_pipe_ops`) the same way.
 
 The JAX module's ``xla_cost`` has no counterpart: eager torch compiles
 no program, so there is no compiler cost analysis to read.
@@ -188,3 +189,58 @@ def least_time_ms(ops: dict, reps: int, bytes_: int) -> dict:
     times["issue"] = 1e3 * reps * sum(ops.values()) / (ISSUE_RATE * clocks)
     times["bytes"] = 1e3 * bytes_ / HBM_BYTES_PER_S
     return times
+
+
+def ladder_pipe_ops(level: int, n: int, eps, philox: bool = True) -> dict:
+    """Operations one replication of K1's stage ladder needs at ``level``
+    (1-7, ``dpcorr_torch.bisect.LEVELS``), by pipe, counted as
+    :func:`fused_pipe_ops` counts K1's. L6 and L7 are K1 (NI): their count
+    is :func:`fused_pipe_ops`'s. L1-L5 compute over every position of the
+    (rows, 128) layout, as the JAX ladder's arrays do, where K1 draws only
+    its n observations: L1 the Philox words of two per position (10
+    rounds of two multiplies and two xors per 4 words), converted and
+    summed; L2 the words' uniforms, Box–Muller and the sums; L3 the pair
+    and the position weight; L4 the clip, the centering draws and means,
+    and the weighted sweep of the centered planes; L5 the clip and the
+    centering of L4 and, in place of its sweep, the sign tests and count
+    adds of each batch element and each batch's quotients and sums."""
+    from dpcorr_torch.ops.fused_ni import LANES, layout
+
+    if level >= 6:
+        return fused_pipe_ops(n, eps, False, philox)
+    m, _, k, _, rows = layout(n, *eps)
+    pos = rows * LANES
+    ops = {"f32": 0.0, "int32": 0.0, "sfu": 0.0}
+
+    def add(times, f32=0.0, int32=0.0, sfu=0.0):
+        ops["f32"] += times * f32
+        ops["int32"] += times * int32
+        ops["sfu"] += times * sfu
+
+    if philox:
+        add(pos, int32=2 / 4 * 10 * 4)
+    if level == 1:  # two int-to-float conversions and two adds
+        add(pos, sfu=2, f32=2)
+        return ops
+    # uniforms (shift, or; subtract), Box-Muller, two sums
+    add(pos, int32=2 * 2, f32=2 + 4 + 2, sfu=4)
+    if level == 2:
+        return ops
+    # the weight (three tests, an and, an or) and the pair's two products
+    add(pos, int32=5, f32=2)
+    if level == 3:
+        return ops
+    # the clip; one Philox call and two Laplace draws; the two DP means
+    add(pos, int32=4)
+    if philox:
+        add(1, int32=40 + 2 * 2, f32=2)
+    add(2, f32=3, sfu=1, int32=1)
+    add(2, sfu=2, f32=3)
+    if level == 4:  # the sweep: the weight again, two subtracts, two adds
+        add(pos, int32=5, f32=4)
+        return ops
+    # per batch element two sign tests and two count adds; per batch the
+    # counts unpacked and their two quotients summed
+    add(k * m, int32=4)
+    add(k, int32=6, f32=2)
+    return ops

@@ -16,7 +16,7 @@ import torch
 
 from dpcorr_torch import grid, hrs, perf_hrs, sim
 from dpcorr_torch.models.dgp import gen_bounded_factor
-from dpcorr_torch.ops import fused_ni
+from dpcorr_torch.ops import fused_ni, ladder
 from dpcorr_torch.utils import rng
 
 #: (n, ε) of each lane-group layout the kernel's sweep branches on:
@@ -146,8 +146,15 @@ def test_wrapper_checks_its_inputs(cuda):
         fused_ni.fused_ni_sums(torch.zeros(2, 4, dtype=torch.int32,
                                            device=cuda).t(), 0.5, 1024,
                                1.0, 1.0)
-    with pytest.raises(ValueError, match="shared memory"):
-        fused_ni.fused_ni_sums(seeds, 0.5, 40_000, 1.0, 1.0)
+    # above the shared-memory cap on the planes the launch takes the
+    # variant without them instead of refusing
+    before = dict(fused_ni.KERNEL_LAUNCHES)
+    out = fused_ni.fused_ni_sums(seeds, 0.5, 40_000, 1.0, 1.0)
+    torch.cuda.synchronize()
+    assert out.shape == (4, 3) and torch.isfinite(out).all()
+    assert fused_ni.KERNEL_LAUNCHES["fused_ni"] == before["fused_ni"] + 1
+    assert (fused_ni.KERNEL_LAUNCHES["fused_ni_regen"]
+            == before["fused_ni_regen"] + 1)
 
 
 @pytest.mark.cuda
@@ -856,3 +863,169 @@ def test_devicemon_series_on_the_card(cuda):
     assert series['dpcorr_device_mem_limit_bytes{device="cuda:0"}'] == \
         st["bytes_limit"]
     assert not any("live_buffer" in k for k in series)
+
+
+#: (n, ε, compute_int) above the shared-memory cap on the planes, where
+#: the kernel's variant without them runs: just above the cap (NI and
+#: INT), n = 40,000 and 10⁵ at m' = 8, and 10⁵ at m = m' = 128
+ABOVE_CAP = [(28_673, (1.0, 1.0), False), (25_601, (1.0, 1.0), True),
+             (40_000, (1.0, 1.0), False), (40_000, (1.0, 1.0), True),
+             (100_000, (1.0, 1.0), False), (100_000, (0.25, 0.25), True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["external", "philox"])
+@pytest.mark.parametrize("n,eps,compute_int", ABOVE_CAP)
+@pytest.mark.parametrize("normalise", [True, False])
+@pytest.mark.parametrize("gauss", ["boxmuller", "ndtri"])
+def test_kernel_above_cap_matches_plain(cuda, gauss, normalise, n, eps,
+                                        compute_int, source):
+    """The variant without planes against the plain version, as
+    ``test_kernel_matches_plain`` holds the variant with them: ≥ 99% of
+    replications within 1e-4 relative (ΣT_j, ΣT_j²) and 1e-5 (η̂_INT), and
+    in-kernel mode bit-equal to external mode on ``philox_uniforms``, at
+    the same b = 128 (at n = 10⁵ one replication's uniforms take 1.6-2
+    MB). ΣT_j can lie near 0, where 1e-4 relative is below an ulp of the
+    partial sums: the 1% share absorbs such replications, as it does
+    there."""
+    c = fused_ni._Consts(n, *eps, (0.0, 0.0), (1.0, 1.0))
+    assert not c.planes_kept(compute_int)
+    b = 128
+    rho = torch.linspace(-0.6, 0.9, b, device=cuda)
+    kw = dict(normalise=normalise, compute_int=compute_int, gauss=gauss)
+    if source == "external":
+        seeds = torch.zeros(b, 2, dtype=torch.int32, device=cuda)
+        u = _uniforms(9, b, n, eps, compute_int, cuda)
+    else:
+        seeds = torch.from_numpy(np.random.default_rng(10).integers(
+            -2**31, 2**31, (b, 2), dtype=np.int64).astype(np.int32)).to(cuda)
+        u = fused_ni.philox_uniforms(seeds, n, *eps, compute_int, normalise)
+    before = dict(fused_ni.KERNEL_LAUNCHES)
+    got = fused_ni.fused_ni_sums(seeds, rho, n, *eps, uniforms=u, **kw)
+    torch.cuda.synchronize()
+    assert fused_ni.KERNEL_LAUNCHES["fused_ni_regen"] == (
+        before["fused_ni_regen"] + 1)
+    want = fused_ni.fused_ni_plain(seeds, rho, u, n=n, eps1=eps[0],
+                                   eps2=eps[1], **kw)
+    assert torch.isfinite(got).all()
+    assert _within(got, want).float().mean().item() >= 0.99
+    if source == "philox":
+        inside = fused_ni.fused_ni_sums(seeds, rho, n, *eps, **kw)
+        assert torch.equal(inside, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["external", "philox"])
+@pytest.mark.parametrize("n,eps", GEOMETRIES)
+@pytest.mark.parametrize("compute_int", [False, True])
+@pytest.mark.parametrize("normalise", [True, False])
+@pytest.mark.parametrize("gauss", ["boxmuller", "ndtri"])
+def test_forced_variant_is_bit_equal(cuda, gauss, normalise, compute_int, n,
+                                     eps, source):
+    """Where the planes fit, the variant without them (forced) gives the
+    same bits as the one with them: the same draws, the same pinned
+    arithmetic, the same sums in the same order, at every layout."""
+    b = 128
+    rho = torch.linspace(-0.6, 0.9, b, device=cuda)
+    kw = dict(normalise=normalise, compute_int=compute_int, gauss=gauss)
+    seeds = torch.from_numpy(np.random.default_rng(11).integers(
+        -2**31, 2**31, (b, 2), dtype=np.int64).astype(np.int32)).to(cuda)
+    u = (_uniforms(12, b, n, eps, compute_int, cuda)
+         if source == "external" else None)
+    on_chip = fused_ni.fused_ni_sums(seeds, rho, n, *eps, uniforms=u, **kw)
+    before = fused_ni.KERNEL_LAUNCHES["fused_ni_regen"]
+    forced = fused_ni.fused_ni_sums(seeds, rho, n, *eps, uniforms=u, **kw,
+                                    _regen=True)
+    torch.cuda.synchronize()
+    assert fused_ni.KERNEL_LAUNCHES["fused_ni_regen"] == before + 1
+    assert torch.isfinite(on_chip).all()
+    assert torch.equal(forced, on_chip)
+
+
+#: (n, ε) of the ladder's layouts: the main path's (m' = 8), n = 1000,
+#: m = 11 in m' = 16 with leftovers, m' = 1 and m' = 128 (all with L4-L5's
+#: planes kept), and n = 40,000 (m' = 8, L4-L5 without planes)
+LADDER_KEPT = [(10_000, (1.0, 1.0)), (1_000, (1.0, 1.0)),
+               (9_000, (1.5, 0.5)), (10_000, (4.0, 2.0)),
+               (10_000, (0.25, 0.25))]
+LADDER_GEOMETRIES = LADDER_KEPT + [(40_000, (1.0, 1.0))]
+
+
+def _ladder_within(got, want, mag):
+    """Per replication within 1e-5 of the sum of the terms' magnitudes
+    (f32 sums in another order: at most a few ulps of each term)."""
+    return (got - want).abs() <= 1e-5 * mag
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,eps", LADDER_GEOMETRIES)
+@pytest.mark.parametrize("level", ladder.KERNEL_LEVELS)
+def test_ladder_kernel_matches_plain(cuda, level, n, eps):
+    """External mode on random bits against the plain version: every
+    replication within 1e-5 × Σ|terms| at L1-L4; at L5, where a sign at a
+    tie under another rounding moves the sum by 1/m, at least 99% (K1's
+    rule)."""
+    b = 128
+    bits = torch.from_numpy(np.random.default_rng(13).integers(
+        -2**31, 2**31, (b, ladder.bit_rows(n, *eps), 128),
+        dtype=np.int64).astype(np.int32)).to(cuda)
+    seeds = torch.zeros(b, 2, dtype=torch.int32, device=cuda)
+    before = ladder.KERNEL_LAUNCHES["fused_ni_ladder"]
+    got = ladder.ladder_sums(seeds, 0.5, n, *eps, level, bits)
+    torch.cuda.synchronize()
+    assert ladder.KERNEL_LAUNCHES["fused_ni_ladder"] == before + 1
+    want = ladder.ladder_plain(bits, 0.5, n, *eps, level)
+    mag = ladder.ladder_plain(bits, 0.5, n, *eps, level, magnitude=True)
+    assert torch.isfinite(got).all()
+    share = _ladder_within(got, want, mag).float().mean().item()
+    assert share >= (0.99 if level == 5 else 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,eps", LADDER_GEOMETRIES)
+@pytest.mark.parametrize("level", ladder.KERNEL_LEVELS)
+def test_ladder_in_kernel_equals_external_on_philox_bits(cuda, level, n,
+                                                         eps):
+    b = 128
+    seeds = torch.from_numpy(np.random.default_rng(14).integers(
+        -2**31, 2**31, (b, 2), dtype=np.int64).astype(np.int32)).to(cuda)
+    inside = ladder.ladder_sums(seeds, 0.5, n, *eps, level)
+    outside = ladder.ladder_sums(seeds, 0.5, n, *eps, level,
+                                 ladder.philox_bits(seeds, n, *eps))
+    torch.cuda.synchronize()
+    assert torch.isfinite(inside).all()
+    assert torch.equal(inside, outside)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,eps", LADDER_KEPT)
+@pytest.mark.parametrize("level", (4, 5))
+@pytest.mark.parametrize("external", (False, True))
+def test_ladder_forced_variant_without_planes_bit_equal(cuda, level, n, eps,
+                                                        external):
+    """Where L4-L5's planes fit, the variant that draws each position
+    again in the sweep, forced, gives the bits of the one with planes."""
+    b = 128
+    seeds = torch.from_numpy(np.random.default_rng(15).integers(
+        -2**31, 2**31, (b, 2), dtype=np.int64).astype(np.int32)).to(cuda)
+    bits = ladder.philox_bits(seeds, n, *eps) if external else None
+    assert ladder.planes_kept(n, *eps, level)
+    kept = ladder.ladder_sums(seeds, 0.5, n, *eps, level, bits)
+    forced = ladder.ladder_sums(seeds, 0.5, n, *eps, level, bits,
+                                _regen=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(kept).all()
+    assert torch.equal(forced, kept)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", ladder.KERNEL_LEVELS)
+def test_ladder_runs_past_shared_memory(cuda, level):
+    """Above K1's cap every level launches (L4-L5 without planes), as the
+    bisect's probes do at ``--n 40000``."""
+    seeds = torch.zeros(2, 2, dtype=torch.int32, device=cuda)
+    assert ladder.planes_kept(40_000, 1.0, 1.0, level) is False
+    before = ladder.KERNEL_LAUNCHES["fused_ni_ladder"]
+    assert torch.isfinite(ladder.ladder_sums(seeds, 0.5, 40_000, 1.0, 1.0,
+                                             level)).all()
+    assert ladder.KERNEL_LAUNCHES["fused_ni_ladder"] == before + 1

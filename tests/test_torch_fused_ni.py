@@ -169,10 +169,12 @@ def test_params_struct_has_no_padding():
 @pytest.mark.parametrize("compute_int,n_cap", [(False, 28_672),
                                                (True, 25_600)])
 def test_planes_alone_cap_n(compute_int, n_cap):
-    """At m = 8 the x and y planes (and INT's flips) cap n; the batch
-    noise stays in shared memory at the main path's n = 10⁴ and moves to
-    the kernel's sweep where it does not fit, so it never lowers the cap.
-    The wrapper's limit is the kernel's ``kSmemLimit``."""
+    """At m = 8 the x and y planes (and INT's flips) set the largest n of
+    the kernel's variant that keeps them in shared memory; above it the
+    variant without planes runs. The batch noise stays in shared memory
+    at the main path's n = 10⁴ and moves to the kernel's sweep where it
+    does not fit, so it never lowers that n. The wrapper's limit is the
+    kernel's ``kSmemLimit``."""
     def consts(n):
         return fused_ni._Consts(n, 1.0, 1.0, (0.0, 0.0), (1.0, 1.0))
 
@@ -181,7 +183,71 @@ def test_planes_alone_cap_n(compute_int, n_cap):
     assert not consts(n_cap).noise_in_smem(compute_int)
     assert consts(n_cap + 1).plane_bytes(compute_int) > fused_ni._SMEM_LIMIT
     assert consts(10_000).noise_in_smem(compute_int)
-    src = (fused_ni.__file__.rsplit("/ops/", 1)[0] + "/csrc/fused_ni.cu")
+    src = (fused_ni.__file__.rsplit("/ops/", 1)[0]
+           + "/csrc/fused_ni_common.cuh")
     total, margin = re.search(r"kSmemLimit = (\d+) - (\d+);",
                               open(src).read()).groups()
     assert int(total) - int(margin) == fused_ni._SMEM_LIMIT
+
+
+#: n above the shared-memory cap on the planes (28,672 for NI, 25,600
+#: with INT, at m = 8): the kernel's variant without planes runs there
+ABOVE_CAP = (30_000, 40_000)
+
+
+@pytest.mark.parametrize("n", ABOVE_CAP)
+@pytest.mark.parametrize("normalise", [True, False])
+@pytest.mark.parametrize("gauss", ["boxmuller", "ndtri"])
+@pytest.mark.parametrize("compute_int", [False, True])
+def test_plain_matches_interpret_kernel_above_cap(compute_int, gauss,
+                                                  normalise, n):
+    """Above the cap, where the JAX kernel still runs, the plain version
+    agrees with it within K1's tolerances (1e-4 relative on ΣT_j and
+    ΣT_j², 1e-5 on η̂_INT), and ``fused_ni_sums`` does not refuse n."""
+    b, eps = 4, (1.0, 1.0)
+    assert fused_ni.use_fused_ni(n, *eps)
+    assert not fused_ni.fits_on_chip(n, *eps, compute_int)
+    u = _uniforms(10, b, n, eps, compute_int)
+    rho = _rhos(b)
+    st, st2, eta = pallas_ni._ni_sign_pallas_sums(
+        jnp.zeros((b, 2), jnp.int32), jnp.asarray(rho), n, *eps, (0.0, 0.0),
+        (1.0, 1.0), normalise, True, compute_int, gauss,
+        uniforms=jnp.asarray(u))
+    got = fused_ni.fused_ni_sums(
+        torch.zeros(b, 2, dtype=torch.int32), torch.from_numpy(rho), n, *eps,
+        normalise=normalise, compute_int=compute_int, gauss=gauss,
+        uniforms=torch.from_numpy(u)).numpy()
+    np.testing.assert_allclose(got[:, 0], np.asarray(st), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(got[:, 1], np.asarray(st2), rtol=1e-4)
+    np.testing.assert_allclose(got[:, 2], np.asarray(eta), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,regen,kept", [(10_000, False, True),
+                                          (10_000, True, False),
+                                          (28_672, False, True),
+                                          (40_000, False, False),
+                                          (100_000, True, False)])
+def test_launch_chooses_the_variant_instead_of_raising(monkeypatch, n,
+                                                       regen, kept):
+    """``_launch`` takes every n: it passes the forcing switch on to the
+    library, which keeps the planes where they fit (``planes_kept``,
+    csrc/fused_ni.cu's rule) unless forced, and counts each launch, and
+    each launch of the variant without planes apart."""
+    calls = []
+    monkeypatch.setattr(fused_ni, "_library", lambda: "lib")
+    monkeypatch.setattr(fused_ni, "_call",
+                        lambda lib, *a: calls.append((lib, a)))
+    for name in fused_ni.KERNEL_LAUNCHES:
+        monkeypatch.setitem(fused_ni.KERNEL_LAUNCHES, name, 0)
+    c = fused_ni._Consts(n, 1.0, 1.0, (0.0, 0.0), (1.0, 1.0))
+    assert c.planes_kept(False, regen) == kept
+    assert c.planes_kept(False) == fused_ni.fits_on_chip(n, 1.0, 1.0, False)
+    seeds = torch.zeros(3, 2, dtype=torch.int32)
+    out = fused_ni._launch(seeds, torch.zeros(3), None, c, True, False,
+                           "boxmuller", regen)
+    assert out.shape == (3, 3)
+    ((lib, args),) = calls
+    assert lib == "lib" and args[-1] == regen and args[4] is c
+    assert fused_ni.KERNEL_LAUNCHES == {"fused_ni": 1,
+                                        "fused_ni_regen": int(not kept)}

@@ -20,6 +20,7 @@ import torch
 
 import dpcorr.grid as jgrid
 from dpcorr.io.rds_py import read_rds_table as jax_read_rds_table
+from dpcorr.ops import pallas_ni
 from dpcorr.utils import rng as jrng
 from dpcorr_torch import grid
 from dpcorr_torch import sim as sim_mod
@@ -368,7 +369,8 @@ def test_fused_failure_raises_and_never_reruns_unfused(monkeypatch,
 
 def test_fused_bucket_eligibility(monkeypatch):
     """The gate: opt-in, bucketed backend, a CUDA device, det mixquant,
-    the Gaussian sign pair, m ≤ 128, k ≥ 2, planes in shared memory."""
+    the Gaussian sign pair, m ≤ 128, k ≥ 2, at every n (above the cap on
+    the planes the kernel's variant without them runs)."""
     gc = grid.GridConfig(**SIGN, backend="bucketed", fused="auto",
                          device="cpu")
     cfg = gc.sim_config(grid._Row(0, 1000, 0.5, 1.0, 1.0))
@@ -377,7 +379,7 @@ def test_fused_bucket_eligibility(monkeypatch):
                         lambda device=None: torch.device("cuda"))
     assert grid._fused_bucket_ok(gc, cfg) == "sign"
     for e1, e2 in ((0.5, 0.5), (1.5, 0.5)):
-        for n in (1000, 9000):
+        for n in (1000, 9000, 30_000):
             assert grid._fused_bucket_ok(gc, dataclasses.replace(
                 cfg, n=n, eps1=e1, eps2=e2)) == "sign"
     off = [dataclasses.replace(gc, fused="off"),
@@ -385,15 +387,15 @@ def test_fused_bucket_eligibility(monkeypatch):
     assert all(grid._fused_bucket_ok(g, cfg) is None for g in off)
     for change in (dict(dgp="bernoulli"), dict(mixquant_mode="mc"),
                    dict(use_subg=True), dict(stream_n_chunk=256),
-                   dict(eps1=0.05, eps2=0.05),       # m = 3200 > 128
-                   dict(n=30_000)):                  # beyond shared memory
+                   dict(eps1=0.05, eps2=0.05)):      # m = 3200 > 128
         assert grid._fused_bucket_ok(
             gc, dataclasses.replace(cfg, **change)) is None, change
 
 
 @pytest.mark.parametrize("eps", [(1.0, 1.0), (1.5, 0.5), (0.5, 0.5)])
 def test_fits_on_chip_caps_n(eps):
-    """The shared-memory cap on n that a launch enforces: the sign grid's
+    """The shared-memory cap on n where a launch switches from the
+    kernel's variant with planes to the one without: the sign grid's
     widest n = 9000 fits at every ε pair of the grid; n = 30,000 fits at
     none, with INT."""
     assert fused_ni.fits_on_chip(9000, *eps)
@@ -402,6 +404,25 @@ def test_fits_on_chip_caps_n(eps):
     assert fused_ni.fits_on_chip(25_600, 1.0, 1.0)
     assert not fused_ni.fits_on_chip(25_601, 1.0, 1.0)
     assert fused_ni.fits_on_chip(28_672, 1.0, 1.0, compute_int=False)
+
+
+@pytest.mark.parametrize("n", [1000, 9000, 25_601, 28_673, 40_000,
+                               100_000, 10**6])
+@pytest.mark.parametrize("eps", [(1.0, 1.0), (1.5, 0.5), (0.25, 0.25),
+                                 (0.1, 0.1), (5.0, 0.015)])
+def test_sign_gate_geometry_is_use_fused_ni(monkeypatch, n, eps):
+    """On a CUDA device the fused sign gate's geometry is JAX's rule
+    alone (``use_ni_sign_pallas``: m ≤ 128 and k ≥ 2), as
+    ``dpcorr/grid.py`` routes buckets, whatever the shared memory."""
+    monkeypatch.setattr(grid, "resolve_device",
+                        lambda device=None: torch.device("cuda"))
+    gc = grid.GridConfig(**SIGN, backend="bucketed", fused="auto")
+    cfg = dataclasses.replace(gc.sim_config(grid._Row(0, 1000, 0.5, 1.0,
+                                                       1.0)),
+                              n=n, eps1=eps[0], eps2=eps[1])
+    want = pallas_ni.use_ni_sign_pallas(n, *eps)
+    assert fused_ni.use_fused_ni(n, *eps) == want
+    assert (grid._fused_bucket_ok(gc, cfg) == "sign") == want
 
 
 def test_grid_raises_without_a_device(monkeypatch):

@@ -348,7 +348,7 @@ BARE = {
         "per-point fetch boundary (the local backend persists each point "
         "before the next dispatches)",
         None,  # the degraded bucket's refetch: the port's fused buckets
-               # have no fallback fetch (fits_on_chip routes them first)
+               # have no fallback fetch (use_fused_ni routes them first)
     ],
     "parallel/multihost.py": [
         None,  # the port's workers run grid.run_grid on their slice, so
