@@ -95,15 +95,27 @@ def _check_u32(data: int) -> int:
     return data
 
 
+def _host_data(data) -> int:
+    """A host scalar as ``jax.random.fold_in`` casts it to uint32: a
+    numpy integer or float scalar, or a 0-d array, is truncated and
+    masked to its low 32 bits; a Python int (or float, truncated) must
+    lie in [0, 2³²) and raises ``OverflowError`` otherwise. numpy comes
+    first: ``np.float64`` is a subclass of ``float``."""
+    if isinstance(data, (int, float)) and not isinstance(data, np.generic):
+        return _check_u32(int(data))
+    return int(np.asarray(data).astype(np.int64)) & _M32
+
+
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
-    """``jax.random.fold_in``: threefry(key, (0, data)). ``data`` is an
-    int or an integer tensor that broadcasts against the key's leading
-    axes; the result has the broadcast leading shape. A Python int
-    outside [0, 2³²) raises ``OverflowError`` as JAX does; an integer
-    tensor is masked to its low 32 bits."""
+    """``jax.random.fold_in``: threefry(key, (0, data)). ``data`` is a
+    host scalar (:func:`_host_data`) or an integer tensor that broadcasts
+    against the key's leading axes; the result has the broadcast leading
+    shape. A Python int outside [0, 2³²) raises ``OverflowError`` as JAX
+    does; a numpy scalar and an integer tensor are masked to their low 32
+    bits."""
     key = _as_key(key)
-    if isinstance(data, int):  # made on the device: no host-to-device copy
-        data = torch.full((), _check_u32(data), dtype=torch.int64,
+    if not isinstance(data, torch.Tensor):  # made on the device: no copy
+        data = torch.full((), _host_data(data), dtype=torch.int64,
                           device=key.device)
     data = data.to(key.device, torch.int64) & _M32
     y0, y1 = threefry2x32(key, torch.zeros_like(data), data)
@@ -114,10 +126,10 @@ def fold_in_words(words: tuple[int, int], data: int) -> tuple[int, int]:
     """:func:`fold_in` on a key held as two host ints, for key chains
     short enough that device launches would cost more than the
     arithmetic (the serving layer's per-request keys). Bit-equal to
-    :func:`fold_in` on the same words, and raises as it does for an int
-    outside [0, 2³²)."""
+    :func:`fold_in` on the same words, and takes ``data`` as it does
+    (:func:`_host_data`)."""
     return _threefry_words(int(words[0]) & _M32, int(words[1]) & _M32, 0,
-                           _check_u32(int(data)))
+                           _host_data(data))
 
 
 def design_key(key: torch.Tensor, design_index) -> torch.Tensor:

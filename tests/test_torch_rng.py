@@ -216,3 +216,59 @@ def test_fold_in_integer_tensors_keep_their_mask():
     np.testing.assert_array_equal(wide[0].numpy(), want)
     np.testing.assert_array_equal(
         wide[1].numpy(), rng.fold_in(key, 2**32 - 1).numpy())
+
+
+#: host scalars JAX casts to uint32 (masked to the low 32 bits; a float
+#: truncated): numpy integer scalars of every width and sign, one past
+#: 2³², numpy floats (a subclass of ``float`` for float64, masked all the
+#: same), and a Python float
+HOST_SCALARS = [np.int64(3), np.int64(-1), np.int32(-5), np.uint32(7),
+                np.int64(2**32 + 5), np.uint64(2**40), 3.0,
+                np.float64(3.0), np.float64(-1.0), np.float64(2**32 + 5),
+                np.float32(3.7), np.float64(-3.7)]
+
+
+@pytest.mark.parametrize("data", HOST_SCALARS, ids=repr)
+def test_fold_in_numpy_scalars_masked_as_jax(data):
+    """A numpy scalar folds in as JAX folds it: its low 32 bits, so
+    np.int64(-1) is 2³² − 1 and np.int64(2³² + 5) is 5; a float is
+    truncated. The same through ``design_key``, ``chunk_key`` and
+    ``fold_in_words``."""
+    want = _words(jax.random.fold_in(jrng.master_key(7), data))
+    key = rng.master_key(7)
+    for got in (rng.fold_in(key, data), rng.design_key(key, data),
+                rng.chunk_key(key, data)):
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert rng.fold_in_words((0, 7), data) == tuple(int(w) for w in want)
+    np.testing.assert_array_equal(
+        rng.design_key(key, data).numpy(),
+        _words(jrng.design_key(jrng.master_key(7), data)))
+
+
+def test_design_key_of_a_design_column_element():
+    """An element of a design table's index column (a numpy int64) keys
+    its point as the JAX package's design_key does."""
+    from dpcorr_torch.grid import GridConfig
+
+    design = GridConfig(n_grid=(1000,), eps_pairs=((1.0, 1.0),),
+                        b=2).design_points()
+    i = design["i"][1]
+    assert isinstance(i, np.integer)
+    np.testing.assert_array_equal(
+        rng.design_key(rng.master_key(), i).numpy(),
+        _words(jrng.design_key(jrng.master_key(), i)))
+    with pytest.raises(OverflowError, match="out of bounds for uint32"):
+        rng.fold_in(rng.master_key(7), -1)
+
+
+@pytest.mark.parametrize("data", [-1, 2**32, -1.0, 2.0**32 + 5],
+                         ids=repr)
+def test_fold_in_python_scalars_out_of_range_raise_as_jax(data):
+    """A Python int or float outside [0, 2³²) is not masked: JAX and the
+    port both raise ``OverflowError``, through ``fold_in_words`` too."""
+    with pytest.raises(OverflowError, match="out of bounds for uint32"):
+        jax.random.fold_in(jrng.master_key(7), data)
+    with pytest.raises(OverflowError, match="out of bounds for uint32"):
+        rng.fold_in(rng.master_key(7), data)
+    with pytest.raises(OverflowError, match="out of bounds for uint32"):
+        rng.fold_in_words((0, 7), data)
