@@ -372,6 +372,27 @@ north-star workload (n = 10⁴ Gaussian pair → NI sign-batch estimate + CI →
         sent the bucket unfused (0 launches); coverage in [0.90, 0.99]
         per method and arm; the arms' mean ρ̂ − ρ within 4 Monte-Carlo
         standard errors.
+21. the key-tree's rbg-family implementations (``DPCORR_PRNG=rbg`` or
+    ``unsafe_rbg``; ``utils/rng.py``), whose draws run on XLA's Philox
+    bit generator, ``ops/rbg.py`` → ``csrc/rbg_bits.cu``:
+    (a) the kernel bit-equal to its plain version on the CPU (and on the
+        card) for 2¹⁰ rbg keys × 2·10⁴ words, the carry-crossing key
+        ``[5, 2³²−1, 2³²−2, 2³²−1]``, and unsafe_rbg's ``fold_in`` (2¹⁰
+        replication keys) and ``split``;
+    (b) the north star on rbg keys, every launch count set to 0 just
+        before and read just after: unfused, NI and INT, 2¹⁶
+        replications, each coverage in [0.90, 0.99]; fused (K1), 2²⁰
+        replications, NI coverage in [0.90, 0.99] and sums other than
+        phase 5's threefry sums (the seeds come from the impl); rbg_bits
+        and K1 each launched;
+    (c) the unfused NI pipeline (2¹⁶ replications) on threefry and on rbg
+        in turns (threefry, rbg, rbg, threefry): reps/s; per block of
+        2¹⁴, rbg_bits launches and CUDA activities (a measurement, not a
+        claim);
+    (d) the kernel's ms at 2¹⁴ keys × 2·10⁴ words (the unfused block's
+        draw), its bound (``utils.roofline.rbg_bits_ops`` and
+        ``rbg_bits_bytes``: int64 words at 3.35 TB/s against its int32
+        operations), its plain version's ms on the card, its ``ptxas``.
 
 Every failure raises. The last line is the device record; before it come
 the per-kernel JSON record and the card line. Run from the repository
@@ -5206,13 +5227,191 @@ def ladder_phase(card: str, bisect_run: dict, k1_ms: float) -> dict:
     return parts
 
 
+RBG_KEYS = 1 << 10             # 21a: keys held against the plain version
+RBG_WORDS = 2 * N              # words a replication draws for its data
+RBG_CARRY = [5, 0xFFFFFFFF, 0xFFFFFFFE, 0xFFFFFFFF]
+RBG_TURNS = ("threefry2x32", "rbg", "rbg", "threefry2x32")
+RBG_TIMED_KEYS = 1 << 14       # 21d: the unfused block's keys
+
+
+def _prng_impl(impl: str):
+    """``DPCORR_PRNG`` set to ``impl`` inside the block, restored after."""
+    import os
+    from unittest import mock
+
+    return mock.patch.dict(os.environ, {"DPCORR_PRNG": impl})
+
+
+def rbg_against_plain(card: str) -> dict:
+    """Phase 21a: the rbg_bits kernel bit-equal to its plain version on the
+    CPU (and on the card) for 2¹⁰ rbg keys × 2·10⁴ words, the
+    carry-crossing key, and unsafe_rbg's fold_in and split."""
+    from dpcorr_torch.ops import rbg
+    from dpcorr_torch.utils import rng
+
+    keys = rng.rep_keys(rng.master_key(impl="rbg"), RBG_KEYS)
+    card_bits = rbg.rbg_bits(keys.cuda(), RBG_WORDS)
+    cases = {
+        "rbg keys": (card_bits.cpu(), rbg.rbg_bits_plain(keys, RBG_WORDS)),
+        "rbg keys, plain on the card": (
+            card_bits, rbg.rbg_bits_plain(keys.cuda(), RBG_WORDS)),
+    }
+    carry = torch.tensor([RBG_CARRY], dtype=torch.int64)
+    cases["carry-crossing key"] = (rbg.rbg_bits(carry.cuda(), 4096).cpu(),
+                                   rbg.rbg_bits_plain(carry, 4096))
+    with _prng_impl("unsafe_rbg"):
+        root = rng.design_key(rng.master_key(), 3)
+        cases["unsafe_rbg fold_in"] = (
+            rng.rep_keys(root.cuda(), RBG_KEYS).cpu(),
+            rng.rep_keys(root, RBG_KEYS))
+        cases["unsafe_rbg split"] = (rng.split(root.cuda(), 257).cpu(),
+                                     rng.split(root, 257))
+    torch.cuda.synchronize()
+    worst = 0
+    for label, (got, want) in cases.items():
+        # dpcorr-lint: ignore[sync-in-loop] — a check, case by case: the values are needed on the host
+        err = int((got.cpu() - want.cpu()).abs().max())
+        worst = max(worst, err)
+        print(f"[{card}] 21a rbg_bits {label} {tuple(got.shape)}: card "
+              f"bit-equal to plain {err == 0}", flush=True)
+        if err:
+            raise RuntimeError(f"21a: rbg_bits disagrees with its plain "
+                               f"version on {label} by {err}")
+    return {"max_abs_err": worst, "cases": len(cases)}
+
+
+def rbg_north_star(card: str, tf_fused_sums) -> dict:
+    """Phase 21b: the north star on rbg keys, unfused (NI and INT, 2¹⁶
+    replications) and fused (K1, 2²⁰), every launch count set to 0 just
+    before and read just after."""
+    from dpcorr_torch.ops import fused_ni, rbg
+    from dpcorr_torch.sim import (
+        DETAIL_FIELDS,
+        SimConfig,
+        _one_rep,
+        fused_ni_rep_fn,
+    )
+    from dpcorr_torch.utils import rng
+
+    cfg = SimConfig(n=N, rho=RHO, eps1=EPS[0], eps2=EPS[1], alpha=ALPHA)
+
+    def body(keys):
+        return _one_rep(keys, RHO, cfg)
+
+    reset_launches()
+    rbg.KERNEL_LAUNCHES["rbg_bits"] = 0
+    with _prng_impl("rbg"):
+        key = rng.master_key(device="cuda")
+        unfused = run_pipeline(body, 1 << 14, 1 << 11, UNFUSED_REPS >> 14,
+                               key, out_len=len(DETAIL_FIELDS))
+        fused = run_pipeline(fused_ni_rep_fn(N, RHO, *EPS, ALPHA),
+                             FUSED_BLOCK, FUSED_BLOCK, FUSED_BLOCKS, key)
+    launches = {**fused_ni.KERNEL_LAUNCHES, **rbg.KERNEL_LAUNCHES}
+    print(f"[{card}] 21b unfused on rbg, NI + INT: {json.dumps(unfused)}",
+          flush=True)
+    print(f"[{card}] 21b fused on rbg: {json.dumps(fused)}", flush=True)
+    print(f"launches in the rbg main path's run: {launches}", flush=True)
+    for label, cov in (("unfused NI", unfused["ni_cover"]),
+                       ("unfused INT", unfused["int_cover"]),
+                       ("fused NI", fused["coverage"])):
+        if not 0.90 <= cov <= 0.99:
+            raise RuntimeError(f"21b {label} coverage on rbg {cov} outside "
+                               f"[0.90, 0.99]")
+    if fused["sums"] == tf_fused_sums:
+        raise RuntimeError("21b: the fused sums on rbg keys equal the "
+                           "threefry run's: the seeds did not come from "
+                           "the impl")
+    if not launches["rbg_bits"] or not launches["fused_ni"]:
+        raise RuntimeError(f"21b: the rbg main path launched {launches}")
+    return {"unfused": unfused, "fused": fused, "launches": launches}
+
+
+def rbg_turns(card: str) -> dict:
+    """Phase 21c: the unfused north-star pipeline (NI, 2¹⁶ replications)
+    on threefry and on rbg keys in paired turns; then, per impl, the
+    kernel launches and CUDA activities of one block."""
+    from dpcorr_torch.ops import rbg
+    from dpcorr_torch.sim import RepBlockPipeline, ni_rep_fn
+    from dpcorr_torch.utils import rng
+
+    body = ni_rep_fn(N, RHO, *EPS, ALPHA)
+    turns = {impl: [] for impl in RBG_TURNS}
+    for impl in RBG_TURNS:
+        with _prng_impl(impl):
+            run = run_pipeline(body, 1 << 14, 1 << 11, UNFUSED_REPS >> 14,
+                               rng.master_key(device="cuda"))
+        turns[impl].append(run["reps_per_s"])
+    per_block = {}
+    for impl in ("threefry2x32", "rbg"):
+        with _prng_impl(impl):
+            pipe = RepBlockPipeline(body, 3, key=rng.master_key(
+                device="cuda"), block_reps=1 << 14, chunk_size=1 << 11)
+            pipe.run(1)  # warm
+            before = rbg.KERNEL_LAUNCHES["rbg_bits"]
+            acts = _device_activities(lambda: pipe.run(1))
+        per_block[impl] = {
+            "rbg_bits_launches": rbg.KERNEL_LAUNCHES["rbg_bits"] - before,
+            "cuda_activities": acts}
+    print(f"[{card}] 21c unfused NI pipeline, {UNFUSED_REPS} reps, turns "
+          f"{list(RBG_TURNS)}: reps/s {json.dumps(turns)}; per block of "
+          f"2^14 reps {json.dumps(per_block)} (a measurement, not a claim)",
+          flush=True)
+    return {"reps_per_s": turns, "per_block": per_block}
+
+
+def rbg_times(card: str) -> dict:
+    """Phase 21d: the kernel's ms at the unfused block's shape (2¹⁴ keys ×
+    2·10⁴ words), its bound and its plain version's ms on the card."""
+    from dpcorr_torch.ops import _build, rbg
+    from dpcorr_torch.utils import rng
+    from dpcorr_torch.utils.device import time_cuda
+    from dpcorr_torch.utils.roofline import (
+        least_time_ms,
+        rbg_bits_bytes,
+        rbg_bits_ops,
+    )
+
+    keys = rng.rep_keys(rng.master_key(impl="rbg", device="cuda"),
+                        RBG_TIMED_KEYS).contiguous()
+    before = rbg.KERNEL_LAUNCHES["rbg_bits"]
+    ms = time_cuda(lambda: rbg.rbg_bits(keys, RBG_WORDS), 20)
+    rbg.KERNEL_LAUNCHES["rbg_bits"] = before  # timing launches do not count
+    plain_ms = time_cuda(lambda: rbg.rbg_bits_plain(keys, RBG_WORDS), 3)
+    times = least_time_ms(rbg_bits_ops(RBG_WORDS), RBG_TIMED_KEYS,
+                          rbg_bits_bytes(RBG_TIMED_KEYS, RBG_WORDS))
+    by = max(("bytes", "int32"), key=times.get)
+    bound = times[by]
+    log = _build.log_path("rbg_bits").read_text()
+    ptxas = _build.ptxas_report(log)
+    print(f"[{card}] 21d rbg_bits, {RBG_TIMED_KEYS} keys x {RBG_WORDS} "
+          f"words: {ms:.4f} ms ({bound / ms:.1%} of its bound {bound:.4f} ms "
+          f"by {by}; int32 {times['int32']:.4f} ms); plain version "
+          f"{plain_ms:.4f} ms; ptxas {ptxas}", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes" if by == "bytes" else "operations",
+            "int32_bound_ms": times["int32"], "ptxas": list(ptxas.values())}
+
+
+def rbg_phase(card: str, tf_fused_sums) -> dict:
+    """Phase 21: the key-tree's rbg-family implementations."""
+    out = {}
+    for label, fn in (("21a", lambda: rbg_against_plain(card)),
+                      ("21b", lambda: rbg_north_star(card, tf_fused_sums)),
+                      ("21c", lambda: rbg_turns(card)),
+                      ("21d", lambda: rbg_times(card))):
+        t0 = time.perf_counter()
+        out[label] = fn()
+        out[label + " s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
     from dpcorr_torch.grid import GridConfig
-    from dpcorr_torch.ops import _build, fused_ni, ladder
+    from dpcorr_torch.ops import _build, fused_ni, ladder, rbg
     from dpcorr_torch.sim import (
         DETAIL_FIELDS,
         SimConfig,
@@ -5261,7 +5460,8 @@ def main() -> int:
 
     # ---- 4-5. the main path, unfused then fused: every launch count (K1's
     # and the ladder's) is set to 0 just before and read just after
-    for counts in (fused_ni.KERNEL_LAUNCHES, ladder.KERNEL_LAUNCHES):
+    for counts in (fused_ni.KERNEL_LAUNCHES, ladder.KERNEL_LAUNCHES,
+                   rbg.KERNEL_LAUNCHES):
         for name in counts:
             counts[name] = 0
     key = rng.master_key(device="cuda")
@@ -5279,13 +5479,17 @@ def main() -> int:
     detail_s = time.perf_counter() - t0
     launches = dict(fused_ni.KERNEL_LAUNCHES)
     ladder_main = dict(ladder.KERNEL_LAUNCHES)
+    rbg_threefry = dict(rbg.KERNEL_LAUNCHES)
     print(f"[{card}] fused pipeline: {json.dumps(fused)}", flush=True)
     # dpcorr-lint: ignore[sync-in-loop] — a check, case by case: the values are needed on the host
     d = {f: v.double().mean().item() for f, v in zip(DETAIL_FIELDS, detail)}
     print(f"[{card}] sim_detail_fused {DETAIL_REPS} reps in {detail_s:.3f} s:"
           f" {json.dumps(d)}", flush=True)
     print(f"launches in the main path's run: {launches}, the ladder "
-          f"{ladder_main}", flush=True)
+          f"{ladder_main}, rbg_bits {rbg_threefry}", flush=True)
+    if rbg_threefry["rbg_bits"]:
+        raise RuntimeError(f"the threefry main path launched rbg_bits "
+                           f"{rbg_threefry} times")
     if ladder_main["fused_ni_ladder"]:
         raise RuntimeError(f"the main path launched the stage ladder "
                            f"{ladder_main} times: it is a diagnostic")
@@ -5609,6 +5813,19 @@ def main() -> int:
     seconds = {k: round(v, 1) for k, v in lad.items() if k.endswith(" s")}
     print(f"[{card}] phase 20: {time.perf_counter() - t20:.1f} s "
           f"{json.dumps(seconds)}", flush=True)
+    # ---- 21. the key-tree's rbg-family implementations: the rbg_bits
+    # kernel against its plain version, the north star on rbg keys (the
+    # launch counts set to 0 just before and read just after), paired
+    # turns against threefry, the kernel's times
+    t21 = time.perf_counter()
+    rbg_parts = rbg_phase(card, fused["sums"])
+    seconds = {k: round(v, 1) for k, v in rbg_parts.items()
+               if k.endswith(" s")}
+    print(f"[{card}] phase 21: {time.perf_counter() - t21:.1f} s "
+          f"{json.dumps(seconds)}", flush=True)
+    rbg_main = rbg_parts["21b"]["launches"]
+    rbg_t = rbg_parts["21d"]
+
     levels = lad["20b"]
     for name, t in levels.items():
         t["ptxas"] = lad["20a ptxas"].get(name)
@@ -5686,6 +5903,27 @@ def main() -> int:
         "library_ms": None,
         "batch": top["batch"],
         "levels": levels,
+    }, {
+        "name": "rbg_bits",
+        "route": "cuda",
+        "source": "dpcorr_torch/csrc/rbg_bits.cu",
+        "replaces": "dpcorr/utils/rng.py:32 (lax.rng_bit_generator under "
+                    "jax.random.bits on rbg-family keys; an XLA op)",
+        "launches": rbg_main["rbg_bits"],
+        "main_path_launches": rbg_main["rbg_bits"],
+        "threefry_main_path_launches": rbg_threefry["rbg_bits"],
+        "rbg_main_path_fused_ni_launches": rbg_main["fused_ni"],
+        "max_abs_err": rbg_parts["21a"]["max_abs_err"],
+        "ms": rbg_t["ms"],
+        "plain_ms": rbg_t["plain_ms"],
+        "bound_ms": rbg_t["bound_ms"],
+        "bound_by": rbg_t["bound_by"],
+        "library_ms": None,
+        "int32_bound_ms": rbg_t["int32_bound_ms"],
+        "shape": [RBG_TIMED_KEYS, RBG_WORDS],
+        "ptxas": rbg_t["ptxas"],
+        "turns_reps_per_s": rbg_parts["21c"]["reps_per_s"],
+        "per_block": rbg_parts["21c"]["per_block"],
     }]}
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(record), flush=True)

@@ -418,6 +418,13 @@ def clear_faults() -> None:
         _fault_counts.clear()
 
 
+def active_faults() -> list[FaultPlan]:
+    """The armed fault plans, in the order they were installed (a copy),
+    as ``dpcorr.chaos.active_faults`` lists them."""
+    with _lock:
+        return list(_fault_plans)
+
+
 def fault(name: str) -> None:
     """Declare one fault site. No-op unless an armed plan names this
     point and the traversal falls in its firing window; then sleep

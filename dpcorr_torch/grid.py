@@ -367,7 +367,7 @@ def _dispatch(gcfg: GridConfig, bk: _Bucket, master: torch.Tensor,
                    non_blocking=True)
     with sim_mod.stage("rep_keys"):
         design = rng.design_key(master, pts[0])
-        keys = rng.rep_keys(design, b).reshape(-1, 2)
+        keys = rng.rep_keys(design, b).flatten(0, -2)
     per_rep = [v.repeat_interleave(b) for v in pts[1:]]
     rhos = per_rep[0]
     if bk.fused:

@@ -20,6 +20,7 @@ from dpcorr_torch.parallel.backend import (  # noqa: F401
 from dpcorr_torch.parallel.mesh import (  # noqa: F401
     local_device_count,
     rep_devices,
+    rep_mesh,
 )
 from dpcorr_torch.parallel.multihost import (  # noqa: F401
     grid_slice,

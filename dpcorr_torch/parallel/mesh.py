@@ -41,3 +41,10 @@ def rep_devices(n_devices: int | None = None,
     if n_devices is not None and n_devices > count:
         raise ValueError(f"{n_devices} devices asked for, {count} visible")
     return [torch.device("cuda", i) for i in range(n_devices or count)]
+
+
+def rep_mesh(n_devices: int | None = None, device=None) -> list[torch.device]:
+    """The port's name for ``dpcorr.parallel.mesh.rep_mesh``: the 1-D
+    ``rep`` axis, here :func:`rep_devices`'s list of devices (the first
+    ``n_devices`` cards, or CPU entries with ``device="cpu"``)."""
+    return rep_devices(n_devices, device=device)

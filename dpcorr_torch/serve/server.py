@@ -131,9 +131,10 @@ def _key_tensor(words) -> torch.Tensor:
     return torch.tensor(words, dtype=torch.int64)
 
 
-def _master_words(master) -> tuple[int, int]:
-    w = rng.key_data(torch.as_tensor(master)).tolist()
-    return int(w[0]), int(w[1])
+def _master_words(master) -> tuple[int, ...]:
+    # every word: rng.fold_in_words refuses a key that is not threefry's
+    return tuple(int(v) for v in
+                 rng.key_data(torch.as_tensor(master)).tolist())
 
 
 def pinned_request_key(master, req: EstimateRequest,
@@ -207,6 +208,7 @@ class DpcorrServer:
                  lease_target: int | None = None,
                  advertise_url: str | None = None,
                  device=None):
+        rng.require_threefry("dpcorr_torch.serve (DpcorrServer)")
         self.device = resolve_device(device)
         self.seed = seed
         #: instance identity: labels /stats and /metrics

@@ -186,7 +186,7 @@ def _metrics_row(ni, it, rho) -> tuple:
 def _one_rep(keys: torch.Tensor, rho, cfg: SimConfig, eps=None,
              k_pad: int | None = None) -> tuple:
     """A batch of replications, generate → NI + INT → metrics, as a
-    function of the replication keys ``(C, 2)``; returns the 12 (C,)
+    function of the replication keys ``(C, words)``; returns the 12 (C,)
     fields of :data:`DETAIL_FIELDS`. ``rho`` is a float or a (C,) tensor.
 
     ``eps``: optional ``(ε₁, ε₂)`` tensors over the replications, in
@@ -345,6 +345,12 @@ class SimResult:
     summary: dict
     config: SimConfig
 
+    def summary_rows(self) -> list[dict]:
+        """The summary as one flat dict per method, ``{"method": "NI",
+        "mse": ..., ...}``, as ``dpcorr.sim.SimResult.summary_rows``
+        gives it to the grid driver's tables."""
+        return [{"method": m, **v} for m, v in self.summary.items()]
+
 
 def run_sim_one(cfg: SimConfig, key: torch.Tensor | None = None,
                 device=None) -> SimResult:
@@ -395,7 +401,7 @@ def sim_detail_fused(seeds: torch.Tensor, rhos, n: int, eps1: float,
 def ni_rep_fn(n: int, rho: float, eps1: float, eps2: float,
               alpha: float = 0.05) -> Callable:
     """The north-star replication body (``bench.make_rep_fn``), unfused:
-    keys (C, 2) → n-point Gaussian pair → NI sign-batch estimate + CI →
+    keys (C, words) → n-point Gaussian pair → NI sign-batch estimate + CI →
     (se², cover, ci_len), each (C,)."""
     rho = float(np.float32(rho))
 
@@ -411,7 +417,7 @@ def ni_rep_fn(n: int, rho: float, eps1: float, eps2: float,
 def fused_ni_rep_fn(n: int, rho: float, eps1: float, eps2: float,
                     alpha: float = 0.05) -> Callable:
     """The same body through the fused kernel in its in-kernel Philox
-    mode: keys (C, 2) → :func:`rng.kernel_seeds` → one launch → (se²,
+    mode: keys (C, words) → :func:`rng.kernel_seeds` → one launch → (se²,
     cover, ci_len). Card only."""
     rho = float(np.float32(rho))
     _, k = batch_geometry(n, eps1, eps2)
@@ -447,7 +453,7 @@ class _Shard:
 class RepBlockPipeline:
     """Chained replication blocks with one host read per :meth:`run`.
 
-    Counterpart of ``dpcorr.sim.RepBlockPipeline``. ``rep_fn(keys (C, 2))
+    Counterpart of ``dpcorr.sim.RepBlockPipeline``. ``rep_fn(keys (C, words))
     -> tuple[out_len] of (C,)`` is the body; block i runs it over
     ``rep_keys(design_key(key, i), block_reps)`` in chunks of
     ``chunk_size`` (the JAX pipeline's key addresses), and each output is
@@ -476,6 +482,12 @@ class RepBlockPipeline:
     on the host in ascending shard order in float64 at the fetch, equal
     to the local sums on one device and within f32 rounding otherwise.
 
+    ``impl``: the PRNG impl the pipeline runs on (counterpart of the JAX
+    pipeline's ``impl``; None is the process impl); a root key of another
+    width raises. rbg-family keys draw per key (``utils.rng``), so the
+    per-rep outputs do not depend on the chunk width as they do under the
+    JAX package's ``vmap``.
+
     ``profiler``: an optional ``obs.prof.BlockProfiler``, used only under
     ``is not None``: it waits for the accumulators' device at a bounded
     cadence of blocks (``dpcorr_prof_syncs_total``, never a fetch); a
@@ -486,11 +498,20 @@ class RepBlockPipeline:
                  key: torch.Tensor, block_reps: int, chunk_size: int,
                  device=None, placement="local", devices=None,
                  counters=None, observer=None, aot: bool = False,
-                 profiler=None):
+                 profiler=None, impl: str | None = None):
         from dpcorr_torch import plan as plan_mod
         from dpcorr_torch.obs import transfer as transfer_mod
 
         self.profiler = profiler
+        #: the PRNG impl of the key-tree below ``key`` (None: the process
+        #: impl, ``rng.resolve_impl``); the root key's words must match it
+        self.impl = rng.resolve_impl(impl)
+        words = torch.as_tensor(key).shape[-1]
+        if words != rng.IMPLS[self.impl]:
+            raise ValueError(
+                f"the root key has {words} words; {self.impl!r} keys have "
+                f"{rng.IMPLS[self.impl]} (make it with rng.master_key("
+                f"impl={self.impl!r}))")
         self.device = resolve_device(device)
         self.rep_fn = rep_fn
         self.out_len = int(out_len)
@@ -522,7 +543,7 @@ class RepBlockPipeline:
                "devices": len(homes), "block_reps": self.block_reps,
                "chunk_size": self.chunk_size, "out_len": self.out_len}
         if aot:
-            warm = torch.zeros(min(self.chunk_size, per), 2,
+            warm = torch.zeros(min(self.chunk_size, per), words,
                                dtype=torch.int64, device=homes[0])
             self._unit = self._ex.prepare(
                 ("rep_block", self.placement.name, len(homes),

@@ -100,9 +100,10 @@ _JAX_Z_0975 = 1.9599642753601074
 
 
 # ------------------------------------------------------------- keys ----
-def _words(key) -> tuple[int, int]:
-    w = rng.key_data(torch.as_tensor(key)).cpu().tolist()
-    return int(w[0]), int(w[1])
+def _words(key) -> tuple[int, ...]:
+    # every word: rng.fold_in_words refuses a key that is not threefry's
+    return tuple(int(v) for v in
+                 rng.key_data(torch.as_tensor(key)).cpu().tolist())
 
 
 def _sub(words: tuple[int, int], name: str) -> tuple[int, int]:
@@ -156,6 +157,7 @@ def window_key(master, window_id: str) -> torch.Tensor:
     ``dpcorr.stream.sketch.window_key``). Every family substream below it
     keeps its monolithic name, so a window's noise is addressed by
     (master, window id) alone — the replay/crash-exactness contract."""
+    rng.require_threefry("dpcorr_torch.stream.sketch.window_key", master)
     if not window_id:
         raise ValueError("window_id must be non-empty")
     return _key_on(_sub(_words(master), f"stream/{window_id}"), _HOST)

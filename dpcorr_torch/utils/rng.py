@@ -1,4 +1,5 @@
-"""Deterministic RNG key-tree: JAX's threefry2x32 tree, bit for bit.
+"""Deterministic RNG key-tree: JAX's key-tree, bit for bit, on any of the
+three PRNG implementations the JAX package reaches.
 
 Counterpart of ``dpcorr/utils/rng.py``. The tree is the same
 
@@ -13,15 +14,50 @@ keys (``dpcorr_torch.interop``) and draw the same noise. The
 ``bernoulli``, ``permutation``, ``randint`` and ``choice`` bit for bit,
 ``exponential`` and ``normal`` within the stated tolerances.
 
-Representation: a key is an int64 tensor whose last axis holds the two
-uint32 words, shape ``(..., 2)``. torch's uint32 coverage is thin, so the
-words live in int64 and every add and shift is masked back to 32 bits.
-Every function is vectorised over the leading key axes, so a whole
-replication block's keys are derived on the device that holds them.
+Implementations (``master_key(impl=...)``; the process default is the
+``DPCORR_PRNG`` environment variable, read at call time as JAX reads it):
+
+- ``threefry2x32`` (the default, the bit-reproducibility contract): a key
+  is two words; ``fold_in`` and ``split`` are threefry, and so are the
+  bits.
+- ``rbg``: a key is four words, two threefry keys side by side
+  (``[0, s, 0, s]`` at the root); ``fold_in`` and ``split`` apply threefry
+  to each half, both halves in one batched call; the bits are XLA's
+  Philox generator (``lax.rng_bit_generator``), drawn by the kernel in
+  ``dpcorr_torch.ops.rbg`` on the card.
+- ``unsafe_rbg``: four words as well; ``fold_in(key, d)`` is the key xor
+  block 9 of the Philox draw keyed by ``[0, d, 0, d]``, ``split`` takes
+  every tenth block of the key's own draw, both through the same kernel.
+
+A four-word key does not say whether it is ``rbg`` or ``unsafe_rbg``, so
+the impl is never guessed from the words: four-word keys are read as
+``unsafe_rbg`` when the process impl is ``unsafe_rbg`` and as ``rbg``
+otherwise, and ``master_key(impl=...)`` / ``keys_from_data(impl=...)``
+raise ``ValueError`` when they name the other one.
+
+Per-key draws. A batch of keys ``(..., 4)`` draws each key's own stream:
+row i equals ``jax.random.bits(keys[i], shape)`` called on that key alone.
+JAX's batching rule for ``rng_bit_generator``
+(``_rng_bit_generator_batching_rule`` in
+jax/_src/lax/control_flow/loops.py) instead draws a vmapped batch from
+its *first* key, so in the JAX package an rbg replication's bits depend
+on its position in its vmap chunk. The port does not copy that rule: a
+replication's bits depend on its key alone, the chunk width changes no
+result, and the grid's stamp stays true. Results on rbg keys are
+therefore statistically, not bitwise, comparable to the JAX package's
+vmapped pipeline; they are bit-equal to its unbatched draws.
+
+Representation: a key is an int64 tensor whose last axis holds the
+uint32 words, shape ``(..., 2)`` or ``(..., 4)``. torch's uint32 coverage
+is thin, so the words live in int64 and every add and shift is masked
+back to 32 bits. Every function is vectorised over the leading key axes,
+so a whole replication block's keys are derived on the device that holds
+them.
 """
 
 from __future__ import annotations
 
+import os
 import zlib
 
 import numpy as np
@@ -33,14 +69,71 @@ MASTER_SEED: int = 2025
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
+#: the PRNG implementations of the key-tree, by JAX's names, and the
+#: words of one key under each
+IMPLS = {"threefry2x32": 2, "rbg": 4, "unsafe_rbg": 4}
+DEFAULT_IMPL = "threefry2x32"
+
+
+def _valid_impl(impl: str) -> str:
+    if impl not in IMPLS:
+        raise ValueError(f"unknown PRNG impl {impl!r}; one of "
+                         f"{', '.join(IMPLS)}")
+    return impl
+
+
+def process_impl() -> str:
+    """The process-default PRNG impl: ``DPCORR_PRNG`` when set and not
+    empty, else ``threefry2x32``. Read at each call; an unknown name
+    raises ``ValueError``."""
+    return _valid_impl(os.environ.get("DPCORR_PRNG") or DEFAULT_IMPL)
+
 
 def impl_tag() -> str:
-    """The port's PRNG tag, for result-cache stamps. The key-tree is JAX's
-    threefry bit for bit, but the estimators on top agree with the JAX
-    package's only to f32 rounding, so the tag differs from
+    """The port's PRNG tag, for result-cache stamps: ``<impl>-torch`` for
+    the process impl (``"threefry2x32-torch"`` by default). The key-tree
+    is JAX's bit for bit, but the estimators on top agree with the JAX
+    package's only to f32 rounding (and rbg-family batches draw per key,
+    see the module docstring), so the tag differs from
     ``dpcorr.utils.rng.impl_tag()``'s and the two packages' caches never
-    mix."""
-    return "threefry2x32-torch"
+    mix; nor do two impls' caches."""
+    return f"{process_impl()}-torch"
+
+
+def _four_word_impl() -> str:
+    """The impl four-word keys are read as (module docstring)."""
+    return "unsafe_rbg" if process_impl() == "unsafe_rbg" else "rbg"
+
+
+def resolve_impl(impl: str | None = None) -> str:
+    """``impl`` (None: the process impl) validated, and refused with
+    ``ValueError`` when it is the rbg-family impl that four-word keys
+    would not be read back as in this process."""
+    impl = _valid_impl(process_impl() if impl is None else impl)
+    if IMPLS[impl] == 4 and impl != _four_word_impl():
+        raise ValueError(
+            f"four-word keys are read as {_four_word_impl()!r} in this "
+            f"process (DPCORR_PRNG={os.environ.get('DPCORR_PRNG')!r}); "
+            f"set DPCORR_PRNG={impl} to use {impl!r} keys")
+    return impl
+
+
+def require_threefry(path: str, key=None) -> None:
+    """Raises ``ValueError`` naming ``path`` and the impl when the process
+    impl is not ``threefry2x32``, or when ``key`` (if given) is not a
+    two-word key: the entry of a path that runs on threefry2x32 keys
+    only, so that it never hands back threefry bits under another impl's
+    name."""
+    impl = process_impl()
+    if impl != DEFAULT_IMPL:
+        raise ValueError(
+            f"{path} runs on the threefry2x32 key-tree only, but the "
+            f"process PRNG impl is {impl!r} (DPCORR_PRNG); unset it to run "
+            f"this path")
+    if key is not None and torch.as_tensor(key).shape[-1] != 2:
+        raise ValueError(f"{path} runs on the threefry2x32 key-tree only, "
+                         f"got a key of shape "
+                         f"{tuple(torch.as_tensor(key).shape)}")
 
 
 def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
@@ -72,17 +165,26 @@ def _threefry_words(k0, k1, x0, x1):
 
 def _as_key(key) -> torch.Tensor:
     key = torch.as_tensor(key)
-    if key.shape[-1:] != (2,):
-        raise ValueError(f"a key has 2 words on its last axis, got shape "
+    if key.shape[-1:] not in ((2,), (4,)):
+        raise ValueError(f"a key has 2 (threefry2x32) or 4 (rbg, "
+                         f"unsafe_rbg) words on its last axis, got shape "
                          f"{tuple(key.shape)}")
     return key.to(torch.int64) & _M32
 
 
-def master_key(seed: int = MASTER_SEED, device=None) -> torch.Tensor:
-    """Root of the key-tree, ``jax.random.key(seed)``'s words as the JAX
-    package runs it (64-bit types off): high word 0, low word the seed's
-    low 32 bits, so a seed outside [0, 2³²) wraps as JAX wraps it."""
-    return torch.tensor([0, int(seed) & _M32], dtype=torch.int64,
+def master_key(seed: int = MASTER_SEED, device=None, *,
+               impl: str | None = None) -> torch.Tensor:
+    """Root of the key-tree, ``jax.random.key(seed, impl=impl)``'s words
+    as the JAX package runs it (64-bit types off): for threefry2x32 high
+    word 0, low word the seed's low 32 bits (a seed outside [0, 2³²)
+    wraps as JAX wraps it); for rbg and unsafe_rbg that pair twice.
+    ``impl`` None is the process impl (``DPCORR_PRNG``, read now); an
+    unknown name, or the rbg-family impl four-word keys would not be read
+    back as, raises ``ValueError``. ``device`` stays the second argument,
+    where the port's callers have always passed it."""
+    impl = resolve_impl(impl)
+    s = int(seed) & _M32
+    return torch.tensor([0, s] * (IMPLS[impl] // 2), dtype=torch.int64,
                         device=device)
 
 
@@ -106,28 +208,56 @@ def _host_data(data) -> int:
     return int(np.asarray(data).astype(np.int64)) & _M32
 
 
+def _rbg_bits(keys: torch.Tensor, n_words: int, offset: int = 0,
+              stride: int = 1) -> torch.Tensor:
+    """XLA's Philox words of four-word keys ``(..., 4)``, each key's own
+    stream (``dpcorr_torch.ops.rbg``: the kernel on the card, its plain
+    version on the CPU): shape ``keys.shape[:-1] + (n_words,)``."""
+    from dpcorr_torch.ops.rbg import rbg_bits
+
+    flat = keys.reshape(-1, 4).contiguous()
+    return rbg_bits(flat, n_words, offset, stride).reshape(
+        tuple(keys.shape[:-1]) + (int(n_words),))
+
+
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
-    """``jax.random.fold_in``: threefry(key, (0, data)). ``data`` is a
-    host scalar (:func:`_host_data`) or an integer tensor that broadcasts
-    against the key's leading axes; the result has the broadcast leading
-    shape. A Python int outside [0, 2³²) raises ``OverflowError`` as JAX
-    does; a numpy scalar and an integer tensor are masked to their low 32
-    bits."""
+    """``jax.random.fold_in``. threefry2x32: threefry(key, (0, data));
+    rbg: that on each two-word half, both halves in one call; unsafe_rbg:
+    the key xor block 9 of the Philox draw keyed by ``[0, d, 0, d]``.
+    ``data`` is a host scalar (:func:`_host_data`) or an integer tensor
+    that broadcasts against the key's leading axes; the result has the
+    broadcast leading shape. A Python int outside [0, 2³²) raises
+    ``OverflowError`` as JAX does; a numpy scalar and an integer tensor
+    are masked to their low 32 bits."""
     key = _as_key(key)
     if not isinstance(data, torch.Tensor):  # made on the device: no copy
         data = torch.full((), _host_data(data), dtype=torch.int64,
                           device=key.device)
     data = data.to(key.device, torch.int64) & _M32
-    y0, y1 = threefry2x32(key, torch.zeros_like(data), data)
-    return torch.stack([y0, y1], dim=-1)
+    if key.shape[-1] == 2:
+        y0, y1 = threefry2x32(key, torch.zeros_like(data), data)
+        return torch.stack([y0, y1], dim=-1)
+    if _four_word_impl() == "rbg":
+        halves = key.unflatten(-1, (2, 2))
+        d = data[..., None]
+        y0, y1 = threefry2x32(halves, torch.zeros_like(d), d)
+        return torch.stack([y0, y1], dim=-1).flatten(-2)
+    zero = torch.zeros_like(data)
+    seeds = torch.stack([zero, data, zero, data], dim=-1)
+    return key ^ _rbg_bits(seeds, 4, offset=9)
 
 
 def fold_in_words(words: tuple[int, int], data: int) -> tuple[int, int]:
-    """:func:`fold_in` on a key held as two host ints, for key chains
-    short enough that device launches would cost more than the
+    """:func:`fold_in` on a threefry2x32 key held as two host ints, for
+    key chains short enough that device launches would cost more than the
     arithmetic (the serving layer's per-request keys). Bit-equal to
     :func:`fold_in` on the same words, and takes ``data`` as it does
-    (:func:`_host_data`)."""
+    (:func:`_host_data`). Any other number of words raises
+    ``ValueError``: the paths that chain host words run on threefry keys
+    only (:func:`require_threefry`)."""
+    if len(words) != 2:
+        raise ValueError(f"fold_in_words takes a two-word threefry2x32 "
+                         f"key, got {len(words)} words")
     return _threefry_words(int(words[0]) & _M32, int(words[1]) & _M32, 0,
                            _host_data(data))
 
@@ -139,15 +269,17 @@ def design_key(key: torch.Tensor, design_index) -> torch.Tensor:
 
 def rep_keys_slice(key: torch.Tensor, start, n_reps: int) -> torch.Tensor:
     """Keys ``[start, start + n_reps)`` of the :func:`rep_keys` stream,
-    shape ``key.shape[:-1] + (n_reps, 2)``, made on the key's device: a
-    batch of keys ``(P, 2)`` gives each one's stream in one call."""
+    shape ``key.shape[:-1] + (n_reps, words)``, made on the key's device:
+    a batch of keys ``(P, words)`` gives each one's stream in one call."""
     idx = torch.arange(int(n_reps), device=key.device) + int(start)
     return fold_in(_as_key(key)[..., None, :], idx)
 
 
 def rep_keys(key: torch.Tensor, n_reps: int) -> torch.Tensor:
-    """Per-replication keys, shape ``(n_reps, 2)`` for one key
-    (vert-cor.R:364, 392); ``(P, n_reps, 2)`` for P keys."""
+    """Per-replication keys, shape ``(n_reps, words)`` for one key
+    (vert-cor.R:364, 392); ``(P, n_reps, words)`` for P keys. Under
+    unsafe_rbg each is ``fold_in(key, b)`` on its own, not what JAX's
+    ``vmap`` of ``fold_in`` gives there (module docstring)."""
     return rep_keys_slice(key, 0, n_reps)
 
 
@@ -195,26 +327,41 @@ def column_root(key: torch.Tensor, label: str) -> torch.Tensor:
 
 def key_data(keys: torch.Tensor) -> torch.Tensor:
     """Keys → raw words. A port key already is its words, so this is the
-    identity; it mirrors the JAX package's export-boundary encoding."""
+    identity; it mirrors the JAX package's export-boundary encoding
+    (``jax.random.key_data``), four-word keys included."""
     return _as_key(keys)
 
 
-def keys_from_data(data) -> torch.Tensor:
-    """Raw words (any integer tensor or array with a last axis of 2) →
-    keys; the inverse of :func:`key_data`."""
+def keys_from_data(data, impl: str | None = None) -> torch.Tensor:
+    """Raw words (any integer tensor or array with a last axis of 2 or 4)
+    → keys; the inverse of :func:`key_data`, counterpart of
+    ``dpcorr.utils.rng.keys_from_data``. ``impl``, when given, must have
+    the data's number of words and be an impl such words are read back
+    as (``ValueError`` otherwise): the words themselves carry no impl."""
     if isinstance(data, np.ndarray):
         data = torch.from_numpy(data.astype(np.int64))
-    return _as_key(data)
+    key = _as_key(data)
+    if impl is not None:
+        want = IMPLS[resolve_impl(impl)]
+        if key.shape[-1] != want:
+            raise ValueError(f"{impl!r} keys have {want} words, got data "
+                             f"of shape {tuple(key.shape)}")
+    return key
 
 
 def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.bits(key, shape, uint32)`` with the partitionable
-    counter layout: element i of the row-major flattened shape is
-    y0 ^ y1 of threefry(key, (i >> 32, i & 0xFFFFFFFF)). Output shape is
-    ``key.shape[:-1] + shape``, values in [0, 2³²) held in int64."""
+    """``jax.random.bits(key, shape, uint32)`` on each key alone. A
+    threefry2x32 key uses the partitionable counter layout: element i of
+    the row-major flattened shape is y0 ^ y1 of threefry(key, (i >> 32,
+    i & 0xFFFFFFFF)). An rbg-family key draws XLA's Philox words (module
+    docstring), one kernel launch for all the keys on the card. Output
+    shape is ``key.shape[:-1] + shape``, values in [0, 2³²) held in
+    int64."""
     key = _as_key(key)
     shape = tuple(int(s) for s in shape)
     size = int(np.prod(shape, dtype=np.int64))
+    if key.shape[-1] == 4:
+        return _rbg_bits(key, size).reshape(tuple(key.shape[:-1]) + shape)
     idx = torch.arange(size, device=key.device)
     lead = key.shape[:-1]
     y0, y1 = threefry2x32(key.unsqueeze(-2), (idx >> 32) & _M32, idx & _M32)
@@ -250,9 +397,14 @@ def chunk_key(key: torch.Tensor, chunk_index) -> torch.Tensor:
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: with the partitionable layout subkey i is
-    threefry(key, (0, i)), which is ``fold_in(key, i)``. Returns shape
-    ``key.shape[:-1] + (num, 2)``."""
+    threefry(key, (0, i)), which is ``fold_in(key, i)``, on each half of
+    an rbg key as on a threefry2x32 key; under unsafe_rbg subkey i is
+    block 10·i of the key's own Philox draw. Returns shape
+    ``key.shape[:-1] + (num, words)``."""
     key = _as_key(key)
+    if key.shape[-1] == 4 and _four_word_impl() == "unsafe_rbg":
+        return _rbg_bits(key, 4 * int(num), stride=10).unflatten(
+            -1, (int(num), 4))
     return fold_in(key.unsqueeze(-2), torch.arange(int(num),
                                                    device=key.device))
 
@@ -347,9 +499,13 @@ def choice(key: torch.Tensor, n: int, shape) -> torch.Tensor:
 
 def kernel_seeds(keys: torch.Tensor) -> torch.Tensor:
     """Per-replication (..., 2) int32 seed words for the fused kernel's
-    in-kernel Philox generator, derived from the key-tree: the words of
-    each replication key's ``"fused_ni/seed"`` substream, reinterpreted
-    as int32. Counterpart of ``dpcorr.utils.rng.pallas_seeds``, but not
+    in-kernel Philox generator, derived from the key-tree: for a
+    threefry2x32 key the words of its ``"fused_ni/seed"`` substream, for
+    an rbg-family key two words drawn from that substream by its own
+    generator (its halves equal the threefry key at the same address, so
+    taking its words would give threefry's fused results under an rbg
+    stamp), reinterpreted as int32. Counterpart of
+    ``dpcorr.utils.rng.pallas_seeds``, but not
     its bits: that one draws ``jax.random.randint`` from one design key,
     this one folds per replication so a block's seeds come from the same
     keys as its unfused replications. Either way the kernel's generator
@@ -357,4 +513,6 @@ def kernel_seeds(keys: torch.Tensor) -> torch.Tensor:
     reproducible, not bit-comparable to the unfused path. Two words give
     a 2⁶⁴ seed space."""
     w = stream(keys, "fused_ni/seed")
+    if w.shape[-1] == 4:
+        w = random_bits(w, (2,))
     return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)

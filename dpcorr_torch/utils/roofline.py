@@ -14,8 +14,10 @@ Counterpart of ``dpcorr/utils/roofline.py``: a measured reps/s becomes
 - **K1's per-pipe work model** (:func:`fused_pipe_ops`,
   :func:`least_time_ms`): the operations one replication of the fused
   function needs, by pipe, and the least time the card needs for them
-  at sm_90's per-SM rates; ``chip_smoke.py`` bounds K1 with it, and each
-  level of K1's stage ladder (:func:`ladder_pipe_ops`) the same way.
+  at sm_90's per-SM rates; ``chip_smoke.py`` bounds K1 with it, each
+  level of K1's stage ladder (:func:`ladder_pipe_ops`) and the rbg-family
+  bit generator (:func:`rbg_bits_ops`, :func:`rbg_bits_bytes`) the same
+  way.
 
 The JAX module's ``xla_cost`` has no counterpart: eager torch compiles
 no program, so there is no compiler cost analysis to read.
@@ -244,3 +246,21 @@ def ladder_pipe_ops(level: int, n: int, eps, philox: bool = True) -> dict:
     add(k * m, int32=4)
     add(k, int32=6, f32=2)
     return ops
+
+
+def rbg_bits_ops(n_words: int) -> dict:
+    """Operations one key's draw of ``n_words`` words from XLA's Philox
+    generator needs (``ops/rbg.py``), by pipe, counted as
+    :func:`fused_pipe_ops` counts K1's Philox: per block of four words 10
+    rounds of two 32×32→64 multiplies and two three-input xors, and the
+    128-bit counter add (four adds, four carry tests); per key the round
+    keys (two adds a round). Integer work only."""
+    blocks = -(-int(n_words) // 4)
+    return {"f32": 0.0, "int32": float(blocks * (10 * 4 + 8) + 2 * 10),
+            "sfu": 0.0}
+
+
+def rbg_bits_bytes(n_keys: int, n_words: int) -> int:
+    """Device-memory bytes of one call: each key's four int64 words read
+    once, each int64 output word written once."""
+    return int(n_keys) * (4 * 8 + int(n_words) * 8)

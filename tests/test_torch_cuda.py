@@ -10,6 +10,8 @@ port is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1029,3 +1031,63 @@ def test_ladder_runs_past_shared_memory(cuda, level):
     assert torch.isfinite(ladder.ladder_sums(seeds, 0.5, 40_000, 1.0, 1.0,
                                              level)).all()
     assert ladder.KERNEL_LAUNCHES["fused_ni_ladder"] == before + 1
+
+
+#: a key whose low counter half is 2⁶⁴ − 2: Philox block 2 carries into
+#: the high half
+RBG_CARRY = [5, 0xFFFFFFFF, 0xFFFFFFFE, 0xFFFFFFFF]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_keys,n_words,offset,stride", [
+    (257, 20_000, 0, 1), (257, 13, 0, 1), (257, 4, 9, 1), (257, 40, 0, 10),
+    (257, 1, 3, 2), (70_000, 4, 9, 1), (3, 1029, 0, 1)])
+def test_rbg_bits_kernel_bit_equal_to_plain(cuda, n_keys, n_words, offset,
+                                            stride):
+    """XLA's Philox words (``ops/rbg.py``) on the card equal the plain
+    version's on the CPU, for random keys and the carry-crossing key, rows
+    of every length against the kernel's warps and more keys than the
+    grid's y extent."""
+    from dpcorr_torch.ops import rbg
+
+    keys = torch.from_numpy(np.random.default_rng(21).integers(
+        0, 2**32, (n_keys, 4), dtype=np.int64))
+    keys[0] = torch.tensor(RBG_CARRY)
+    before = rbg.KERNEL_LAUNCHES["rbg_bits"]
+    got = rbg.rbg_bits(keys.to(cuda), n_words, offset, stride)
+    torch.cuda.synchronize()
+    assert rbg.KERNEL_LAUNCHES["rbg_bits"] == before + 1
+    want = rbg.rbg_bits_plain(keys, n_words, offset, stride)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["rbg", "unsafe_rbg"])
+def test_rbg_key_tree_and_draws_card_equal_cpu(cuda, impl, monkeypatch):
+    """The rbg-family key-tree and draws on the card equal the CPU's (the
+    unsafe_rbg tree runs through the kernel), and the unfused body's
+    per-rep outputs do not depend on the chunk width."""
+    from dpcorr_torch.ops import rbg
+
+    monkeypatch.setenv("DPCORR_PRNG", impl)
+    cpu = rng.rep_keys(rng.design_key(rng.master_key(7), 3), 64)
+    before = rbg.KERNEL_LAUNCHES["rbg_bits"]
+    card = rng.rep_keys(rng.design_key(rng.master_key(7, cuda), 3), 64)
+    assert torch.equal(card.cpu(), cpu)
+    assert torch.equal(rng.split(card, 3).cpu(), rng.split(cpu, 3))
+    assert torch.equal(rng.uniform(rng.stream(card, "dgp"), (1000,)).cpu(),
+                       rng.uniform(rng.stream(cpu, "dgp"), (1000,)))
+    assert torch.equal(rng.kernel_seeds(card).cpu(), rng.kernel_seeds(cpu))
+    assert rbg.KERNEL_LAUNCHES["rbg_bits"] > before
+    cfg = sim.SimConfig(n=1000, rho=0.5, eps1=1.0, eps2=1.0, b=64)
+    narrow = sim.run_sim_one(dataclasses.replace(cfg, chunk_size=7))
+    wide = sim.run_sim_one(dataclasses.replace(cfg, chunk_size=64))
+    cpu_run = sim.run_sim_one(cfg, device="cpu")
+    ok = np.ones(cfg.b, bool)
+    for name in sim.DETAIL_FIELDS:
+        assert torch.isfinite(wide.detail[name]).all()
+        torch.testing.assert_close(narrow.detail[name], wide.detail[name],
+                                   rtol=0, atol=1e-5)
+        ok &= np.isclose(wide.detail[name].cpu().numpy(),
+                         cpu_run.detail[name].numpy(), rtol=0, atol=1e-5)
+    assert ok.mean() >= 0.95  # a centered value at a sign tie moves one
