@@ -1225,7 +1225,7 @@ def hrs_workloads(card: str, cols) -> tuple:
     return sweep, boot
 
 
-def hrs_gates(card: str, sweep, boot) -> None:
+def hrs_gates(card: str, sweep, boot, label: str = "10d") -> None:
     """Phase 10d: the statistics gates."""
     import numpy as np
 
@@ -1242,16 +1242,17 @@ def hrs_gates(card: str, sweep, boot) -> None:
         lo_len = length[m & (eps == eps.min())].mean()
         hi_len = length[m & (eps == eps.max())].mean()
         top = rho_hat[m & np.isin(eps, top3)].mean()
-        print(f"[{card}] 10d {meth}: mean CI length {hi_len:.4f} at eps = "
-              f"{eps.max()} against {lo_len:.4f} at eps = {eps.min()} "
+        print(f"[{card}] {label} {meth}: mean CI length {hi_len:.4f} at "
+              f"eps = {eps.max()} against {lo_len:.4f} at eps = {eps.min()} "
               f"(must be below); mean rho_hat over eps {top3_eps} "
               f"{top:.4f}, non-private rho {rho_np:.4f} (within 0.05)",
               flush=True)
         if not hi_len < lo_len or abs(top - rho_np) > 0.05:
             raise RuntimeError(f"HRS sweep gate failed for {meth}")
     ni = boot.summary["ni"]
-    print(f"[{card}] 10d NI bootstrap [q025, q975] = [{ni['q025']:.4f}, "
-          f"{ni['q975']:.4f}] (must contain {rho_np:.4f})", flush=True)
+    print(f"[{card}] {label} NI bootstrap [q025, q975] = "
+          f"[{ni['q025']:.4f}, {ni['q975']:.4f}] (must contain "
+          f"{rho_np:.4f})", flush=True)
     if not ni["q025"] <= rho_np <= ni["q975"]:
         raise RuntimeError("HRS NI bootstrap interval misses rho_np")
 
@@ -5405,6 +5406,376 @@ def rbg_phase(card: str, tf_fused_sums) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 22 ----
+PATH_FOLDS = 1 << 10                  # 22a: data values folded per impl
+PATH_CHAIN_CHUNKS = 64                # 22a: the stream's per-chunk keys
+PATH_HRS_EPS = (1.25, 2.35, 2.45)     # 22b: 3 of the sweep's 23 ε
+PATH_HRS_REPS, PATH_HRS_BOOT = HRS_SWEEP_REPS, 1_000
+PATH_HRS_PARITY_REPS, PATH_HRS_PARITY_BOOT = 8, 16
+PATH_SERVE_REQS, PATH_SERVE_CLIENTS, PATH_UNSAFE_REQS = 32, 8, 8
+PATH_FED_PARTIES = [("p0", ["a"]), ("p1", ["b"]), ("p2", ["c"])]
+PATH_STREAM_CHUNK = 512               # 22d: stream_load.py's --assoc-chunk
+
+
+def rbg_path(card: str, label: str, fn) -> tuple:
+    """``fn()`` with the rbg_bits and K1 launch counts set to 0 just before
+    and read just after: raises unless rbg_bits launched and K1 did not.
+    Returns (result, rbg_bits launches, seconds)."""
+    from dpcorr_torch.ops import fused_ni, rbg
+
+    reset_launches()
+    rbg.KERNEL_LAUNCHES["rbg_bits"] = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = rbg.KERNEL_LAUNCHES["rbg_bits"]
+    k1 = dict(fused_ni.KERNEL_LAUNCHES)
+    print(f"[{card}] {label}: {seconds:.1f} s; launches rbg_bits "
+          f"{launches}, K1 {k1}", flush=True)
+    if not launches or any(k1.values()):
+        raise RuntimeError(f"{label}: rbg_bits launched {launches} times "
+                           f"and K1 {k1}; the path must launch rbg_bits "
+                           f"and not K1")
+    return out, launches, seconds
+
+
+def _same_keys(label: str, host, device_keys) -> None:
+    got = torch.as_tensor(host).reshape(-1, 4).numpy()
+    want = device_keys.cpu().numpy().reshape(-1, 4)
+    if not np.array_equal(got, want):
+        bad = int(np.flatnonzero(~(got == want).all(1))[0])
+        raise RuntimeError(f"22a {label}: host key {got[bad].tolist()} "
+                           f"against the card's {want[bad].tolist()}")
+
+
+def rbg_host_keys(card: str) -> dict:
+    """Phase 22a: four-word host chains (``rng.fold_in_words``) bit-equal to
+    ``rng.fold_in`` on the card, under rbg and unsafe_rbg: 2¹⁰ data values
+    (0, 2³¹, 2³² − 1 among them) on the master key, serve's pinned and
+    boot chains, the stream's window key and per-chunk keys; then the
+    bits drawn from the host keys and from the card's, equal."""
+    from dpcorr_torch.serve import pinned_request_key
+    from dpcorr_torch.serve.server import (
+        boot_request_key,
+        request_digest_words,
+    )
+    from dpcorr_torch.stream import sketch
+    from dpcorr_torch.utils import rng
+
+    data = [0, 1, 2**31 - 1, 2**31, 2**32 - 1] + np.random.default_rng(
+        22).integers(0, 2**32, PATH_FOLDS - 5).tolist()
+    reqs = serve_requests("int_subg", 4, 1000, 22_000_000)
+    out = {}
+    for impl in ("rbg", "unsafe_rbg"):
+        with _prng_impl(impl):
+            host_master = rng.master_key(rng.MASTER_SEED)
+            # dpcorr-lint: ignore[sync-in-loop] — a host tensor: no device sync
+            words = tuple(host_master.tolist())
+            master = host_master.cuda()
+            t0 = time.perf_counter()
+            # dpcorr-lint: ignore[rng-raw-api] — the host chain under test
+            host = [rng.fold_in_words(words, d) for d in data]
+            fold_us = (time.perf_counter() - t0) / len(data) * 1e6
+            chains = [(torch.tensor(host), rng.design_key(
+                master, torch.tensor(data, device="cuda")))]
+            for r in reqs:
+                k = rng.design_key(rng.stream(master, "serve/pinned"), r.seed)
+                for w in request_digest_words(r):
+                    k = rng.design_key(k, w)
+                chains.append((pinned_request_key(host_master, r, r.seed),
+                               k))
+            boot = rng.design_key(rng.design_key(
+                rng.stream(master, "serve/boot"), 12345), 77)
+            chains.append((boot_request_key(host_master, 12345, 77), boot))
+            host_w = sketch.window_key(host_master, "0-2000")
+            wkey = rng.stream(master, "stream/0-2000")
+            chains.append((host_w, wkey))
+            # dpcorr-lint: ignore[sync-in-loop] — a host tensor: no device sync
+            base = tuple(rng.stream(rng.stream(host_w, "int_sign/est"),
+                                    "int_sign/flips").tolist())
+            flips = rng.stream(rng.stream(wkey, "int_sign/est"),
+                               "int_sign/flips")
+            idx = torch.arange(PATH_CHAIN_CHUNKS, device="cuda")
+            # dpcorr-lint: ignore[rng-raw-api] — the stream's per-chunk host keys, under test
+            chunk_keys = [rng.fold_in_words(base, c)
+                          for c in range(PATH_CHAIN_CHUNKS)]
+            chains.append((torch.tensor(chunk_keys),
+                           rng.chunk_key(flips, idx)))
+            for j, (h, d) in enumerate(chains):
+                _same_keys(f"{impl} chain {j}", h, d)
+            host_keys = torch.cat([h.reshape(-1, 4) for h, _ in chains])
+            dev_keys = torch.cat([d.reshape(-1, 4) for _, d in chains])
+            bits_host = rng.random_bits(host_keys.cuda(), (1024,))
+            bits_dev = rng.random_bits(dev_keys, (1024,))
+            if not torch.equal(bits_host, bits_dev):
+                raise RuntimeError(f"22a {impl}: bits from the host keys "
+                                   f"differ from the card's")
+        out[impl] = {"folds": len(data), "chains": len(chains),
+                     "chunk_keys": PATH_CHAIN_CHUNKS,
+                     "host_fold_us": fold_us}
+    print(f"[{card}] 22a host keys bit-equal to the card's fold_in: "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
+def _point_diff(card_pt, cpu_pt) -> tuple:
+    """Largest |card − CPU| on ρ̂ and the CI ends, largest relative gap on
+    the λ/geometry block, and whether k and m are equal."""
+    ci = aux = 0.0
+    geometry = True
+    for meth in ("ni", "int_"):
+        got, want = getattr(card_pt, meth), getattr(cpu_pt, meth)
+        if set(got) != set(want):
+            raise RuntimeError(f"22b {meth}: fields {set(got)} != "
+                               f"{set(want)}")
+        ci = max(ci, *(abs(got[f] - want[f])
+                       for f in ("rho_hat", "ci_low", "ci_high")))
+        aux = max(aux, *(abs(got[f] / want[f] - 1.0) for f in want
+                         if f not in ("rho_hat", "ci_low", "ci_high")
+                         and want[f]), 0.0)
+        geometry &= all(got[f] == want[f] for f in ("k", "m") if f in want)
+    return ci, aux, geometry
+
+
+def rbg_hrs(card: str, cols) -> dict:
+    """Phase 22b: HRS at the panel's shape on rbg keys (point estimates,
+    the sweep cut to 3 ε × 200 × 2, the bootstrap cut to 1,000), card
+    against CPU within 1e-5 on the rows compared, phase 10's gates; then
+    the point estimates on unsafe_rbg."""
+    from dpcorr_torch import hrs
+
+    out = {}
+    for impl in ("rbg", "unsafe_rbg"):
+        with _prng_impl(impl):
+            card_pt = hrs.point_estimates(cols=cols)
+            ci, aux, geometry = _point_diff(
+                card_pt, hrs.point_estimates(cols=cols, device="cpu"))
+            row = {"point_ci_diff": ci, "point_aux_rel": aux,
+                   "ni": card_pt.ni["rho_hat"],
+                   "int": card_pt.int_["rho_hat"],
+                   "rho_np": card_pt.std.rho_np}
+            if ci > 1e-5 or aux > 1e-5 or not geometry:
+                raise RuntimeError(f"22b {impl} point estimates: card and "
+                                   f"CPU differ by {ci} (CI), {aux} (aux), "
+                                   f"geometry equal {geometry}")
+            if impl == "rbg":
+                sweep = hrs.eps_sweep(cols=cols, eps_grid=PATH_HRS_EPS,
+                                      reps=PATH_HRS_REPS)
+                boot = hrs.bootstrap(cols=cols, reps=PATH_HRS_BOOT)
+                first = sweep.runs["rep"] <= PATH_HRS_PARITY_REPS
+                cpu_sweep = hrs.eps_sweep(cols=cols, eps_grid=PATH_HRS_EPS,
+                                          reps=PATH_HRS_PARITY_REPS,
+                                          device="cpu")
+                cpu_boot = hrs.bootstrap(cols=cols,
+                                         reps=PATH_HRS_PARITY_BOOT,
+                                         device="cpu")
+                row["sweep_share"] = rows_within(
+                    {f: v[first] for f, v in sweep.runs.items()},
+                    cpu_sweep.runs, hrs.SWEEP_FIELDS)
+                row["boot_share"] = rows_within(
+                    {f: v[:PATH_HRS_PARITY_BOOT]
+                     for f, v in boot.runs.items()},
+                    cpu_boot.runs, hrs.BOOT_FIELDS)
+                row["boot_summary"] = boot.summary
+                if row["sweep_share"] < 0.99 or row["boot_share"] < 0.99:
+                    raise RuntimeError(f"22b rbg: card and CPU differ on "
+                                       f"the sweep ({row['sweep_share']}) "
+                                       f"or the bootstrap "
+                                       f"({row['boot_share']})")
+                hrs_gates(card, sweep, boot, "22b rbg")
+        out[impl] = row
+    print(f"[{card}] 22b HRS at n = {HRS_COMPLETE}: {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def rbg_serving(card: str) -> dict:
+    """Phase 22c: ``DpcorrServer`` on rbg keys, 32 requests at n = 10⁴
+    through the exact engine and 32 through the vector engine, 8 client
+    threads each (exact bit-equal to the direct call, vector within its
+    contract, ε charged once per request); 8 exact requests on
+    unsafe_rbg; the host's key µs per request under each impl."""
+    from dpcorr_torch.obs.audit import AuditTrail
+    from dpcorr_torch.serve import (
+        DpcorrServer,
+        InProcessClient,
+        pinned_request_key,
+    )
+    from dpcorr_torch.utils import rng
+
+    per = PATH_SERVE_REQS // len(SERVE_FAMILIES)
+    reqs = {mode: [r for j, fam in enumerate(SERVE_FAMILIES)
+                   for r in serve_requests(fam, per, SERVE_N,
+                                           seed0 + 100_000 * j)]
+            for mode, seed0 in (("exact", 30_000_000),
+                                ("vector", 31_000_000))}
+    key_us = {impl: [] for impl in ("threefry2x32", "rbg", "unsafe_rbg")}
+    for _turn in range(3):  # the first turn warms; the least of two kept
+        for impl, times in key_us.items():
+            with _prng_impl(impl):
+                master = rng.master_key(rng.MASTER_SEED)
+                t0 = time.perf_counter()
+                for r in reqs["exact"]:
+                    pinned_request_key(master, r, r.seed)
+                times.append((time.perf_counter() - t0)
+                             / len(reqs["exact"]) * 1e6)
+    key_us = {impl: min(times[1:]) for impl, times in key_us.items()}
+    print(f"[{card}] 22c request-key derivation on the host, µs per "
+          f"admission at n = {SERVE_N} (SHA-256 of the request and ten "
+          f"fold_ins in Python ints; least of two warm turns): "
+          f"{json.dumps(key_us)}", flush=True)
+    out = {"key_us": key_us}
+    for impl, mode, batch in (("rbg", "exact", reqs["exact"]),
+                              ("rbg", "vector", reqs["vector"]),
+                              ("unsafe_rbg", "exact", reqs["exact"][
+                                  ::PATH_SERVE_REQS // PATH_UNSAFE_REQS])):
+        label = f"[{card}] 22c {impl} {mode} engine"
+        with _prng_impl(impl):
+            trail = AuditTrail()
+            srv = DpcorrServer(budget=1e12, max_batch=SERVE_MAX_BATCH,
+                               max_delay_s=SERVE_MAX_DELAY_S,
+                               batch_mode=mode, audit=trail, device="cuda")
+            try:
+                got, lat, dt = drive(InProcessClient(srv), batch,
+                                     PATH_SERVE_CLIENTS)
+                ledger_matches(label, srv, batch, trail.events())
+            finally:
+                srv.close()
+            want = direct_answers(batch, "cuda")
+        line = load_line(f"{label}, {len(batch)} requests, "
+                         f"{PATH_SERVE_CLIENTS} clients", lat, dt)
+        if mode == "exact":
+            bit_equal(label, got, want)
+        else:
+            line["contract"] = vector_contract(label, got, want)
+        out[f"{impl} {mode}"] = line
+    return out
+
+
+def rbg_stream(card: str, xy: np.ndarray) -> dict:
+    """Phase 22d: one window per family on rbg keys at n = 19,433 (the HRS
+    pair) and stream_load.py's ε and associativity chunk (512 rows), one
+    on unsafe_rbg: two partitions
+    byte-equal to the monolith on the card, the card within phase 14's
+    tolerance of the CPU (a normalised sign family's CPU release taken
+    from the card's moments when the signs follow their last bits)."""
+    from dpcorr_torch.perf_stream import STREAM_EPS, STREAM_SEED
+    from dpcorr_torch.stream import sketch
+    from dpcorr_torch.utils import rng
+
+    out = {}
+    for impl, families in (("rbg", SERVE_FAMILIES),
+                           ("unsafe_rbg", ("ni_sign",))):
+        with _prng_impl(impl):
+            wkey = sketch.window_key(rng.master_key(STREAM_SEED), "0-2000")
+            for family in families:
+                params = sketch.ReleaseParams(family, STREAM_EPS, STREAM_EPS,
+                                              target_chunk=PATH_STREAM_CHUNK)
+                card_rel = sketch.release_window(xy, params, wkey,
+                                                 device="cuda")
+                ref = json.dumps(card_rel, sort_keys=True)
+                ids = list(range(sketch.grid_for(params, len(xy)).n_chunks))
+                for shards in ([ids[0::2], ids[1::2]],
+                               [[c] for c in reversed(ids)]):
+                    got = json.dumps(sketch.release_window(
+                        xy, params, wkey, shards=shards, device="cuda"),
+                        sort_keys=True)
+                    if got != ref:
+                        raise RuntimeError(f"22d {impl} {family}: a "
+                                           f"partition released {got}, the "
+                                           f"monolith {ref}")
+                cpu_rel = sketch.release_window(xy, params, wkey,
+                                                device="cpu")
+                g, w, diff, within = _release_diff(card_rel, cpu_rel, family)
+                # dpcorr-lint: ignore[sync-in-loop] — a check, case by case: the values are needed on the host
+                row = {"card": g.tolist(), "cpu": w.tolist(),
+                       "max_abs_diff": diff, "chunks": len(ids)}
+                if not within and params.needs_moments \
+                        and family.endswith("sign"):
+                    mo_card, _ = _staged_release(xy, params, wkey, "cuda")
+                    _mo, same = _staged_release(xy, params, wkey, "cpu",
+                                                moments=mo_card)
+                    within = _release_diff(card_rel, same, family)[3]
+                    row["from_card_moments"] = within
+                if not within:
+                    raise RuntimeError(f"22d {impl} {family}: card {g} "
+                                       f"against CPU {w}, beyond phase "
+                                       f"14's tolerance")
+                out[f"{impl} {family}"] = row
+    print(f"[{card}] 22d stream windows at n = {len(xy)}, partitions "
+          f"byte-equal to the monolith: {json.dumps(out)}", flush=True)
+    return out
+
+
+def rbg_protocol(card: str, x, y) -> dict:
+    """Phase 22e: on rbg keys a replay session per family on the HRS pair,
+    each bit-equal to the direct call on the card, one hardened session,
+    and a federation plan of 3 columns whose exact finisher gives every
+    cell its independent session's bits; one replay session on
+    unsafe_rbg."""
+    from dpcorr_torch.protocol import ProtocolSpec, run_inproc
+    from dpcorr_torch.protocol.federation import run_federation_inproc
+    from dpcorr_torch.protocol.matrix import FederationPlan
+
+    eps = PROTO_EPS[0]
+    out = {}
+    for impl, families in (("rbg", SERVE_FAMILIES),
+                           ("unsafe_rbg", ("int_subg",))):
+        with _prng_impl(impl):
+            for family in families:
+                spec = ProtocolSpec(family=family, n=PROTO_N, eps1=eps[0],
+                                    eps2=eps[1], seed=PROTO_SEED)
+                got = session_bits(run_inproc(spec, x, y))
+                want = direct_bits(family, eps, x, y, "cuda")
+                if got != want:
+                    raise RuntimeError(f"22e {impl} {family}: session "
+                                       f"{got}, the direct call {want}")
+                out[f"{impl} {family}"] = list(got)
+    with _prng_impl("rbg"):
+        hard = session_bits(run_inproc(ProtocolSpec(
+            family="ni_subg", n=PROTO_N, eps1=eps[0], eps2=eps[1],
+            seed=PROTO_SEED, noise_mode="hardened"), x, y))
+        if not np.isfinite(hard).all() or hard[0] == out["rbg ni_subg"][0]:
+            raise RuntimeError(f"22e hardened: {hard} against replay's "
+                               f"{out['rbg ni_subg']}")
+        out["rbg ni_subg hardened"] = list(hard)
+        data = {"a": x, "b": y, "c": _fed_data(x, y)["c"]}
+        plan = FederationPlan(family="int_subg", n=PROTO_N, eps=1.0,
+                              parties=PATH_FED_PARTIES, seed=PROTO_SEED)
+        cells = _cells(run_federation_inproc(plan, data))
+        for i, j in plan.cells():
+            ref = run_inproc(plan.cell_spec(i, j), data[plan.label(i)],
+                             data[plan.label(j)])["x"]
+            got = cells[f"{i},{j}"]
+            if (got["rho_hat"], got["ci_low"], got["ci_high"]) != (
+                    ref.rho_hat, ref.ci_low, ref.ci_high):
+                raise RuntimeError(f"22e federation cell {i},{j}: {got}, "
+                                   f"its two-party run gives {ref}")
+        out["rbg federation cells"] = len(cells)
+    print(f"[{card}] 22e protocol and federation: {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def rbg_paths_phase(card: str, cols, x, y) -> dict:
+    """Phase 22: the remaining paths on the rbg-family key-trees, each
+    sub-phase in :func:`rbg_path`."""
+    from dpcorr_torch.perf_stream import hrs_pair
+
+    out, path_launches = {}, {}
+    for label, name, fn in (
+            ("22a", "host_keys", lambda: rbg_host_keys(card)),
+            ("22b", "hrs", lambda: rbg_hrs(card, cols)),
+            ("22c", "serve", lambda: rbg_serving(card)),
+            ("22d", "stream", lambda: rbg_stream(card, hrs_pair(cols))),
+            ("22e", "protocol", lambda: rbg_protocol(card, x, y))):
+        out[label], path_launches[name], out[label + " s"] = rbg_path(
+            card, label, fn)
+    out["path_launches"] = path_launches
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -5826,6 +6197,16 @@ def main() -> int:
     rbg_main = rbg_parts["21b"]["launches"]
     rbg_t = rbg_parts["21d"]
 
+    # ---- 22. HRS, serving, the stream, the protocol and the federation on
+    # the rbg-family key-trees, each sub-phase reading the rbg_bits and K1
+    # launch counts around itself
+    t22 = time.perf_counter()
+    paths = rbg_paths_phase(card, cols, x, y)
+    seconds = {k: round(v, 1) for k, v in paths.items() if k.endswith(" s")}
+    print(f"[{card}] phase 22: {time.perf_counter() - t22:.1f} s "
+          f"{json.dumps(seconds)}; rbg_bits launches per path "
+          f"{json.dumps(paths['path_launches'])}", flush=True)
+
     levels = lad["20b"]
     for name, t in levels.items():
         t["ptxas"] = lad["20a ptxas"].get(name)
@@ -5924,6 +6305,7 @@ def main() -> int:
         "ptxas": rbg_t["ptxas"],
         "turns_reps_per_s": rbg_parts["21c"]["reps_per_s"],
         "per_block": rbg_parts["21c"]["per_block"],
+        "path_launches": paths["path_launches"],
     }]}
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(record), flush=True)

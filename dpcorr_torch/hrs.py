@@ -169,7 +169,6 @@ def standardize(age: np.ndarray, bmi: np.ndarray, cfg: HrsConfig,
     (real-data-sims.R:273-287): streams ``"hrs/std/age"`` and
     ``"hrs/std/bmi"`` of the master key, one host read for the moments
     and ρ."""
-    rng.require_threefry("dpcorr_torch.hrs.standardize", key)
     dev = resolve_device(device)
     key = rng.master_key(cfg.seed, dev) if key is None else key.to(dev)
     age_t = torch.as_tensor(age, dtype=torch.float32).to(dev)
@@ -232,7 +231,6 @@ def point_estimates(cfg: HrsConfig = HrsConfig(), cols=None,
     INT (AGE→BMI) estimate at ε_corr on the privately standardized data,
     streams ``"hrs/ni"`` and ``"hrs/int"``; each dict carries the CI and
     the λ/geometry block (real-data-sims.R:141-147, 244-252)."""
-    rng.require_threefry("dpcorr_torch.hrs.point_estimates")
     dev = resolve_device(device)
     age, bmi = _wave_arrays(cfg, cols)
     std = standardize(age, bmi, cfg, device=dev)
@@ -345,7 +343,6 @@ def eps_sweep(cfg: HrsConfig = HrsConfig(), cols=None, eps_grid=None,
     span with an ``hrs.dispatch`` and an ``hrs.fetch`` child per ε. NI's
     padded batch vectors take one ``k_pad`` from the whole grid, as the
     JAX package's do, so its noise layout matches."""
-    rng.require_threefry("dpcorr_torch.hrs.eps_sweep")
     dev = resolve_device(device)
     age, bmi = _wave_arrays(cfg, cols)
     std = standardize(age, bmi, cfg, device=dev)
@@ -475,7 +472,6 @@ def bootstrap(cfg: HrsConfig = HrsConfig(), cols=None, reps: int = 10_000,
     of the headline estimates at ``eps`` (default ε_corr), keys
     ``rep_keys(stream(master, "hrs/boot"), reps)``, ``chunk`` replications
     at a time (default :func:`boot_chunk_size`)."""
-    rng.require_threefry("dpcorr_torch.hrs.bootstrap")
     dev = resolve_device(device)
     age, bmi = _wave_arrays(cfg, cols)
     std = standardize(age, bmi, cfg, device=dev)

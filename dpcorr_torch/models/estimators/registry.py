@@ -8,8 +8,9 @@ clients, so it needs every family behind one signature:
 
 :func:`serving_entry` closes over what is fixed per kernel bucket
 (family, ε pair, α, normalise). The port's estimators are vectorised
-over leading axes, so the same callable takes one request (key ``(2,)``,
-x and y ``(n,)``) or a lane axis (keys ``(b, 2)``, x and y ``(b, n)``):
+over leading axes, so the same callable takes one request (key
+``(words,)``, two words or four, x and y ``(n,)``) or a lane axis (keys
+``(b, words)``, x and y ``(b, n)``):
 both batch engines of :class:`~dpcorr_torch.serve.kernels.KernelCache`
 call it.
 
@@ -103,11 +104,11 @@ ENGINES = ("exact", "vector")
 
 
 def batch_engine(single: Callable, engine: str = "exact") -> Callable:
-    """``single`` over a lane axis: ``run(keys (b, 2), xs (b, n), ys (b, n))
-    -> (rho_hat, ci_low, ci_high)``, each ``(b,)``. ``"vector"`` is one
-    call over the lanes; ``"exact"`` calls ``single`` on each lane in
-    turn, each lane a fresh copy, so its memory is laid out as a direct
-    caller's would be."""
+    """``single`` over a lane axis: ``run(keys (b, words), xs (b, n),
+    ys (b, n)) -> (rho_hat, ci_low, ci_high)``, each ``(b,)``.
+    ``"vector"`` is one call over the lanes; ``"exact"`` calls ``single``
+    on each lane in turn, each lane a fresh copy, so its memory is laid
+    out as a direct caller's would be."""
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
     if engine == "vector":

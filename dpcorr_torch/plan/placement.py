@@ -69,9 +69,9 @@ def put(a, dev: torch.device, tally: CopyTally,
 
 
 def put_ints(values, dev: torch.device, tally: CopyTally) -> torch.Tensor:
-    """A short list of host ints (a key's two words) as an int64 tensor
-    made on ``dev`` in one call, tallied as one copy when ``dev`` is not
-    the host."""
+    """A short list of host ints (a key's two or four words) as an int64
+    tensor made on ``dev`` in one call, tallied as one copy when ``dev``
+    is not the host."""
     t = torch.tensor(values, dtype=torch.int64, device=dev)
     if dev.type != "cpu":
         tally.puts += 1

@@ -428,8 +428,6 @@ class FederationParty:
                  recv_timeout_s: float = 30.0, engine: str = "exact",
                  registry: Registry | None = None,
                  instance: str | None = None, device=None):
-        rng.require_threefry("dpcorr_torch.protocol.federation "
-                             "(FederationParty)")
         plan.party_index(name)  # unknown party fails loudly here
         self.device = resolve_device(device)
         self.name = name

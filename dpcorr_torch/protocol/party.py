@@ -505,7 +505,6 @@ class Party(SessionEndpoint):
                  transcript: Transcript | None = None,
                  recv_timeout_s: float = 30.0,
                  journal: SessionJournal | None = None, device=None):
-        rng.require_threefry("dpcorr_torch.protocol (Party)")
         if role not in ("x", "y"):
             raise ValueError(f"role must be 'x' or 'y', got {role!r}")
         self.device = resolve_device(device)

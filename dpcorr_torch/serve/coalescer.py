@@ -107,7 +107,7 @@ class ServerClosedError(ServerOverloadedError):
 @dataclasses.dataclass
 class _Pending:
     req: EstimateRequest
-    key: torch.Tensor  # (2,) int64 key words of this request's noise stream
+    key: torch.Tensor  # (words,) int64 key of this request's noise stream
     seed: int
     future: Future
     t_enq: float

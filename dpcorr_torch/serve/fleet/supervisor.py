@@ -94,10 +94,6 @@ class Supervisor:
                  backoff_s: float = 0.25, poll_s: float = 0.1,
                  banner_deadline_s: float = 300.0,
                  on_up=None, on_down=None):
-        from dpcorr_torch.utils.rng import require_threefry
-
-        # the replicas inherit DPCORR_PRNG and would refuse it one by one
-        require_threefry("dpcorr_torch.serve.fleet (Supervisor)")
         self.specs = {s.name: s for s in specs}
         if len(self.specs) != len(specs):
             raise ValueError("replica names must be unique")

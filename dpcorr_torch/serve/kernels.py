@@ -241,7 +241,7 @@ class KernelCache:
                   ys: np.ndarray) -> tuple[np.ndarray, ...]:
         """Execute one flushed launch: pad the batch axis (vector engine),
         place the operands, run the cached unit, read the results back
-        once, truncate. ``keys``: (b, 2) int64 key words; ``xs``/``ys``:
+        once, truncate. ``keys``: (b, words) int64 keys; ``xs``/``ys``:
         (b, n) float32. Returns (rho_hat, ci_low, ci_high) as (b,) numpy
         arrays."""
         # fault sites (chaos.FAULT_POINTS): a planned SimulatedFault here

@@ -44,9 +44,11 @@ accounting:
   counter reuse across restarts cannot repeat a stream, and assigned
   streams can never collide with the pinned subtree.
 
-A request key is ten ``fold_in``s of two 32-bit words. They are derived
-at admission on the host, in Python ints (``rng.fold_in_words``, bit-equal
-to the tensor ``fold_in``): on the card each tensor op would be a launch,
+A request key is ten ``fold_in``s of the master key's two or four 32-bit
+words (threefry2x32, or an rbg-family impl under ``DPCORR_PRNG``). They
+are derived at admission on the host, in Python ints
+(``rng.fold_in_words``, bit-equal to the tensor ``fold_in``; a host
+Philox under unsafe_rbg): on the card each tensor op would be a launch,
 about 1,600 of them per key. The flushed keys go to the device with the
 data; the estimator and its noise run there.
 """
@@ -132,7 +134,7 @@ def _key_tensor(words) -> torch.Tensor:
 
 
 def _master_words(master) -> tuple[int, ...]:
-    # every word: rng.fold_in_words refuses a key that is not threefry's
+    # every word, two or four: a four-word key is folded as its impl
     return tuple(int(v) for v in
                  rng.key_data(torch.as_tensor(master)).tolist())
 
@@ -143,8 +145,8 @@ def pinned_request_key(master, req: EstimateRequest,
     dedicated pinned subtree, then bound to the request content, so a
     seed replayed over different data yields an independent stream (the
     anti-differencing guarantee) while an identical request stays
-    exactly reproducible. ``master`` is a port key; returns the (2,)
-    int64 key on the CPU, bit-equal to
+    exactly reproducible. ``master`` is a port key; returns the
+    (words,) int64 key on the CPU, bit-equal to
     ``dpcorr.serve.server.pinned_request_key``."""
     # dpcorr-lint: ignore[rng-raw-api] — rng.stream on host words: no launch, bit-equal to the JAX key
     w = rng.fold_in_words(_master_words(master),
@@ -208,7 +210,6 @@ class DpcorrServer:
                  lease_target: int | None = None,
                  advertise_url: str | None = None,
                  device=None):
-        rng.require_threefry("dpcorr_torch.serve (DpcorrServer)")
         self.device = resolve_device(device)
         self.seed = seed
         #: instance identity: labels /stats and /metrics

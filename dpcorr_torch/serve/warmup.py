@@ -39,6 +39,7 @@ import numpy as np
 
 from dpcorr_torch.serve.kernels import pad_batch
 from dpcorr_torch.serve.request import KernelKey
+from dpcorr_torch.utils import rng
 
 log = logging.getLogger("dpcorr.serve")
 
@@ -100,12 +101,14 @@ def example_args(kkey: KernelKey, b_pad: int, mode: str) -> tuple:
     """Host ``(keys, xs, ys)`` at one signature's dispatch shape for its
     warm run: the vector engine's ``b_pad`` lanes, or one lane for the
     exact engine, which runs the single call lane by lane (one lane
-    makes every launch of the body). The keys are zero words, derived
-    from no ledger's key-tree; the data is a fixed normal draw."""
+    makes every launch of the body). The keys are zero words, as many
+    as the process impl's keys have (``rng.process_impl``), derived from
+    no ledger's key-tree; the data is a fixed normal draw."""
     lanes = b_pad if mode == "vector" else 1
     data = np.random.default_rng(0).standard_normal(
         (2, lanes, kkey.n)).astype(np.float32)
-    return np.zeros((lanes, 2), np.int64), data[0], data[1]
+    words = rng.IMPLS[rng.process_impl()]
+    return np.zeros((lanes, words), np.int64), data[0], data[1]
 
 
 def load_manifest(path: str) -> list[dict]:

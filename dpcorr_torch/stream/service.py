@@ -79,7 +79,7 @@ from dpcorr_torch.stream.windows import (
 )
 from dpcorr_torch.utils import compile as compile_mod
 from dpcorr_torch.utils.device import resolve_device
-from dpcorr_torch.utils.rng import master_key, require_threefry
+from dpcorr_torch.utils.rng import master_key
 
 __all__ = ["Releaser", "StreamOverloadedError", "StreamService",
            "window_charges"]
@@ -121,7 +121,6 @@ class Releaser:
 
     def __init__(self, seed: int, families, eps1: float, eps2: float,
                  normalise: bool, placement=None, device=None):
-        require_threefry("dpcorr_torch.stream (Releaser)")
         self.device = resolve_device(device)
         self.master = master_key(seed)
         self.families = tuple(families)
@@ -168,7 +167,6 @@ class StreamService:
                  placement=None,
                  clock=time.time,
                  device=None):
-        require_threefry("dpcorr_torch.stream (StreamService)")
         self.device = resolve_device(device)
         self.workdir = str(workdir)
         self.clock = clock

@@ -101,12 +101,12 @@ _JAX_Z_0975 = 1.9599642753601074
 
 # ------------------------------------------------------------- keys ----
 def _words(key) -> tuple[int, ...]:
-    # every word: rng.fold_in_words refuses a key that is not threefry's
+    # every word, two or four: a four-word key is folded as its impl
     return tuple(int(v) for v in
                  rng.key_data(torch.as_tensor(key)).cpu().tolist())
 
 
-def _sub(words: tuple[int, int], name: str) -> tuple[int, int]:
+def _sub(words: tuple[int, ...], name: str) -> tuple[int, ...]:
     """``rng.stream`` on host words."""
     # dpcorr-lint: ignore[rng-raw-api] — rng.stream on host words: no launch, bit-equal to the tensor key
     return rng.fold_in_words(words, rng.stream_index(name))
@@ -147,17 +147,16 @@ def _fetch(t: torch.Tensor) -> torch.Tensor:
     return host
 
 
-def _key_on(words: tuple[int, int], device: torch.device) -> torch.Tensor:
+def _key_on(words: tuple[int, ...], device: torch.device) -> torch.Tensor:
     return put_ints(words, device, _tally())
 
 
 def window_key(master, window_id: str) -> torch.Tensor:
     """Per-window noise root: the ``stream/<window_id>`` subtree of the
-    party root, as a (2,) int64 key on the CPU (bit-equal to
+    party root, as a (words,) int64 key on the CPU (bit-equal to
     ``dpcorr.stream.sketch.window_key``). Every family substream below it
     keeps its monolithic name, so a window's noise is addressed by
     (master, window id) alone — the replay/crash-exactness contract."""
-    rng.require_threefry("dpcorr_torch.stream.sketch.window_key", master)
     if not window_id:
         raise ValueError("window_id must be non-empty")
     return _key_on(_sub(_words(master), f"stream/{window_id}"), _HOST)

@@ -35,6 +35,13 @@ the impl is never guessed from the words: four-word keys are read as
 otherwise, and ``master_key(impl=...)`` / ``keys_from_data(impl=...)``
 raise ``ValueError`` when they name the other one.
 
+Host words. The serving layer and the stream fold short key chains on
+the host in Python ints (:func:`fold_in_words`), two or four words,
+bit-equal to :func:`fold_in` on the same words and read under the same
+rule: rbg is threefry on each half, unsafe_rbg goes through a host
+Philox (:func:`_philox_words`), the third implementation of the
+generator beside the kernel and its plain version.
+
 Per-key draws. A batch of keys ``(..., 4)`` draws each key's own stream:
 row i equals ``jax.random.bits(keys[i], shape)`` called on that key alone.
 JAX's batching rule for ``rng_bit_generator``
@@ -116,24 +123,6 @@ def resolve_impl(impl: str | None = None) -> str:
             f"process (DPCORR_PRNG={os.environ.get('DPCORR_PRNG')!r}); "
             f"set DPCORR_PRNG={impl} to use {impl!r} keys")
     return impl
-
-
-def require_threefry(path: str, key=None) -> None:
-    """Raises ``ValueError`` naming ``path`` and the impl when the process
-    impl is not ``threefry2x32``, or when ``key`` (if given) is not a
-    two-word key: the entry of a path that runs on threefry2x32 keys
-    only, so that it never hands back threefry bits under another impl's
-    name."""
-    impl = process_impl()
-    if impl != DEFAULT_IMPL:
-        raise ValueError(
-            f"{path} runs on the threefry2x32 key-tree only, but the "
-            f"process PRNG impl is {impl!r} (DPCORR_PRNG); unset it to run "
-            f"this path")
-    if key is not None and torch.as_tensor(key).shape[-1] != 2:
-        raise ValueError(f"{path} runs on the threefry2x32 key-tree only, "
-                         f"got a key of shape "
-                         f"{tuple(torch.as_tensor(key).shape)}")
 
 
 def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
@@ -247,19 +236,53 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return key ^ _rbg_bits(seeds, 4, offset=9)
 
 
-def fold_in_words(words: tuple[int, int], data: int) -> tuple[int, int]:
-    """:func:`fold_in` on a threefry2x32 key held as two host ints, for
-    key chains short enough that device launches would cost more than the
-    arithmetic (the serving layer's per-request keys). Bit-equal to
-    :func:`fold_in` on the same words, and takes ``data`` as it does
-    (:func:`_host_data`). Any other number of words raises
-    ``ValueError``: the paths that chain host words run on threefry keys
-    only (:func:`require_threefry`)."""
-    if len(words) != 2:
-        raise ValueError(f"fold_in_words takes a two-word threefry2x32 "
-                         f"key, got {len(words)} words")
-    return _threefry_words(int(words[0]) & _M32, int(words[1]) & _M32, 0,
-                           _host_data(data))
+def _philox_words(key4, n_blocks: int, offset: int = 0) -> tuple[int, ...]:
+    """Blocks ``offset`` … ``offset + n_blocks − 1`` of XLA's Philox draw
+    for the four-word key ``key4`` held as host ints: Philox4x32-10 keyed
+    by (w0, w1) on the 128-bit counter (w2, w3, w0, w1) plus the block
+    number, the carry taken through all four words (``ops.rbg``'s
+    layout). The host twin of ``ops.rbg.rbg_bits`` for the few blocks a
+    key chain needs; returns ``4 · n_blocks`` words."""
+    from dpcorr_torch.ops.fused_ni import _PHILOX_M, _PHILOX_W
+
+    w0, w1, w2, w3 = (int(v) & _M32 for v in key4)
+    start = w2 | w3 << 32 | w0 << 64 | w1 << 96
+    out: list[int] = []
+    for b in range(int(n_blocks)):
+        ctr = (start + int(offset) + b) & ((1 << 128) - 1)
+        c = [(ctr >> (32 * i)) & _M32 for i in range(4)]
+        k0, k1 = w0, w1
+        for _ in range(10):
+            p0, p1 = _PHILOX_M[0] * c[0], _PHILOX_M[1] * c[2]
+            c = [(p1 >> 32) ^ c[1] ^ k0, p1 & _M32,
+                 (p0 >> 32) ^ c[3] ^ k1, p0 & _M32]
+            k0 = (k0 + _PHILOX_W[0]) & _M32
+            k1 = (k1 + _PHILOX_W[1]) & _M32
+        out += c
+    return tuple(out)
+
+
+def fold_in_words(words: tuple[int, ...], data) -> tuple[int, ...]:
+    """:func:`fold_in` on a key held as two or four host ints, for key
+    chains short enough that device launches would cost more than the
+    arithmetic (the serving layer's per-request keys, the stream's
+    window and chunk keys). Bit-equal to :func:`fold_in` on the same
+    words, and takes ``data`` as it does (:func:`_host_data`). Four words
+    are read as :func:`fold_in` reads them (the process impl, never the
+    words): rbg is threefry on each half, unsafe_rbg the key xor block 9
+    of the Philox draw keyed by ``[0, d, 0, d]`` (:func:`_philox_words`).
+    Any other number of words raises ``ValueError``."""
+    w = tuple(int(v) & _M32 for v in words)
+    d = _host_data(data)
+    if len(w) == 2:
+        return _threefry_words(w[0], w[1], 0, d)
+    if len(w) != 4:
+        raise ValueError(f"fold_in_words takes a key of 2 (threefry2x32) "
+                         f"or 4 (rbg, unsafe_rbg) words, got {len(w)}")
+    if _four_word_impl() == "rbg":
+        return (_threefry_words(w[0], w[1], 0, d)
+                + _threefry_words(w[2], w[3], 0, d))
+    return tuple(a ^ b for a, b in zip(w, _philox_words((0, d, 0, d), 1, 9)))
 
 
 def design_key(key: torch.Tensor, design_index) -> torch.Tensor:

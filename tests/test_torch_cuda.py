@@ -1091,3 +1091,97 @@ def test_rbg_key_tree_and_draws_card_equal_cpu(cuda, impl, monkeypatch):
         ok &= np.isclose(wide.detail[name].cpu().numpy(),
                          cpu_run.detail[name].numpy(), rtol=0, atol=1e-5)
     assert ok.mean() >= 0.95  # a centered value at a sign tie moves one
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["rbg", "unsafe_rbg"])
+def test_rbg_host_chains_equal_the_cards_fold_in(cuda, impl, monkeypatch):
+    """Four-word host chains (serve's pinned key, the stream's window and
+    chunk keys) equal the same chains folded on the card, and their bits
+    too; unsafe_rbg's device folds launch the kernel."""
+    from dpcorr_torch.ops import rbg
+    from dpcorr_torch.serve import EstimateRequest, pinned_request_key
+    from dpcorr_torch.serve.server import request_digest_words
+    from dpcorr_torch.stream import sketch
+
+    monkeypatch.setenv("DPCORR_PRNG", impl)
+    host = rng.master_key(2025)
+    card = host.to(cuda)
+    x = np.random.default_rng(4).standard_normal((2, 300)).astype(np.float32)
+    req = EstimateRequest("ni_subg", x[0], x[1], 1.0, 0.5, seed=9)
+    before = rbg.KERNEL_LAUNCHES["rbg_bits"]
+    key = rng.design_key(rng.stream(card, "serve/pinned"), 9)
+    for w in request_digest_words(req):
+        key = rng.design_key(key, w)
+    assert torch.equal(key.cpu(), pinned_request_key(host, req, 9))
+    wkey = sketch.window_key(host, "0-2000")
+    assert torch.equal(rng.stream(card, "stream/0-2000").cpu(), wkey)
+    chunks = rng.chunk_key(wkey.to(cuda), torch.arange(40, device=cuda))
+    assert torch.equal(chunks.cpu(), torch.stack(
+        [rng.chunk_key(wkey, c) for c in range(40)]))
+    assert torch.equal(rng.random_bits(chunks, (512,)).cpu(),
+                       rng.random_bits(chunks.cpu(), (512,)))
+    assert rbg.KERNEL_LAUNCHES["rbg_bits"] > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["rbg", "unsafe_rbg"])
+def test_rbg_paths_on_the_card(cuda, impl, monkeypatch):
+    """Serving, the stream, the protocol and HRS on rbg-family keys on the
+    card: the exact engine bit-equal to the direct call, a stream window's
+    partitions byte-equal to its monolith, a replay session bit-equal to
+    the direct call, HRS point estimates within 1e-5 of the CPU; each
+    launches the rbg kernel and not K1."""
+    import json
+
+    from dpcorr_torch.models.estimators.registry import serving_entry
+    from dpcorr_torch.ops import rbg
+    from dpcorr_torch.protocol import ProtocolSpec, run_inproc
+    from dpcorr_torch.serve import (
+        DpcorrServer,
+        EstimateRequest,
+        pinned_request_key,
+    )
+    from dpcorr_torch.stream import sketch
+
+    monkeypatch.setenv("DPCORR_PRNG", impl)
+    rbg.KERNEL_LAUNCHES["rbg_bits"] = 0
+    k1 = dict(fused_ni.KERNEL_LAUNCHES)
+    xy = np.random.default_rng(5).standard_normal((2, 2000)).astype(
+        np.float32)
+    srv = DpcorrServer(budget=1e6, max_delay_s=0.001)
+    try:
+        for i, fam in enumerate(("ni_sign", "int_subg")):
+            req = EstimateRequest(fam, xy[0], xy[1], 1.0, 0.5, seed=i)
+            got = srv.estimate(req, timeout=120)
+            want = serving_entry(fam, 1.0, 0.5)(
+                pinned_request_key(rng.master_key(srv.seed), req, i),
+                torch.from_numpy(xy[0]), torch.from_numpy(xy[1]))
+            assert (got.rho_hat, got.ci_low, got.ci_high) \
+                == tuple(float(v) for v in want)
+    finally:
+        srv.close()
+    params = sketch.ReleaseParams("int_sign", 0.4, 0.4, target_chunk=512)
+    wkey = sketch.window_key(rng.master_key(2025), "0-2000")
+    ref = json.dumps(sketch.release_window(xy.T, params, wkey),
+                     sort_keys=True)
+    n_chunks = sketch.grid_for(params, 2000).n_chunks
+    assert json.dumps(sketch.release_window(
+        xy.T, params, wkey, shards=[[c] for c in reversed(range(n_chunks))]),
+        sort_keys=True) == ref
+    spec = ProtocolSpec(family="ni_subg", n=2000, eps1=1.0, eps2=0.5)
+    res = run_inproc(spec, xy[0], xy[1])["x"]
+    want = serving_entry("ni_subg", 1.0, 0.5)(
+        rng.master_key(2025, cuda), torch.from_numpy(xy[0]),
+        torch.from_numpy(xy[1]))
+    assert (res.rho_hat, res.ci_low, res.ci_high) \
+        == tuple(float(v) for v in want)
+    cols = perf_hrs.synthetic_panel(3, 96_000)
+    card = hrs.point_estimates(cols=cols)
+    cpu = hrs.point_estimates(cols=cols, device="cpu")
+    for meth in ("ni", "int_"):
+        for f in ("rho_hat", "ci_low", "ci_high"):
+            assert abs(getattr(card, meth)[f] - getattr(cpu, meth)[f]) \
+                <= 1e-5, (meth, f)
+    assert rbg.KERNEL_LAUNCHES["rbg_bits"] > 0
+    assert dict(fused_ni.KERNEL_LAUNCHES) == k1

@@ -9,8 +9,8 @@ torch.erfinv: within 2e-5 relative, as the threefry tests hold them.
 Estimators on top agree with the JAX package's unbatched replication to
 1e-5 absolute (sign ties aside). Also: the process impl
 (``DPCORR_PRNG``), the grid's stamp and resume, the kernel's plain
-version, and every entry point either honouring a non-default impl or
-raising at its entry.
+version, and the Monte-Carlo path's entry points honouring a non-default
+impl (the other paths: ``tests/test_torch_rbg_paths.py``).
 """
 
 import jax
@@ -22,7 +22,7 @@ import torch
 import dpcorr.sim as jsim
 from dpcorr.utils import rng as jrng
 from dpcorr_torch import acceptance, chaos, grid, interop, parallel, rbridge
-from dpcorr_torch import hrs, sim
+from dpcorr_torch import sim
 from dpcorr_torch.models.dgp import normal
 from dpcorr_torch.ops import rbg as rbg_op
 from dpcorr_torch.parallel import multihost
@@ -412,59 +412,6 @@ def test_acceptance_campaign_runs_on_the_impl(rbg_env):
                        for r in rows]).mean()
     assert out["b"] == 16
     assert out["NI"]["coverage"] == pytest.approx(float(cover), abs=1e-6)
-
-
-# ----------------------------------------------- paths that raise instead ----
-
-def _raising_entries(tmp_path):
-    from dpcorr_torch.protocol.federation import FederationParty
-    from dpcorr_torch.protocol.party import Party
-    from dpcorr_torch.serve.fleet.supervisor import Supervisor
-    from dpcorr_torch.serve.server import DpcorrServer
-    from dpcorr_torch.stream import sketch
-    from dpcorr_torch.stream.service import Releaser, StreamService
-    from dpcorr_torch.stream.windows import WindowSpec
-
-    age, bmi = np.ones(8), np.ones(8)
-    return {
-        "hrs.standardize": lambda: hrs.standardize(age, bmi, hrs.HrsConfig(),
-                                                   device="cpu"),
-        "hrs.point_estimates": lambda: hrs.point_estimates(device="cpu"),
-        "hrs.eps_sweep": lambda: hrs.eps_sweep(device="cpu"),
-        "hrs.bootstrap": lambda: hrs.bootstrap(device="cpu"),
-        "serve": lambda: DpcorrServer(device="cpu"),
-        "fleet": lambda: Supervisor([]),
-        "stream service": lambda: StreamService(
-            str(tmp_path), WindowSpec(10.0), ["ni_sign"], 1.0, 1.0,
-            device="cpu"),
-        "stream releaser": lambda: Releaser(0, ["ni_sign"], 1.0, 1.0, True,
-                                            device="cpu"),
-        "stream window key": lambda: sketch.window_key(rng.master_key(0),
-                                                       "w"),
-        "protocol": lambda: Party("x", np.ones(4), None, None, None),
-        "federation": lambda: FederationParty("p0", None, None, None),
-    }
-
-
-@pytest.mark.parametrize("entry", sorted(_raising_entries(None)))
-def test_threefry_only_entry_points_raise(impl, entry, tmp_path):
-    with pytest.raises(ValueError, match=f"threefry2x32 key-tree only.*"
-                                         f"{impl}"):
-        _raising_entries(tmp_path)[entry]()
-
-
-def test_host_word_chains_refuse_four_word_keys(monkeypatch):
-    from dpcorr_torch.stream import sketch
-
-    monkeypatch.delenv("DPCORR_PRNG", raising=False)
-    four = rng.master_key(0, impl="rbg")
-    with pytest.raises(ValueError, match="two-word"):
-        rng.fold_in_words((1, 2, 3, 4), 5)
-    with pytest.raises(ValueError, match="threefry2x32 key-tree only"):
-        sketch.window_key(four, "w")
-    with pytest.raises(ValueError, match="threefry2x32 key-tree only"):
-        hrs.standardize(np.ones(8), np.ones(8), hrs.HrsConfig(), key=four,
-                        device="cpu")
 
 
 # ------------------------------------------------- small parity gaps ----
