@@ -54,6 +54,11 @@ from dpcorr_torch.ops.standardize import dp_sd, standardize_dp
 from dpcorr_torch.sim import chunked, stage
 from dpcorr_torch.utils import rng
 from dpcorr_torch.utils.device import f32_on, resolve_device
+from dpcorr_torch.utils.profiling import (
+    HOST_READ,
+    outermost,
+    outermost_stage,
+)
 
 #: the panel's place in a checkout of the repository (the JAX package
 #: reads the same file from its data directory); not in the repository
@@ -162,13 +167,15 @@ def _corrcoef(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.clamp(c_ab / sd_a / sd_b, -1.0, 1.0)
 
 
+@outermost("hrs_standardize")
 def standardize(age: np.ndarray, bmi: np.ndarray, cfg: HrsConfig,
                 key: torch.Tensor | None = None,
                 device=None) -> Standardized:
     """DP-standardize both variables and derive their λ bounds
     (real-data-sims.R:273-287): streams ``"hrs/std/age"`` and
     ``"hrs/std/bmi"`` of the master key, one host read for the moments
-    and ρ."""
+    and ρ and one for the two λ, all inside an ``hrs_standardize``
+    range (none of its own inside one the caller opened)."""
     dev = resolve_device(device)
     key = rng.master_key(cfg.seed, dev) if key is None else key.to(dev)
     age_t = torch.as_tensor(age, dtype=torch.float32).to(dev)
@@ -180,11 +187,14 @@ def standardize(age: np.ndarray, bmi: np.ndarray, cfg: HrsConfig,
     age_z = standardize_dp(age_t, a_mu, a_sd, cfg.age_lo, cfg.age_hi)
     bmi_z = standardize_dp(bmi_t, b_mu, b_sd, cfg.bmi_lo, cfg.bmi_hi)
     corr = _corrcoef(age_z, bmi_z)
-    a_mu, a_sd, b_mu, b_sd, corr = torch.stack(
-        [a_mu, a_sd, b_mu, b_sd, corr]).tolist()
-    lam = [float(lambda_from_priv(lo, hi, mu, sd, device=dev))
-           for lo, hi, mu, sd in ((cfg.age_lo, cfg.age_hi, a_mu, a_sd),
-                                  (cfg.bmi_lo, cfg.bmi_hi, b_mu, b_sd))]
+    moments = torch.stack([a_mu, a_sd, b_mu, b_sd, corr])
+    with stage(HOST_READ):
+        a_mu, a_sd, b_mu, b_sd, corr = moments.tolist()
+    lam_t = [lambda_from_priv(lo, hi, mu, sd, device=dev)
+             for lo, hi, mu, sd in ((cfg.age_lo, cfg.age_hi, a_mu, a_sd),
+                                    (cfg.bmi_lo, cfg.bmi_hi, b_mu, b_sd))]
+    with stage(HOST_READ):
+        lam = [float(v) for v in lam_t]
     return Standardized(age_z, bmi_z, a_mu, a_sd, b_mu, b_sd, lam[0], lam[1],
                         corr)
 
@@ -219,9 +229,10 @@ class HrsPointResult:
 
 def _wave_arrays(cfg: HrsConfig, cols):
     """Wave ``cfg.wave``'s complete-case age and BMI, from ``cols`` or,
-    when None, from the panel file."""
-    cols = load_panel(cfg.panel_path) if cols is None else cols
-    _, age, bmi = extract_wave(cols, cfg.wave)
+    when None, from the panel file; inside an ``hrs_wave`` range."""
+    with stage("hrs_wave"):
+        cols = load_panel(cfg.panel_path) if cols is None else cols
+        _, age, bmi = extract_wave(cols, cfg.wave)
     return age, bmi
 
 
@@ -474,22 +485,26 @@ def bootstrap(cfg: HrsConfig = HrsConfig(), cols=None, reps: int = 10_000,
     at a time (default :func:`boot_chunk_size`)."""
     dev = resolve_device(device)
     age, bmi = _wave_arrays(cfg, cols)
-    std = standardize(age, bmi, cfg, device=dev)
-    n = int(age.shape[0])
-    eps = cfg.eps_corr if eps is None else float(eps)
-    delta = 1.0 / n
-    lam_recv = lambda_receiver_from_noise(std.lam_age, std.lam_bmi, eps,
-                                          delta, device=dev)
-    chunk = chunk or boot_chunk_size(reps, dev.type == "cuda")
-    lam_age, lam_bmi, delta_t = (f32_on(v, dev) for v in
-                                 (std.lam_age, std.lam_bmi, delta))
+    # one hrs_standardize range over the standardisation and the scalars
+    # the chunks take from it
+    with outermost_stage("hrs_standardize"):
+        std = standardize(age, bmi, cfg, device=dev)
+        n = int(age.shape[0])
+        eps = cfg.eps_corr if eps is None else float(eps)
+        delta = 1.0 / n
+        lam_recv = lambda_receiver_from_noise(std.lam_age, std.lam_bmi, eps,
+                                              delta, device=dev)
+        chunk = chunk or boot_chunk_size(reps, dev.type == "cuda")
+        lam_age, lam_bmi, delta_t = (f32_on(v, dev) for v in
+                                     (std.lam_age, std.lam_bmi, delta))
     keys = rng.rep_keys(rng.stream(rng.master_key(cfg.seed, dev),
                                    "hrs/boot"), reps)
-    out = chunked(lambda k: _boot_reps(k, std.age_z, std.bmi_z, eps,
-                                       lam_age, lam_bmi, lam_recv, delta_t,
-                                       cfg.alpha, cfg.mixquant_mode),
-                  keys, chunk)
-    host = torch.stack(out).cpu().numpy()  # the run's one host read
+    out = torch.stack(chunked(
+        lambda k: _boot_reps(k, std.age_z, std.bmi_z, eps, lam_age,
+                             lam_bmi, lam_recv, delta_t, cfg.alpha,
+                             cfg.mixquant_mode), keys, chunk))
+    with stage(HOST_READ):
+        host = out.cpu().numpy()  # the run's one host read
     runs = dict(zip(BOOT_FIELDS, host, strict=True))
     summary = {meth: _series_summary(runs[f"{meth}_hat"])
                for meth in ("ni", "int")}

@@ -18,7 +18,13 @@ explicit across threads or phases: a caller passes ``parent=`` (the
 
 A tracer constructed with ``path=None`` is disabled: ``span()`` yields a
 reusable null span and touches no locks, so instrumented code pays a
-single attribute check when tracing is off. Device time is optional:
+single attribute check when tracing is off.
+
+While ``torch.profiler`` records, every span (span log on or off) also
+opens a ``record_function`` range of its name, ended by ``Span.end``, so
+the span sits in the profiler's trace on the kernels' clock. The module
+never imports torch: it looks for it in ``sys.modules``, so with the
+profiler off a span pays one check more. Device time is optional:
 callers that read the card inside a span can record device seconds as an
 attr (``span.set(device_s=...)``); the tracer never synchronises itself.
 """
@@ -29,6 +35,7 @@ import contextlib
 import json
 import os
 import secrets
+import sys
 import threading
 import time
 
@@ -38,6 +45,18 @@ _local = threading.local()
 def _new_id() -> str:
     """64-bit random hex — unique far past any realistic span volume."""
     return secrets.token_hex(8)
+
+
+def _profiler_range(name: str):
+    """An entered ``record_function`` range named ``name`` while
+    ``torch.profiler`` records, else None. torch is looked up, never
+    imported: a process without it records nothing."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    rf = torch.autograd.profiler.record_function(name)
+    rf.__enter__()
+    return rf
 
 
 class SpanContext:
@@ -59,7 +78,7 @@ class Span:
     ``end``."""
 
     __slots__ = ("tracer", "name", "trace_id", "span_id", "parent_id",
-                 "attrs", "t_wall", "_t0", "_tid", "_ended")
+                 "attrs", "t_wall", "_t0", "_tid", "_ended", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, trace_id: str,
                  parent_id: str | None, attrs: dict):
@@ -73,6 +92,7 @@ class Span:
         self._t0 = time.perf_counter()
         self._tid = threading.current_thread().name
         self._ended = False
+        self._range = _profiler_range(name)
 
     def set(self, **attrs) -> None:
         self.attrs.update(attrs)
@@ -85,7 +105,10 @@ class Span:
         if self._ended:
             return
         self._ended = True
-        self.tracer._write(self, time.perf_counter() - self._t0)
+        dur_s = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+        self.tracer._write(self, dur_s)
 
 
 class _NullSpan:
@@ -106,6 +129,21 @@ class _NullSpan:
 
 
 _NULL_SPAN = _NullSpan()
+
+
+class _RangeSpan(_NullSpan):
+    """A disabled tracer's span while ``torch.profiler`` records: no log
+    line, only the profiler range, ended by :meth:`end`."""
+
+    __slots__ = ("_range",)
+
+    def __init__(self, rf):
+        self._range = rf
+
+    def end(self) -> None:
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
 
 
 class Tracer:
@@ -145,9 +183,11 @@ class Tracer:
         """Begin a span the caller will ``end()`` explicitly. Parent
         resolution order: explicit ``parent``, else the calling thread's
         current span, else a fresh root (new trace unless ``trace_id``
-        pins one)."""
+        pins one). Disabled, it returns the null span, or while the
+        profiler records a span that is only a profiler range."""
         if not self.enabled:
-            return _NULL_SPAN
+            rf = _profiler_range(name)
+            return _NULL_SPAN if rf is None else _RangeSpan(rf)
         if parent is not None:
             return Span(self, name, parent.trace_id, parent.span_id, attrs)
         cur = current_span()
@@ -163,8 +203,11 @@ class Tracer:
         implicit-parent stack."""
         sp = self.start_span(name, parent=parent, trace_id=trace_id,
                              **attrs)
-        if sp is _NULL_SPAN:
-            yield sp
+        if not isinstance(sp, Span):
+            try:
+                yield sp
+            finally:
+                sp.end()
             return
         stack = _span_stack()
         stack.append(sp)

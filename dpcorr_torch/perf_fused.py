@@ -19,8 +19,8 @@ grid's buckets on one card.
    per block; host time inside each stage (``sim.stage_host_seconds``);
    then under ``torch.profiler`` the device time and count of the device
    activities each stage launches and in all, the largest device
-   activities and the device's idle share; and the kernel alone by CUDA
-   events.
+   activities and the device's idle share of the profiled run (from
+   that run alone); and the kernel alone by CUDA events.
 3. The reference's v1 sign grid (144 points, B = 250,
    bucketed) fused and unfused, and its subG grid (120 points) ε-merged
    and not, each split the same way per bucket, by the stages a fused
@@ -157,12 +157,16 @@ def stage_split(run, stages: tuple, units: int) -> dict:
     by stage; host ms inside each stage (``sim.stage_host_seconds``,
     enqueue time: the stages are async); then under ``torch.profiler``
     the count and device ms of the activities each stage launches and of
-    all the run's, the largest ones, and the device's idle share of the
-    unprofiled run (1 − device time / its host time)."""
+    all the run's (the profiler's device-side annotations of the host's
+    ranges left out by their kind), the largest ones, and the device's
+    idle share of that one profiled run (``utils.profiling.
+    device_idle_share``: 1 − the union of its kernel, copy and fill
+    intervals over the run's window)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from dpcorr_torch import sim
+    from dpcorr_torch.utils import profiling
 
     def timed():
         torch.cuda.synchronize()
@@ -176,15 +180,20 @@ def stage_split(run, stages: tuple, units: int) -> dict:
         timed_ms = timed()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        profiled_ms = timed()
-    ranges = set(stages) | set(sim.FUSED_STAGES + sim.GRID_STAGES)
+        with record_function(profiling.RUN_RANGE):
+            profiled_ms = timed()
+    # the ranges' device-side annotations, by their kind
+    ann = {ev.name for ev in prof.events()
+           if ev.device_type == DeviceType.CUDA
+           and getattr(ev, "is_user_annotation", False)}
     acts = {name: [] for name in stages}
-    device = []   # (name, µs) of kernels and copies, not the ranges' spans
     for ev in prof.events():
         if ev.device_type == DeviceType.CPU and ev.name in acts:
-            acts[ev.name] += [(k.name, k.duration) for k in _activities(ev)]
-        elif ev.device_type == DeviceType.CUDA and ev.name not in ranges:
-            device.append((ev.name, ev.time_range.elapsed_us()))
+            acts[ev.name] += [(k.name, k.duration) for k in _activities(ev)
+                              if k.name not in ann]
+    # kernels, copies and fills, not the ranges' device-side spans
+    device = [(name, b - a)
+              for name, a, b in profiling.device_activities(prof)]
     # a launch through ctypes may correlate with no range: take the kernel
     # by its name then
     if "fused_ni" in acts and not any("fused_ni_kernel" in name
@@ -205,7 +214,7 @@ def stage_split(run, stages: tuple, units: int) -> dict:
         "profiled_ms_per_unit": profiled_ms / units,
         "activities_per_unit": len(device) / units if measured else nm,
         "device_ms_per_unit": device_ms / units if measured else nm,
-        "idle_share": (max(0.0, 1.0 - device_ms / host_ms) if measured
+        "idle_share": (profiling.device_idle_share(prof) if measured
                        else nm),
         "stages": {name: {
             "host_ms": 1e3 * seconds.get(name, 0.0) / units,

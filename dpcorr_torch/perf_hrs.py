@@ -23,7 +23,7 @@ Run as a script, on the card only:
    by the stages they mark (``hrs.HRS_STAGES``) as
    ``perf_fused.stage_split`` splits a block: host ms, device activities
    and device ms under ``torch.profiler``, in all and by stage, and the
-   device's idle share (1 − device time / unprofiled host time).
+   device's idle share of the profiled run (from that run alone).
 
 Each result is one JSON line stamped with the card's name and power
 limit.

@@ -13,8 +13,9 @@
    ``sim.STRESS_CHUNK_CARD`` is chosen from).
 3. One block of each path at its chosen width under ``torch.profiler``:
    device activities launched per block, device time per block, and the
-   device's idle share of the block (1 − device time / host time of the
-   same block, unprofiled).
+   device's idle share of that profiled block (1 − the union of its
+   kernel, copy and fill intervals over the block's window, from the
+   one profiled run).
 
 Each result is one JSON line stamped with the card's name and power
 limit.
@@ -67,10 +68,13 @@ def _rate(pipe, n_blocks: int) -> dict:
 
 
 def _profile_block(pipe) -> dict:
-    """Launches and device ms of one block, and the device's idle share
-    against the same block's unprofiled host time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Launches and device ms of one profiled block (the profiler's
+    device-side annotations of the host's ranges left out), the host ms
+    of an unprofiled one, and the device's idle share of the profiled
+    block from that run alone (``utils.profiling.device_idle_share``)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from dpcorr_torch.utils import profiling
 
     pipe.run(1, start_block=20_000)
     t0 = time.perf_counter()
@@ -78,17 +82,17 @@ def _profile_block(pipe) -> dict:
     host_ms = 1e3 * (time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pipe.run(1, start_block=20_002)
-    device = [ev.time_range.elapsed_us() for ev in prof.events()
-              if ev.device_type == DeviceType.CUDA]
+        with record_function(profiling.RUN_RANGE):
+            pipe.run(1, start_block=20_002)  # ends in the block's read
+    device = [b - a for _, a, b in profiling.device_activities(prof)]
     if not device:
         return {"launches_per_block": "not measured",
                 "device_ms_per_block": "not measured",
                 "host_ms_per_block": host_ms, "idle_share": "not measured"}
-    device_ms = sum(device) / 1e3
     return {"launches_per_block": len(device),
-            "device_ms_per_block": device_ms, "host_ms_per_block": host_ms,
-            "idle_share": max(0.0, 1.0 - device_ms / host_ms)}
+            "device_ms_per_block": sum(device) / 1e3,
+            "host_ms_per_block": host_ms,
+            "idle_share": profiling.device_idle_share(prof)}
 
 
 def subg_path(card: str) -> None:

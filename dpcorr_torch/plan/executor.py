@@ -29,6 +29,7 @@ import torch
 
 from dpcorr_torch.plan.placement import Placement, resolve_placement
 from dpcorr_torch.utils import compile as compile_mod
+from dpcorr_torch.utils.profiling import HOST_READ, stage
 
 
 class Prepared:
@@ -166,7 +167,9 @@ class Executor:
         """The one counted host read of a plan: ``out`` (a tensor, or a
         tuple or list of them) copied to the host, which waits for
         the work that makes it. Counts one fetch however many tensors
-        ``out`` holds."""
-        host = _to_host(out)
+        ``out`` holds. The copy runs inside a ``host_read`` range
+        (``utils.profiling``)."""
+        with stage(HOST_READ):
+            host = _to_host(out)
         self.counters().fetches.inc()
         return host

@@ -20,16 +20,13 @@ per run.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
 import math
-import time
 from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from dpcorr_torch.models.dgp import DGPS, gen_gaussian
 from dpcorr_torch.models.estimators import streaming as st
@@ -44,6 +41,11 @@ from dpcorr_torch.models.estimators.ni_subg import correlation_ni_subg
 from dpcorr_torch.ops.fused_ni import fused_ni_sums, ni_result
 from dpcorr_torch.utils import rng
 from dpcorr_torch.utils.device import f32_on, resolve_device
+# re-exported: the grid, HRS and the measuring scripts mark stages as sim's
+from dpcorr_torch.utils.profiling import (  # noqa: F401
+    stage,
+    stage_host_seconds,
+)
 
 
 #: the stages of a fused block, as ``torch.profiler`` ranges (:func:`stage`)
@@ -53,43 +55,6 @@ FUSED_STAGES = ("rep_keys", "kernel_seeds", "fused_ni", "ni_result+_metrics",
 #: INT CI with its mixture quantile, lies inside ``ni_result+_metrics``
 GRID_STAGES = ("rep_keys", "kernel_seeds", "fused_ni", "ni_result+_metrics",
                "int_ci")
-
-
-_stage_seconds: dict | None = None  # inside stage_host_seconds() only
-
-
-@contextlib.contextmanager
-def stage_host_seconds():
-    """Inside this block, the host seconds spent in each :func:`stage`
-    are summed by name into the dict it yields (the stages are
-    asynchronous, so this is their enqueue time)."""
-    global _stage_seconds
-    outer, _stage_seconds = _stage_seconds, {}
-    try:
-        yield _stage_seconds
-    finally:
-        _stage_seconds = outer
-
-
-@contextlib.contextmanager
-def _host_timed(name: str, into: dict):
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        into[name] = into.get(name, 0.0) + time.perf_counter() - t0
-
-
-def stage(name: str):
-    """A ``torch.profiler`` range named ``name`` around one stage of a
-    block while the profiler records, or the stage's host time inside
-    :func:`stage_host_seconds`; else nothing (a range costs microseconds
-    of host time, and the fused path is host-bound)."""
-    if torch.autograd._profiler_enabled():
-        return record_function(name)
-    if _stage_seconds is not None:
-        return _host_timed(name, _stage_seconds)
-    return contextlib.nullcontext()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -488,6 +453,11 @@ class RepBlockPipeline:
     per-rep outputs do not depend on the chunk width as they do under the
     JAX package's ``vmap``.
 
+    Ranges (``utils.profiling``): the constructor's work runs inside a
+    ``pipeline_init`` range (the warm run of ``aot=True`` outside it),
+    each block's keys inside ``rep_keys``, the accumulation inside
+    ``accumulate``, the one read inside the executor's ``host_read``.
+
     ``profiler``: an optional ``obs.prof.BlockProfiler``, used only under
     ``is not None``: it waits for the accumulators' device at a bounded
     cadence of blocks (``dpcorr_prof_syncs_total``, never a fetch); a
@@ -502,47 +472,51 @@ class RepBlockPipeline:
         from dpcorr_torch import plan as plan_mod
         from dpcorr_torch.obs import transfer as transfer_mod
 
-        self.profiler = profiler
-        #: the PRNG impl of the key-tree below ``key`` (None: the process
-        #: impl, ``rng.resolve_impl``); the root key's words must match it
-        self.impl = rng.resolve_impl(impl)
-        words = torch.as_tensor(key).shape[-1]
-        if words != rng.IMPLS[self.impl]:
-            raise ValueError(
-                f"the root key has {words} words; {self.impl!r} keys have "
-                f"{rng.IMPLS[self.impl]} (make it with rng.master_key("
-                f"impl={self.impl!r}))")
-        self.device = resolve_device(device)
-        self.rep_fn = rep_fn
-        self.out_len = int(out_len)
-        self.block_reps = int(block_reps)
-        self.chunk_size = int(chunk_size)
-        self._counters = counters if counters is not None \
-            else transfer_mod.default_counters()
-        self._ex = plan_mod.Executor(
-            placement, devices=devices, device=self.device,
-            counters=self._counters, observer=observer)
-        self.placement = self._ex.placement
-        if self.placement.name == "local":
-            homes = [self.device]
-        elif self.placement.name == "mesh":
-            homes = self.placement.devices
-            if self.block_reps % len(homes):
+        with stage("pipeline_init"):
+            self.profiler = profiler
+            #: the PRNG impl of the key-tree below ``key`` (None: the process
+            #: impl, ``rng.resolve_impl``); the root key's words must match it
+            self.impl = rng.resolve_impl(impl)
+            words = torch.as_tensor(key).shape[-1]
+            if words != rng.IMPLS[self.impl]:
                 raise ValueError(
-                    f"block_reps={self.block_reps} must split evenly over "
-                    f"the {len(homes)}-device mesh: every device keeps an "
-                    "equal shard of the block and its own accumulator")
-        else:
-            raise ValueError(
-                f"RepBlockPipeline supports 'local' and 'mesh' "
-                f"placements, got {self.placement.name!r}")
-        per = self.block_reps // len(homes)
-        self._shards = [_Shard(dev, s * per, per, key, self.out_len)
-                        for s, dev in enumerate(homes)]
-        sig = {"kernel": "rep_block", "placement": self.placement.name,
-               "devices": len(homes), "block_reps": self.block_reps,
-               "chunk_size": self.chunk_size, "out_len": self.out_len}
+                    f"the root key has {words} words; {self.impl!r} keys have "
+                    f"{rng.IMPLS[self.impl]} (make it with rng.master_key("
+                    f"impl={self.impl!r}))")
+            self.device = resolve_device(device)
+            self.rep_fn = rep_fn
+            self.out_len = int(out_len)
+            self.block_reps = int(block_reps)
+            self.chunk_size = int(chunk_size)
+            self._counters = counters if counters is not None \
+                else transfer_mod.default_counters()
+            self._ex = plan_mod.Executor(
+                placement, devices=devices, device=self.device,
+                counters=self._counters, observer=observer)
+            self.placement = self._ex.placement
+            if self.placement.name == "local":
+                homes = [self.device]
+            elif self.placement.name == "mesh":
+                homes = self.placement.devices
+                if self.block_reps % len(homes):
+                    raise ValueError(
+                        f"block_reps={self.block_reps} must split evenly over "
+                        f"the {len(homes)}-device mesh: every device keeps an "
+                        "equal shard of the block and its own accumulator")
+            else:
+                raise ValueError(
+                    f"RepBlockPipeline supports 'local' and 'mesh' "
+                    f"placements, got {self.placement.name!r}")
+            per = self.block_reps // len(homes)
+            self._shards = [_Shard(dev, s * per, per, key, self.out_len)
+                            for s, dev in enumerate(homes)]
+            sig = {"kernel": "rep_block", "placement": self.placement.name,
+                   "devices": len(homes), "block_reps": self.block_reps,
+                   "chunk_size": self.chunk_size, "out_len": self.out_len}
+            if not aot:
+                self._unit = self._ex.lazy_unit(rep_fn, signature=sig)
         if aot:
+            # outside pipeline_init: the warm run opens the body's stages
             warm = torch.zeros(min(self.chunk_size, per), words,
                                dtype=torch.int64, device=homes[0])
             self._unit = self._ex.prepare(
@@ -550,8 +524,6 @@ class RepBlockPipeline:
                  self.block_reps, self.chunk_size, self.out_len,
                  id(rep_fn)), lambda: rep_fn, (warm,), signature=sig,
                 cache=False)
-        else:
-            self._unit = self._ex.lazy_unit(rep_fn, signature=sig)
         #: device-to-host reads made by run(): exactly one per call (also
         #: counted as ``fetches`` in the transfer counters)
         self.fetches = 0

@@ -54,6 +54,12 @@ result, and the grid's stamp stays true. Results on rbg keys are
 therefore statistically, not bitwise, comparable to the JAX package's
 vmapped pipeline; they are bit-equal to its unbatched draws.
 
+Ranges: every public function that derives keys or draws runs inside a
+``keytree`` range while ``torch.profiler`` records (or inside
+``utils.profiling.stage_host_seconds``), opened only by the outermost
+such call on the thread, so a draw that derives keys, or a batch of rbg
+keys drawn key by key, is one range. Otherwise a call pays one check.
+
 Representation: a key is an int64 tensor whose last axis holds the
 uint32 words, shape ``(..., 2)`` or ``(..., 4)``. torch's uint32 coverage
 is thin, so the words live in int64 and every add and shift is masked
@@ -70,8 +76,14 @@ import zlib
 import numpy as np
 import torch
 
+from dpcorr_torch.utils.profiling import outermost
+
 # Same master seed as the reference (vert-cor.R:16).
 MASTER_SEED: int = 2025
+#: the range each public derivation and draw opens while the profiler
+#: records (``utils.profiling.outermost``: one range for the outermost
+#: call on the thread, none for the calls it makes)
+KEYTREE = "keytree"
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -129,6 +141,7 @@ def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
     return ((v << r) | (v >> (32 - r))) & _M32
 
 
+@outermost(KEYTREE)
 def threefry2x32(key: torch.Tensor, x0: torch.Tensor,
                  x1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The Threefry-2x32 block cipher (20 rounds), as ``jax.random``
@@ -161,6 +174,7 @@ def _as_key(key) -> torch.Tensor:
     return key.to(torch.int64) & _M32
 
 
+@outermost(KEYTREE)
 def master_key(seed: int = MASTER_SEED, device=None, *,
                impl: str | None = None) -> torch.Tensor:
     """Root of the key-tree, ``jax.random.key(seed, impl=impl)``'s words
@@ -209,6 +223,7 @@ def _rbg_bits(keys: torch.Tensor, n_words: int, offset: int = 0,
         tuple(keys.shape[:-1]) + (int(n_words),))
 
 
+@outermost(KEYTREE)
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``. threefry2x32: threefry(key, (0, data));
     rbg: that on each two-word half, both halves in one call; unsafe_rbg:
@@ -262,6 +277,7 @@ def _philox_words(key4, n_blocks: int, offset: int = 0) -> tuple[int, ...]:
     return tuple(out)
 
 
+@outermost(KEYTREE)
 def fold_in_words(words: tuple[int, ...], data) -> tuple[int, ...]:
     """:func:`fold_in` on a key held as two or four host ints, for key
     chains short enough that device launches would cost more than the
@@ -285,11 +301,13 @@ def fold_in_words(words: tuple[int, ...], data) -> tuple[int, ...]:
     return tuple(a ^ b for a, b in zip(w, _philox_words((0, d, 0, d), 1, 9)))
 
 
+@outermost(KEYTREE)
 def design_key(key: torch.Tensor, design_index) -> torch.Tensor:
     """Key for one design point (vert-cor.R:531's per-task seed)."""
     return fold_in(key, design_index)
 
 
+@outermost(KEYTREE)
 def rep_keys_slice(key: torch.Tensor, start, n_reps: int) -> torch.Tensor:
     """Keys ``[start, start + n_reps)`` of the :func:`rep_keys` stream,
     shape ``key.shape[:-1] + (n_reps, words)``, made on the key's device:
@@ -298,6 +316,7 @@ def rep_keys_slice(key: torch.Tensor, start, n_reps: int) -> torch.Tensor:
     return fold_in(_as_key(key)[..., None, :], idx)
 
 
+@outermost(KEYTREE)
 def rep_keys(key: torch.Tensor, n_reps: int) -> torch.Tensor:
     """Per-replication keys, shape ``(n_reps, words)`` for one key
     (vert-cor.R:364, 392); ``(P, n_reps, words)`` for P keys. Under
@@ -312,11 +331,13 @@ def stream_index(name: str) -> int:
     return zlib.crc32(name.encode()) & 0x7FFFFFFF
 
 
+@outermost(KEYTREE)
 def stream(key: torch.Tensor, name: str) -> torch.Tensor:
     """Named substream: stable across code movement, unlike split order."""
     return fold_in(key, stream_index(name))
 
 
+@outermost(KEYTREE)
 def party_root(key: torch.Tensor, role: str,
                mode: str = "replay") -> torch.Tensor:
     """Root key for one protocol party (:mod:`dpcorr_torch.protocol`).
@@ -337,6 +358,7 @@ def party_root(key: torch.Tensor, role: str,
                      "expected 'replay' or 'hardened'")
 
 
+@outermost(KEYTREE)
 def column_root(key: torch.Tensor, label: str) -> torch.Tensor:
     """Root key for one federated column (:mod:`dpcorr_torch.protocol.
     matrix`): the named subtree ``"protocol/col/<label>"``, so a column's
@@ -372,6 +394,7 @@ def keys_from_data(data, impl: str | None = None) -> torch.Tensor:
     return key
 
 
+@outermost(KEYTREE)
 def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` on each key alone. A
     threefry2x32 key uses the partitionable counter layout: element i of
@@ -397,6 +420,7 @@ def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
     return fbits.view(torch.float32) - 1.0
 
 
+@outermost(KEYTREE)
 def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` in f32: ``max(min, f·(max−min)+min)`` with
@@ -411,6 +435,7 @@ def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
     return torch.clamp_min(u, float(lo))
 
 
+@outermost(KEYTREE)
 def chunk_key(key: torch.Tensor, chunk_index) -> torch.Tensor:
     """Key for one streaming n-chunk (``models/estimators/streaming.py``):
     ``fold_in(key, chunk_index)``, the same derivation as
@@ -418,6 +443,7 @@ def chunk_key(key: torch.Tensor, chunk_index) -> torch.Tensor:
     return fold_in(key, chunk_index)
 
 
+@outermost(KEYTREE)
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: with the partitionable layout subkey i is
     threefry(key, (0, i)), which is ``fold_in(key, i)``, on each half of
@@ -432,6 +458,7 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
                                                    device=key.device))
 
 
+@outermost(KEYTREE)
 def bernoulli(key: torch.Tensor, p, shape) -> torch.Tensor:
     """``jax.random.bernoulli``: f32 uniform < p, with p in f32. A tensor
     ``p`` carries the key's leading axes."""
@@ -442,6 +469,7 @@ def bernoulli(key: torch.Tensor, p, shape) -> torch.Tensor:
     return u < float(np.float32(p))
 
 
+@outermost(KEYTREE)
 def exponential(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.exponential`` in f32: −log1p(−u). Within an ulp or two
     of JAX's (the last ulp of log1p differs between torch and XLA)."""
@@ -452,6 +480,7 @@ _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2 = float(np.float32(np.sqrt(2.0)))
 
 
+@outermost(KEYTREE)
 def normal(key: torch.Tensor, shape) -> torch.Tensor:
     """Standard normal f32 draws, shape ``key.shape[:-1] + shape``: jax's
     construction √2·erfinv(u) with u ~ U(nextafter(−1, 0), 1) drawn bit
@@ -468,6 +497,7 @@ def permutation_rounds(n: int) -> int:
                        / np.log(np.iinfo(np.uint32).max)))
 
 
+@outermost(KEYTREE)
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.permutation(key, n)`` for an int n, bit for bit: each
     round splits the key, draws n 32-bit sort keys from the subkey and
@@ -489,6 +519,7 @@ def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
 _I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
 
 
+@outermost(KEYTREE)
 def randint(key: torch.Tensor, shape, minval: int,
             maxval: int) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval)`` in its default
@@ -512,6 +543,7 @@ def randint(key: torch.Tensor, shape, minval: int,
     return (minval + (offset & _M32) % span - _I32_MIN) % 2**32 + _I32_MIN
 
 
+@outermost(KEYTREE)
 def choice(key: torch.Tensor, n: int, shape) -> torch.Tensor:
     """``jax.random.choice(key, n, shape, replace=True)`` with no ``p``:
     ``randint(key, shape, 0, n)``, int64 indices."""
@@ -520,6 +552,7 @@ def choice(key: torch.Tensor, n: int, shape) -> torch.Tensor:
     return randint(key, shape, 0, n)
 
 
+@outermost(KEYTREE)
 def kernel_seeds(keys: torch.Tensor) -> torch.Tensor:
     """Per-replication (..., 2) int32 seed words for the fused kernel's
     in-kernel Philox generator, derived from the key-tree: for a

@@ -110,7 +110,10 @@ def test_pipeline_marks_its_stages():
     with sim.stage_host_seconds() as seconds:
         timed = pipe.run(2)
     assert timed == plain
-    assert set(seconds) == {"rep_keys", "accumulate"}
+    # the key-tree's own range (the unfused body draws outside any stage)
+    # and the run's one read are timed too
+    assert set(seconds) == {"rep_keys", "accumulate", "keytree",
+                            "host_read"}
     assert all(v > 0 for v in seconds.values())
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
