@@ -393,6 +393,21 @@ north-star workload (n = 10⁴ Gaussian pair → NI sign-batch estimate + CI →
         draw), its bound (``utils.roofline.rbg_bits_ops`` and
         ``rbg_bits_bytes``: int64 words at 3.35 TB/s against its int32
         operations), its plain version's ms on the card, its ``ptxas``.
+22. HRS, serving, the stream, the protocol and the federation on the
+    rbg-family key-trees, each reading the rbg_bits and K1 launch counts
+    around itself.
+23. the key-tree's threefry2x32 kernel (``ops/threefry.py`` →
+    ``csrc/threefry.cu``), whose launches phases 4-5 count on the main
+    path (both entries must launch there):
+    (a) bits bit-equal to ``threefry_bits_plain`` on the same card keys
+        at 2¹⁴ replication keys × 2·10⁴ words (the unfused block's
+        draw), and hash bit-equal to ``threefry_hash_plain`` on the
+        same card operands at the fused path's 2²⁰ folds (one key over
+        the replication indices), each call one launch;
+    (b) each entry's ms at those shapes against its bound (the
+        definition's rotations and xors, 41 a bits word and 40 a hash,
+        at the integer ALU's 64 a clock per SM; the int64 stores at
+        3.35 TB/s), its plain version's ms on the card, its ``ptxas``.
 
 Every failure raises. The last line is the device record; before it come
 the per-kernel JSON record and the card line. Run from the repository
@@ -4079,7 +4094,12 @@ def roofline_trace_phase(card: str, key, phase7_bound: float, rps: float,
     log_dir = f"{work}/trace"
     pipe = RepBlockPipeline(fused_ni_rep_fn(N, RHO, *EPS, ALPHA), 3, key=key,
                             block_reps=FUSED_BLOCK, chunk_size=FUSED_BLOCK)
-    pipe.run(1, start_block=20_000)  # warm
+    # The first profiler session after 17e loses the card's first few
+    # dozen activity records (on an H100 its trace held only the block's
+    # last 18-25 kernels, without K1, which runs early in the block; a
+    # second session held all ~52): the warm-up block runs under a session
+    # of its own, which takes that loss.
+    launches_of(lambda: pipe.run(1, start_block=20_000))  # warm
     trace.configure(spans)
     try:
         with profiling.trace(log_dir):
@@ -5776,13 +5796,116 @@ def rbg_paths_phase(card: str, cols, x, y) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 23 ----
+THREEFRY_KEYS = 1 << 14        # 23: the unfused block's keys
+THREEFRY_WORDS = 2 * N         # words a replication draws for its data
+THREEFRY_FOLDS = FUSED_BLOCK * FUSED_BLOCKS  # the fused path's rep keys
+#: int32 operations of the definition that only the integer ALU runs:
+#: the 20 rotations and 20 xors of the rounds, and bits' output xor
+THREEFRY_ALU_OPS = {"threefry_bits": 41, "threefry_hash": 40}
+
+
+def threefry_cases():
+    """The main path's operands on the card: 2¹⁴ replication keys for
+    the bits entry, and the master key's words over 2²⁰ replication
+    indices for the hash entry (``rep_keys`` of the fused path)."""
+    from dpcorr_torch.utils import rng
+
+    key = rng.master_key(device="cuda")
+    keys = rng.rep_keys(key, THREEFRY_KEYS).contiguous()
+    idx = torch.arange(THREEFRY_FOLDS, device="cuda")
+    return keys, (key[0], key[1], 0, idx)
+
+
+def threefry_against_plain(card: str) -> dict:
+    """Phase 23a: both entries bit-equal to their plain versions on the
+    same card operands, each call counted as one launch."""
+    from dpcorr_torch.ops import threefry
+
+    keys, hash_ops = threefry_cases()
+    cases = {}
+    for name, kernel, plain in (
+            ("threefry_bits",
+             lambda: threefry.threefry_bits(keys, THREEFRY_WORDS),
+             lambda: threefry.threefry_bits_plain(keys, THREEFRY_WORDS)),
+            ("threefry_hash", lambda: threefry.threefry_hash(*hash_ops),
+             lambda: threefry.threefry_hash_plain(*hash_ops))):
+        before = threefry.KERNEL_LAUNCHES[name]
+        got = kernel()
+        launched = threefry.KERNEL_LAUNCHES[name] - before
+        want = plain()
+        # dpcorr-lint: ignore[sync-in-loop] — a check, case by case: the values are needed on the host
+        err = int((got - want).abs().max())
+        del want
+        print(f"[{card}] 23a {name} {tuple(got.shape)}: card bit-equal to "
+              f"plain {err == 0}; launches {launched}", flush=True)
+        if err or launched != 1:
+            raise RuntimeError(f"23a: {name} disagrees with its plain "
+                               f"version by {err}, or launched {launched} "
+                               f"times for one call")
+        cases[name] = {"max_abs_err": err, "shape": list(got.shape)}
+    return cases
+
+
+def threefry_times(card: str) -> dict:
+    """Phase 23b: each entry's ms at 23a's shapes, its bound and its
+    plain version's ms on the card."""
+    from dpcorr_torch.ops import _build, threefry
+    from dpcorr_torch.utils.device import time_cuda
+    from dpcorr_torch.utils.roofline import CLOCK_HZ, HBM_BYTES_PER_S, SMS
+
+    keys, hash_ops = threefry_cases()
+    calls = {
+        "threefry_bits": (
+            lambda: threefry.threefry_bits(keys, THREEFRY_WORDS),
+            lambda: threefry.threefry_bits_plain(keys, THREEFRY_WORDS),
+            THREEFRY_KEYS * THREEFRY_WORDS,
+            THREEFRY_KEYS * (2 + THREEFRY_WORDS) * 8),
+        "threefry_hash": (
+            lambda: threefry.threefry_hash(*hash_ops),
+            lambda: threefry.threefry_hash_plain(*hash_ops),
+            THREEFRY_FOLDS, THREEFRY_FOLDS * (8 + 2 * 8)),
+    }
+    ptxas = _build.ptxas_report(_build.log_path("threefry").read_text())
+    out = {"ptxas": list(ptxas.values())}
+    before = dict(threefry.KERNEL_LAUNCHES)
+    for name, (kernel, plain, words, bytes_) in calls.items():
+        ms = time_cuda(kernel, 20)
+        plain_ms = time_cuda(plain, 3)
+        alu_ms = 1e3 * words * THREEFRY_ALU_OPS[name] / (64 * SMS * CLOCK_HZ)
+        bytes_ms = 1e3 * bytes_ / HBM_BYTES_PER_S
+        bound = max(alu_ms, bytes_ms)
+        by = "operations" if alu_ms >= bytes_ms else "bytes"
+        print(f"[{card}] 23b {name}, {words} words: {ms:.4f} ms "
+              f"({bound / ms:.1%} of its bound {bound:.4f} ms by {by}; "
+              f"ALU {alu_ms:.4f} ms, bytes {bytes_ms:.4f} ms); plain "
+              f"version {plain_ms:.4f} ms", flush=True)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "alu_bound_ms": alu_ms,
+                     "bytes_bound_ms": bytes_ms, "words": words}
+    threefry.KERNEL_LAUNCHES.update(before)  # timing launches do not count
+    print(f"[{card}] 23b threefry ptxas {ptxas}", flush=True)
+    return out
+
+
+def threefry_phase(card: str) -> dict:
+    """Phase 23: the key-tree's threefry2x32 kernel."""
+    out = {}
+    for label, fn in (("23a", lambda: threefry_against_plain(card)),
+                      ("23b", lambda: threefry_times(card))):
+        t0 = time.perf_counter()
+        out[label] = fn()
+        out[label + " s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
     from dpcorr_torch.grid import GridConfig
-    from dpcorr_torch.ops import _build, fused_ni, ladder, rbg
+    from dpcorr_torch.ops import _build, fused_ni, ladder, rbg, threefry
     from dpcorr_torch.sim import (
         DETAIL_FIELDS,
         SimConfig,
@@ -5829,10 +5952,11 @@ def main() -> int:
     # ---- 3. kernel against its plain version (these launches do not count)
     worst_err = compare_kernel_with_plain()
 
-    # ---- 4-5. the main path, unfused then fused: every launch count (K1's
-    # and the ladder's) is set to 0 just before and read just after
+    # ---- 4-5. the main path, unfused then fused: every launch count (K1's,
+    # the ladder's and the key-tree's) is set to 0 just before and read
+    # just after
     for counts in (fused_ni.KERNEL_LAUNCHES, ladder.KERNEL_LAUNCHES,
-                   rbg.KERNEL_LAUNCHES):
+                   rbg.KERNEL_LAUNCHES, threefry.KERNEL_LAUNCHES):
         for name in counts:
             counts[name] = 0
     key = rng.master_key(device="cuda")
@@ -5851,13 +5975,18 @@ def main() -> int:
     launches = dict(fused_ni.KERNEL_LAUNCHES)
     ladder_main = dict(ladder.KERNEL_LAUNCHES)
     rbg_threefry = dict(rbg.KERNEL_LAUNCHES)
+    tf_main = dict(threefry.KERNEL_LAUNCHES)
     print(f"[{card}] fused pipeline: {json.dumps(fused)}", flush=True)
     # dpcorr-lint: ignore[sync-in-loop] — a check, case by case: the values are needed on the host
     d = {f: v.double().mean().item() for f, v in zip(DETAIL_FIELDS, detail)}
     print(f"[{card}] sim_detail_fused {DETAIL_REPS} reps in {detail_s:.3f} s:"
           f" {json.dumps(d)}", flush=True)
     print(f"launches in the main path's run: {launches}, the ladder "
-          f"{ladder_main}, rbg_bits {rbg_threefry}", flush=True)
+          f"{ladder_main}, rbg_bits {rbg_threefry}, threefry {tf_main}",
+          flush=True)
+    if not all(tf_main.values()):
+        raise RuntimeError(f"the threefry main path launched the threefry "
+                           f"kernel {tf_main} times: both entries must run")
     if rbg_threefry["rbg_bits"]:
         raise RuntimeError(f"the threefry main path launched rbg_bits "
                            f"{rbg_threefry} times")
@@ -6207,6 +6336,16 @@ def main() -> int:
           f"{json.dumps(seconds)}; rbg_bits launches per path "
           f"{json.dumps(paths['path_launches'])}", flush=True)
 
+    # ---- 23. the key-tree's threefry2x32 kernel against its plain
+    # version at the main path's shapes, and its times
+    t23 = time.perf_counter()
+    tf_parts = threefry_phase(card)
+    seconds = {k: round(v, 1) for k, v in tf_parts.items()
+               if k.endswith(" s")}
+    print(f"[{card}] phase 23: {time.perf_counter() - t23:.1f} s "
+          f"{json.dumps(seconds)}", flush=True)
+    tf_t = tf_parts["23b"]
+
     levels = lad["20b"]
     for name, t in levels.items():
         t["ptxas"] = lad["20a ptxas"].get(name)
@@ -6306,6 +6445,25 @@ def main() -> int:
         "turns_reps_per_s": rbg_parts["21c"]["reps_per_s"],
         "per_block": rbg_parts["21c"]["per_block"],
         "path_launches": paths["path_launches"],
+    }, {
+        "name": "threefry",
+        "route": "cuda",
+        "source": "dpcorr_torch/csrc/threefry.cu",
+        "replaces": "dpcorr/utils/rng.py (threefry_2x32 under jax.random "
+                    "on threefry2x32 keys; integer ops under XLA)",
+        "launches": sum(tf_main.values()) + len(tf_parts["23a"]),
+        "main_path_launches": sum(tf_main.values()),
+        "main_path_launches_by_entry": tf_main,
+        "max_abs_err": max(v["max_abs_err"]
+                           for v in tf_parts["23a"].values()),
+        "ms": tf_t["threefry_bits"]["ms"],
+        "plain_ms": tf_t["threefry_bits"]["plain_ms"],
+        "bound_ms": tf_t["threefry_bits"]["bound_ms"],
+        "bound_by": tf_t["threefry_bits"]["bound_by"],
+        "library_ms": None,
+        "shape": [THREEFRY_KEYS, THREEFRY_WORDS],
+        "hash": {**tf_t["threefry_hash"], "library_ms": None},
+        "ptxas": tf_t["ptxas"],
     }]}
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(record), flush=True)

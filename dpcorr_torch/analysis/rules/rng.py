@@ -1,7 +1,7 @@
 """RNG hygiene: the named-stream key-tree discipline (utils.rng).
 
 Counterpart of ``dpcorr.analysis.rules.rng`` over the port's key-tree
-(threefry2x32 in torch ops, bit-equal to the JAX package's). The
+(threefry2x32, bit-equal to the JAX package's). The
 determinism *and* privacy contract is the key-tree ``master → design
 point → replication → named substream``: every noise draw has a
 collision-resistant address and no key is ever consumed twice

@@ -62,9 +62,12 @@ keys drawn key by key, is one range. Otherwise a call pays one check.
 
 Representation: a key is an int64 tensor whose last axis holds the
 uint32 words, shape ``(..., 2)`` or ``(..., 4)``. torch's uint32 coverage
-is thin, so the words live in int64 and every add and shift is masked
-back to 32 bits. Every function is vectorised over the leading key axes,
-so a whole replication block's keys are derived on the device that holds
+is thin, so the words live in int64. Threefry runs in
+``dpcorr_torch.ops.threefry``: on the card its rounds run in registers in
+one launch (``csrc/threefry.cu``: a batch of folds, or a batch of keys'
+bits), on the CPU as int64 torch ops with every add and shift masked back
+to 32 bits. Every function is vectorised over the leading key axes, so a
+whole replication block's keys are derived on the device that holds
 them.
 """
 
@@ -76,6 +79,11 @@ import zlib
 import numpy as np
 import torch
 
+from dpcorr_torch.ops.threefry import (
+    threefry_bits,
+    threefry_hash,
+    threefry_words,
+)
 from dpcorr_torch.utils.profiling import outermost
 
 # Same master seed as the reference (vert-cor.R:16).
@@ -86,7 +94,6 @@ MASTER_SEED: int = 2025
 KEYTREE = "keytree"
 
 _M32 = 0xFFFFFFFF
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 #: the PRNG implementations of the key-tree, by JAX's names, and the
 #: words of one key under each
@@ -137,32 +144,16 @@ def resolve_impl(impl: str | None = None) -> str:
     return impl
 
 
-def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
-    return ((v << r) | (v >> (32 - r))) & _M32
-
-
 @outermost(KEYTREE)
-def threefry2x32(key: torch.Tensor, x0: torch.Tensor,
-                 x1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def threefry2x32(key: torch.Tensor, x0, x1) -> tuple[torch.Tensor,
+                                                      torch.Tensor]:
     """The Threefry-2x32 block cipher (20 rounds), as ``jax.random``
-    evaluates it. ``key`` is ``(..., 2)``; ``x0``/``x1`` broadcast against
+    evaluates it (``ops.threefry.threefry_hash``: the kernel on the card,
+    its plain version on the CPU). ``key`` is ``(..., 2)`` int64;
+    ``x0``/``x1``, int64 tensors or ints, broadcast against
     ``key[..., 0]``. Returns the two output words."""
-    return _threefry_words(key[..., 0], key[..., 1], x0, x1)
-
-
-def _threefry_words(k0, k1, x0, x1):
-    """Threefry-2x32 on the key's two words, which may be tensors or host
-    ints: the arithmetic is the same, masked to 32 bits either way."""
-    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
-    x0 = (x0 + ks[0]) & _M32
-    x1 = (x1 + ks[1]) & _M32
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & _M32
-            x1 = _rotl(x1, r) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & _M32
-        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
-    return x0, x1
+    y = threefry_hash(key[..., 0], key[..., 1], x0, x1)
+    return y[..., 0], y[..., 1]
 
 
 def _as_key(key) -> torch.Tensor:
@@ -234,18 +225,20 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     ``OverflowError`` as JAX does; a numpy scalar and an integer tensor
     are masked to their low 32 bits."""
     key = _as_key(key)
-    if not isinstance(data, torch.Tensor):  # made on the device: no copy
-        data = torch.full((), _host_data(data), dtype=torch.int64,
-                          device=key.device)
-    data = data.to(key.device, torch.int64) & _M32
+    if isinstance(data, torch.Tensor):  # threefry reads its low 32 bits
+        data = data.to(key.device, torch.int64)
+    else:  # a constant of the launch: no copy
+        data = _host_data(data)
     if key.shape[-1] == 2:
-        y0, y1 = threefry2x32(key, torch.zeros_like(data), data)
-        return torch.stack([y0, y1], dim=-1)
+        return threefry_hash(key[..., 0], key[..., 1], 0, data)
     if _four_word_impl() == "rbg":
         halves = key.unflatten(-1, (2, 2))
-        d = data[..., None]
-        y0, y1 = threefry2x32(halves, torch.zeros_like(d), d)
-        return torch.stack([y0, y1], dim=-1).flatten(-2)
+        d = data[..., None] if isinstance(data, torch.Tensor) else data
+        return threefry_hash(halves[..., 0], halves[..., 1], 0,
+                             d).flatten(-2)
+    if not isinstance(data, torch.Tensor):  # made on the device: no copy
+        data = torch.full((), data, dtype=torch.int64, device=key.device)
+    data = data & _M32
     zero = torch.zeros_like(data)
     seeds = torch.stack([zero, data, zero, data], dim=-1)
     return key ^ _rbg_bits(seeds, 4, offset=9)
@@ -291,13 +284,13 @@ def fold_in_words(words: tuple[int, ...], data) -> tuple[int, ...]:
     w = tuple(int(v) & _M32 for v in words)
     d = _host_data(data)
     if len(w) == 2:
-        return _threefry_words(w[0], w[1], 0, d)
+        return threefry_words(w[0], w[1], 0, d)
     if len(w) != 4:
         raise ValueError(f"fold_in_words takes a key of 2 (threefry2x32) "
                          f"or 4 (rbg, unsafe_rbg) words, got {len(w)}")
     if _four_word_impl() == "rbg":
-        return (_threefry_words(w[0], w[1], 0, d)
-                + _threefry_words(w[2], w[3], 0, d))
+        return (threefry_words(w[0], w[1], 0, d)
+                + threefry_words(w[2], w[3], 0, d))
     return tuple(a ^ b for a, b in zip(w, _philox_words((0, d, 0, d), 1, 9)))
 
 
@@ -312,7 +305,8 @@ def rep_keys_slice(key: torch.Tensor, start, n_reps: int) -> torch.Tensor:
     """Keys ``[start, start + n_reps)`` of the :func:`rep_keys` stream,
     shape ``key.shape[:-1] + (n_reps, words)``, made on the key's device:
     a batch of keys ``(P, words)`` gives each one's stream in one call."""
-    idx = torch.arange(int(n_reps), device=key.device) + int(start)
+    idx = torch.arange(int(start), int(start) + int(n_reps),
+                       device=key.device)
     return fold_in(_as_key(key)[..., None, :], idx)
 
 
@@ -399,8 +393,9 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` on each key alone. A
     threefry2x32 key uses the partitionable counter layout: element i of
     the row-major flattened shape is y0 ^ y1 of threefry(key, (i >> 32,
-    i & 0xFFFFFFFF)). An rbg-family key draws XLA's Philox words (module
-    docstring), one kernel launch for all the keys on the card. Output
+    i & 0xFFFFFFFF)) (``ops.threefry.threefry_bits``). An rbg-family key
+    draws XLA's Philox words (module docstring). Either way all the keys
+    draw in one kernel launch on the card. Output
     shape is ``key.shape[:-1] + shape``, values in [0, 2³²) held in
     int64."""
     key = _as_key(key)
@@ -408,10 +403,8 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     size = int(np.prod(shape, dtype=np.int64))
     if key.shape[-1] == 4:
         return _rbg_bits(key, size).reshape(tuple(key.shape[:-1]) + shape)
-    idx = torch.arange(size, device=key.device)
-    lead = key.shape[:-1]
-    y0, y1 = threefry2x32(key.unsqueeze(-2), (idx >> 32) & _M32, idx & _M32)
-    return (y0 ^ y1).reshape(tuple(lead) + shape)
+    return threefry_bits(key.reshape(-1, 2), size).reshape(
+        tuple(key.shape[:-1]) + shape)
 
 
 def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:

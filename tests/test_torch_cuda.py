@@ -1185,3 +1185,124 @@ def test_rbg_paths_on_the_card(cuda, impl, monkeypatch):
                 <= 1e-5, (meth, f)
     assert rbg.KERNEL_LAUNCHES["rbg_bits"] > 0
     assert dict(fused_ni.KERNEL_LAUNCHES) == k1
+
+
+def _threefry_words(shape, seed):
+    """Random uint32 words in int64, the first with the top bit set."""
+    w = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 2**32, shape, dtype=np.int64))
+    w.view(-1)[:1] = 0xFFFFFFFF
+    return w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_keys,n_words", [
+    (1, 1), (1, 20_000), (2**14, 20_000), (2**14, 7), (3, 1029),
+    (257, 13), (70_000, 3), (2, 2**17 + 5)])
+def test_threefry_bits_kernel_bit_equal_to_plain(cuda, n_keys, n_words):
+    """The bits kernel (``ops/threefry.py``) equals its plain version for
+    one key and 2¹⁴ (the unfused block's draw), rows that do not divide
+    a thread's words or a block's, more keys than the grid's y extent,
+    and keys with the top bit set (the plain version runs on the card at
+    the unfused shape, on the CPU otherwise)."""
+    from dpcorr_torch.ops import threefry
+
+    keys = _threefry_words((n_keys, 2), n_keys + n_words)
+    keys[-1] = torch.tensor([0x80000000, 0xFFFFFFFF])
+    before = threefry.KERNEL_LAUNCHES["threefry_bits"]
+    got = threefry.threefry_bits(keys.to(cuda), n_words)
+    torch.cuda.synchronize()
+    assert threefry.KERNEL_LAUNCHES["threefry_bits"] == before + 1
+    big = n_keys * n_words > 2**26
+    want = threefry.threefry_bits_plain(keys.to(cuda) if big else keys,
+                                        n_words)
+    assert torch.equal(got, want.to(cuda))
+
+
+#: operand shapes (k0, k1, x0, x1) for the hash kernel: fold_in of one
+#: key over 2²⁰ indices, a key batch by a host scalar, rep streams of a
+#: key batch, rbg halves, counters with x0 ≠ 0 everywhere, a 0-d call
+HASH_CASES = [
+    ((), (), 0, (2**20,)),
+    ((2**14,), (2**14,), 0, 1_234_567),
+    ((5, 1), (5, 1), 0, (1000,)),
+    ((300, 2), (300, 2), 0, (300, 1)),
+    ((7, 1, 3), (7, 1, 3), (1, 9, 1), (9, 3)),
+    ((), (), 5, 7),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HASH_CASES, ids=str)
+def test_threefry_hash_kernel_bit_equal_to_plain(cuda, case):
+    """The hash kernel equals its plain version on strided key words,
+    broadcast counters, constants, words with the top bit set and
+    counters whose x0 is not 0."""
+    from dpcorr_torch.ops import threefry
+
+    kshape = case[0]
+    keys = _threefry_words((*kshape, 2), len(kshape))
+    ops = [keys[..., 0], keys[..., 1]]
+    for i, s in enumerate(case[2:]):
+        ops.append(_threefry_words(s, 10 + i) if isinstance(s, tuple)
+                   else s)
+    card = [o.to(cuda) if isinstance(o, torch.Tensor) else o for o in ops]
+    before = threefry.KERNEL_LAUNCHES["threefry_hash"]
+    got = threefry.threefry_hash(*card)
+    torch.cuda.synchronize()
+    assert threefry.KERNEL_LAUNCHES["threefry_hash"] == before + 1
+    assert torch.equal(got.cpu(), threefry.threefry_hash_plain(*ops))
+
+
+@pytest.mark.cuda
+def test_threefry_kernels_zero_sizes_launch_nothing(cuda):
+    from dpcorr_torch.ops import threefry
+
+    before = dict(threefry.KERNEL_LAUNCHES)
+    keys = torch.zeros(4, 2, dtype=torch.int64, device=cuda)
+    assert threefry.threefry_bits(keys, 0).shape == (4, 0)
+    assert threefry.threefry_bits(keys[:0], 9).shape == (0, 9)
+    assert threefry.threefry_hash(keys[:0, 0], keys[:0, 1], 0,
+                                  3).shape == (0, 2)
+    assert threefry.KERNEL_LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["threefry2x32", "rbg"])
+def test_threefry_key_tree_card_equals_cpu(cuda, impl, monkeypatch):
+    """The key-tree's threefry paths on the card (every one through the
+    kernels) equal the CPU's: fold_in, rep_keys_slice, split, random_bits,
+    uniform, choice, permutation and kernel_seeds, and on rbg keys the
+    threefry fold_in of each half."""
+    from dpcorr_torch.ops import threefry
+
+    monkeypatch.setenv("DPCORR_PRNG", impl)
+    cpu = rng.design_key(rng.master_key(11), 2**31 + 5)
+    card = cpu.to(cuda)
+    before = dict(threefry.KERNEL_LAUNCHES)
+    pairs = {
+        "fold_in": (rng.fold_in(card, 0xFFFFFFFF), rng.fold_in(cpu,
+                                                             0xFFFFFFFF)),
+        "rep_keys_slice": (rng.rep_keys_slice(card, 2**32 - 40, 64),
+                           rng.rep_keys_slice(cpu, 2**32 - 40, 64)),
+        "split": (rng.split(card, 5), rng.split(cpu, 5)),
+        "kernel_seeds": (rng.kernel_seeds(rng.rep_keys(card, 4096)),
+                         rng.kernel_seeds(rng.rep_keys(cpu, 4096))),
+    }
+    if impl == "threefry2x32":
+        keys = (rng.rep_keys(card, 300), rng.rep_keys(cpu, 300))
+        pairs.update({
+            "random_bits": tuple(rng.random_bits(k, (3, 1001))
+                                 for k in keys),
+            "uniform": tuple(rng.uniform(rng.stream(k, "dgp"), (500,),
+                                         -3.0, 5.5) for k in keys),
+            "choice": tuple(rng.choice(k, 19_433, (777,)) for k in keys),
+            "permutation": tuple(rng.permutation(k[:8], 5000)
+                                 for k in keys),
+        })
+    for name, (got, want) in pairs.items():
+        assert torch.equal(got.cpu(), want), name
+    assert threefry.KERNEL_LAUNCHES["threefry_hash"] > before[
+        "threefry_hash"]
+    assert (threefry.KERNEL_LAUNCHES["threefry_bits"]
+            > before["threefry_bits"]) == (impl == "threefry2x32")

@@ -272,3 +272,121 @@ def test_fold_in_python_scalars_out_of_range_raise_as_jax(data):
         rng.fold_in(rng.master_key(7), data)
     with pytest.raises(OverflowError, match="out of bounds for uint32"):
         rng.fold_in_words((0, 7), data)
+
+
+# ------------------------------------------------ the threefry op itself ----
+
+#: Random123's known answers for threefry2x32-20, the vectors JAX's own
+#: test holds: (key, counter) → (y0, y1)
+THREEFRY_KAT = [
+    ((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+    ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF),
+     (0x1CB996FC, 0xBB002BE7)),
+    ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+     (0xC4923A9C, 0x483DF7A0)),
+]
+
+
+@pytest.mark.parametrize("key,ctr,want", THREEFRY_KAT)
+def test_threefry_known_answers_through_the_plain_path(key, ctr, want):
+    """The plain rounds on host ints, and the op's CPU path on tensors
+    (its hash and, at counter (0, i), its bits), give Random123's
+    answers."""
+    from dpcorr_torch.ops import threefry
+
+    assert threefry.threefry_words(*key, *ctr) == want
+    t = [torch.tensor(v, dtype=torch.int64) for v in (*key, *ctr)]
+    assert threefry.threefry_hash(*t).tolist() == list(want)
+    assert rng.threefry2x32(torch.tensor(key), t[2], t[3]) == want
+    if ctr[0] == 0:  # word i of bits is y0 ^ y1 at counter (0, i)
+        bits = threefry.threefry_bits(torch.tensor([key]), ctr[1] + 1)
+        assert int(bits[0, -1]) == want[0] ^ want[1]
+
+
+def _i64(*shape):
+    return torch.zeros(shape, dtype=torch.int64)
+
+
+@pytest.mark.parametrize("call,err,match", [
+    (lambda t: t.threefry_bits(_i64(3, 2).int(), 4), TypeError, "int64"),
+    (lambda t: t.threefry_bits(_i64(3, 4), 4), ValueError, r"\(K, 2\)"),
+    (lambda t: t.threefry_bits(_i64(2), 4), ValueError, r"\(K, 2\)"),
+    (lambda t: t.threefry_bits(_i64(3, 2), -1), ValueError, ">= 0"),
+    (lambda t: t.threefry_bits(_i64(3, 2).to("meta"), 4), ValueError,
+     "cuda or cpu"),
+    (lambda t: t.threefry_hash(_i64(3).int(), _i64(3), 0, 1), TypeError,
+     "int64"),
+    (lambda t: t.threefry_hash(_i64(3), _i64(3), 0.5, 1), TypeError,
+     "float"),
+    (lambda t: t.threefry_hash(1, 2, 3, 4), TypeError, "one tensor"),
+    (lambda t: t.threefry_hash(_i64(3), _i64(4), 0, 1), ValueError,
+     "broadcast"),
+    (lambda t: t.threefry_hash(_i64(3), _i64(3).to("meta"), 0, 1),
+     ValueError, "different devices"),
+    (lambda t: t.threefry_hash(_i64(3).to("meta"), 0, 0, 1), ValueError,
+     "cuda or cpu"),
+], ids=["bits-dtype", "bits-words", "bits-rank", "bits-negative",
+        "bits-device", "hash-dtype", "hash-float", "hash-no-tensor",
+        "hash-broadcast", "hash-devices", "hash-device"])
+def test_threefry_wrapper_refuses_what_the_kernel_does_not_take(call, err,
+                                                                match):
+    from dpcorr_torch.ops import threefry
+
+    with pytest.raises(err, match=match):
+        call(threefry)
+
+
+def test_threefry_on_the_cpu_launches_nothing_and_loads_no_library(
+        monkeypatch):
+    """The key-tree on CPU tensors runs the plain version: no launch is
+    counted and the kernel's library is never built or loaded, whatever
+    loaded it earlier in the process."""
+    from dpcorr_torch.ops import threefry
+
+    def no_library():
+        raise AssertionError("the CPU path asked for the kernel's library")
+
+    monkeypatch.setattr(threefry, "_library", no_library)
+    before = dict(threefry.KERNEL_LAUNCHES)
+    keys = rng.rep_keys(rng.master_key(3), 5)
+    rng.random_bits(keys, (7,))
+    rng.uniform(rng.stream(keys, "dgp"), (4,))
+    rng.permutation(keys[0], 9)
+    rng.kernel_seeds(keys)
+    assert threefry.KERNEL_LAUNCHES == before
+
+
+#: operand shapes as the key-tree hands them to the hash: fold_in of one
+#: key over indices, of a key batch by a host scalar, a batch of keys'
+#: rep streams, split of a batch, rbg's halves, a 0-d call
+HASH_SHAPES = [
+    ((), (), (), (1024,)),
+    ((64,), (64,), (), ()),
+    ((5, 1), (5, 1), (), (33,)),
+    ((3, 4, 1), (3, 4, 1), (), (2,)),
+    ((6, 2), (6, 2), (), (6, 1)),
+    ((), (), (), ()),
+    ((2, 1, 3, 1), (2, 1, 3, 1), (1, 4, 1, 1), (5,)),
+]
+
+
+@pytest.mark.parametrize("shapes", HASH_SHAPES, ids=str)
+def test_threefry_hash_axes_address_the_broadcast(shapes):
+    """The kernel's view of each operand, the merged axes with their
+    strides over its storage, holds the element the broadcast puts
+    there, for the strided key words of a ``(..., 2)`` key."""
+    from dpcorr_torch.ops import threefry
+
+    g = torch.Generator().manual_seed(5)
+    keys = torch.randint(0, 2**32, (*shapes[0], 2), generator=g)
+    ops = [keys[..., 0], keys[..., 1]] + [
+        torch.randint(0, 2**32, s, generator=g) for s in shapes[2:]]
+    shape = torch.broadcast_shapes(*(o.shape for o in ops))
+    views = [o.expand(shape) for o in ops]
+    axes = threefry._merged_axes(views, shape)
+    assert len(axes) <= threefry._MAX_DIMS
+    sizes = [s for s, _ in axes]
+    for o, v in enumerate(views):
+        got = torch.as_strided(v, sizes, [st[o] for _, st in axes],
+                               v.storage_offset())
+        assert torch.equal(got, v.reshape(sizes))
