@@ -248,7 +248,10 @@ def cmd_hrs_sweep(args):
 
 def cmd_stress(args):
     """Stress-scale run (BASELINE.md config 5 shape): the streaming
-    n-blocked estimators; prints reps/sec."""
+    n-blocked estimators; prints reps/sec and the run's streaming counters
+    (n-chunks and rows streamed)."""
+    from dpcorr_torch.models.estimators import streaming
+    from dpcorr_torch.obs import transfer
     from dpcorr_torch.sim import SimConfig, run_sim_one, stress_chunk_size
 
     dev = _device(args)
@@ -261,6 +264,8 @@ def cmd_stress(args):
         use_subg=args.family == "subg",
         stream_n_chunk=args.n_chunk,
         chunk_size=chunk)
+    counters = streaming.default_counters()
+    before = counters.snapshot()
     t0 = time.perf_counter()
     if args.backend == "sharded":
         from dpcorr_torch.parallel import run_summary_sharded
@@ -274,6 +279,7 @@ def cmd_stress(args):
         "stream_n_chunk": cfg.stream_n_chunk,
         "seconds": round(dt, 2),
         "reps_per_sec_incl_compile": round(cfg.b / dt, 2),
+        "counters": transfer.diff(counters.snapshot(), before),
         "summary": summary}, indent=2))
 
 

@@ -28,6 +28,16 @@ Chunk protocol: ``chunk_fn(c) -> (..., n_chunk, 2)`` returns rows
 [c·n_chunk, (c+1)·n_chunk) of the sample; rows past n are masked out of
 every sum. ``n_chunk`` must be a multiple of the batch size m
 (:func:`choose_n_chunk`) so no batch straddles two chunks.
+
+Ranges and counters (``utils.profiling``, ``obs.metrics``): while the
+profiler records, each chunk's generation by :func:`dgp_chunk_fn` runs in
+a ``stream_dgp`` range, each chunk's NI and INT statistics in
+:func:`subg_pair_stream` (the sender's Laplace draw included) in
+``subg_stats``, and the two intervals after the loop in ``subg_interval``
+(:data:`STREAM_STAGES`); with it off none is made. Every streamed pass
+adds its n-chunks and its sample's rows to :class:`StreamCounters` (the
+process registry's ``stream_chunks`` and ``stream_rows``), once per
+replication chunk.
 """
 
 from __future__ import annotations
@@ -46,9 +56,50 @@ from dpcorr_torch.ops.lambdas import lambda_int_n, lambda_n
 from dpcorr_torch.ops.noise import clip_sym, laplace
 from dpcorr_torch.ops.standardize import priv_moments_from_sums
 from dpcorr_torch.utils.device import f32_on, per_rep
+from dpcorr_torch.utils.profiling import stage
 from dpcorr_torch.utils.rng import bernoulli, chunk_key, stream
 
 ChunkFn = Callable[[int], torch.Tensor]  # c -> (..., n_chunk, 2)
+
+#: the streamed subG pair's stages, as ``torch.profiler`` ranges: a
+#: chunk's generation, a chunk's NI and INT statistics, the two intervals
+STREAM_STAGES = ("stream_dgp", "subg_stats", "subg_interval")
+
+
+class StreamCounters:
+    """The streaming path's counters in one registry (the process default
+    unless a caller gives its own, as ``obs.transfer`` keeps its own):
+    ``stream_chunks`` counts the n-chunks a pass generates and reduces,
+    ``stream_rows`` the sample's rows it covers (n, the masked tail left
+    out); each pass adds once per replication chunk, whatever the number
+    of replications resident in it."""
+
+    def __init__(self, registry=None):
+        from dpcorr_torch.obs.metrics import default_registry
+
+        self.registry = registry if registry is not None \
+            else default_registry()
+        self.chunks = self.registry.counter(
+            "dpcorr_stream_chunks_total",
+            "n-chunks generated and reduced by the streaming estimators")
+        self.rows = self.registry.counter(
+            "dpcorr_stream_rows_total",
+            "Sample rows covered by the streamed n-chunks")
+
+    def snapshot(self) -> dict[str, int]:
+        return {"stream_chunks": int(self.chunks.value()),
+                "stream_rows": int(self.rows.value())}
+
+
+_counters: StreamCounters | None = None
+
+
+def default_counters() -> StreamCounters:
+    """The process-wide bundle over the default registry."""
+    global _counters
+    if _counters is None:
+        _counters = StreamCounters()
+    return _counters
 
 _HALF_PI = math.pi / 2.0
 
@@ -86,7 +137,8 @@ def dgp_chunk_fn(dgp_fn: Callable, key: torch.Tensor, n_chunk: int,
     of one ``dgp_fn(key, n, rho)`` call (not its draws)."""
 
     def chunk_fn(c: int) -> torch.Tensor:
-        return dgp_fn(chunk_key(key, c), n_chunk, rho)
+        with stage("stream_dgp"):
+            return dgp_fn(chunk_key(key, c), n_chunk, rho)
 
     return chunk_fn
 
@@ -95,9 +147,13 @@ def _row_mask(c: int, n_chunk: int, n: int, device) -> torch.Tensor:
     return (c * n_chunk + torch.arange(n_chunk, device=device)) < n
 
 
-def _chunk_sums(stats: Callable, n_chunks: int) -> tuple:
+def _chunk_sums(stats: Callable, n_chunks: int, rows: int) -> tuple:
     """``stats(c)`` for every chunk, each output summed over the chunks
-    (stacked in chunk order, as JAX sums the ``lax.map`` partials)."""
+    (stacked in chunk order, as JAX sums the ``lax.map`` partials); the
+    pass's chunks and its ``rows`` sample rows are counted."""
+    counters = default_counters()
+    counters.chunks.inc(n_chunks)
+    counters.rows.inc(rows)
     parts = [stats(c) for c in range(n_chunks)]
     return tuple(torch.stack(col).sum(0) for col in zip(*parts, strict=True))
 
@@ -121,7 +177,7 @@ def _clipped_moment_sums(chunk_fn: ChunkFn, n: int, n_chunk: int, l_raw):
         w = _row_mask(c, n_chunk, n, xy.device).to(xy.dtype)[:, None]
         return (xy * w).sum(-2), (xy * xy * w).sum(-2)
 
-    return _chunk_sums(stats, -(-n // n_chunk))
+    return _chunk_sums(stats, -(-n // n_chunk), n)
 
 
 def _priv_moments(std_key, s1, s2, n: int, eps_norm, l_raw):
@@ -195,7 +251,7 @@ def _ni_stream(key_x, key_y, chunk_fn: ChunkFn, tx: Callable, ty: Callable,
     lap_x, lap_y = _ni_batch_noise(key_x, key_y, k, scale_x, scale_y,
                                    n_chunks * kc)
     st, st2 = _chunk_sums(lambda c: _ni_chunk_stats(
-        chunk_fn(c), c, tx, ty, m, kc, k, lap_x, lap_y), n_chunks)
+        chunk_fn(c), c, tx, ty, m, kc, k, lap_x, lap_y), n_chunks, k * m)
     return _ni_from_sums(st, st2, k)
 
 
@@ -296,7 +352,7 @@ def ci_int_signflip_stream(key: torch.Tensor, chunk_fn: ChunkFn, n: int,
         live = _row_mask(c, n_chunk, n, xy.device)
         return (torch.where(live, core, 0.0).sum(-1),)
 
-    (sum_core,) = _chunk_sums(stats, -(-n // n_chunk))
+    (sum_core,) = _chunk_sums(stats, -(-n // n_chunk), n)
     scale_z = 2.0 * (e_s + 1.0) / (n * (e_s - 1.0) * eps_r)
     z = laplace(stream(est_key, "int_sign/lap_z"), (), scale_z)
     eta_hat = (e_s + 1.0) / (n * (e_s - 1.0)) * sum_core + z
@@ -375,17 +431,20 @@ def subg_pair_stream(key_ni: torch.Tensor, key_int: torch.Tensor,
 
     def stats(c):
         xy = chunk_fn(c)  # generated once for both estimators
-        return (_ni_chunk_stats(xy, c, lambda v: clip_sym(v, lam1),
-                                lambda v: clip_sym(v, lam2), m, kc, k,
-                                lap_x, lap_y)
-                + _int_subg_chunk_stats(xy, c, noise_base, sender_is_x,
-                                        lam_s, lam_r, eps_s, n, n_chunk))
+        with stage("subg_stats"):
+            return (_ni_chunk_stats(xy, c, lambda v: clip_sym(v, lam1),
+                                    lambda v: clip_sym(v, lam2), m, kc, k,
+                                    lap_x, lap_y)
+                    + _int_subg_chunk_stats(xy, c, noise_base, sender_is_x,
+                                            lam_s, lam_r, eps_s, n,
+                                            n_chunk))
 
-    st, st2, s1, s2 = _chunk_sums(stats, n_chunks)
-    ni = _ni_subg_interval(*_ni_from_sums(st, st2, k), k, m, lam1, lam2,
-                           alpha)
-    it = _int_subg_interval(key_int, s1, s2, n, eps_s, eps_r, lam_s, lam_r,
-                            alpha, mixquant_mode)
+    st, st2, s1, s2 = _chunk_sums(stats, n_chunks, n)
+    with stage("subg_interval"):
+        ni = _ni_subg_interval(*_ni_from_sums(st, st2, k), k, m, lam1,
+                               lam2, alpha)
+        it = _int_subg_interval(key_int, s1, s2, n, eps_s, eps_r, lam_s,
+                                lam_r, alpha, mixquant_mode)
     return ni, it
 
 
@@ -404,6 +463,6 @@ def ci_int_subg_stream(key: torch.Tensor, chunk_fn: ChunkFn, n: int,
     noise_base = stream(key, "int_subg/lap_sender")
     s1, s2 = _chunk_sums(lambda c: _int_subg_chunk_stats(
         chunk_fn(c), c, noise_base, sender_is_x, lam_s, lam_r, eps_s, n,
-        n_chunk), -(-n // n_chunk))
+        n_chunk), -(-n // n_chunk), n)
     return _int_subg_interval(key, s1, s2, n, eps_s, eps_r, lam_s, lam_r,
                               alpha, mixquant_mode)

@@ -43,6 +43,7 @@ from dpcorr_torch.utils import rng
 from dpcorr_torch.utils.device import f32_on, resolve_device
 # re-exported: the grid, HRS and the measuring scripts mark stages as sim's
 from dpcorr_torch.utils.profiling import (  # noqa: F401
+    HOST_READ,
     stage,
     stage_host_seconds,
 )
@@ -284,10 +285,12 @@ def _run_detail_flat_eps(cfg_noeps: SimConfig, keys: torch.Tensor,
 
 def summarize(detail: Mapping[str, torch.Tensor], rho: float) -> dict:
     """Reference summary rows (vert-cor.R:421-443): per method mse, bias,
-    var, coverage, ci_length. One device-to-host copy, then f64."""
-    # dpcorr-lint: ignore[sync-in-loop] — after the run, one copy per detail field (ROADMAP perf_opt: one stacked copy)
-    host = {k: v.detach().cpu().numpy().astype(np.float64)
-            for k, v in detail.items()}
+    var, coverage, ci_length. One device-to-host copy, then f64 (the
+    copy in a ``host_read`` range)."""
+    with stage(HOST_READ):
+        # dpcorr-lint: ignore[sync-in-loop] — after the run, one copy per detail field (ROADMAP perf_opt: one stacked copy)
+        host = {k: v.detach().cpu().numpy().astype(np.float64)
+                for k, v in detail.items()}
     out = {}
     for meth in ("ni", "int"):
         est = host[f"{meth}_hat"]

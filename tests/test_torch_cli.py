@@ -74,6 +74,10 @@ def test_stress_and_demo_subg_run_on_the_cpu(capsys):
     out = json.loads(capsys.readouterr().out)
     assert out["n"] == 4096 and out["stream_n_chunk"] == 1024
     assert 0.0 <= out["summary"]["NI"]["coverage"] <= 1.0
+    # one replication a chunk on the CPU: three passes (the moments, NI,
+    # INT) of 4 n-chunks over the 4,096 rows, for each of the 2
+    assert out["counters"] == {"stream_chunks": 2 * 3 * 4,
+                               "stream_rows": 2 * 3 * 4096}
     main(["demo-subg", "--device", "cpu", "--b", "2"])
     out = json.loads(capsys.readouterr().out)
     assert out["config"] == {"n": 5500, "rho": 0.6, "eps": [5.0, 1.0],

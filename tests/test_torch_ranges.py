@@ -3,11 +3,14 @@ of them.
 
 On the CPU profiler: each range the benchmark's cells read
 (``keytree``, ``host_read``, ``pipeline_init``, ``hrs_wave``,
-``hrs_standardize``) appears on the cells' paths (the pipeline's fused
+``hrs_standardize``, the streamed pass's ``stream_dgp``, ``subg_stats``
+and ``subg_interval``) appears on the cells' paths (the pipeline's fused
 and unfused bodies at toy sizes, the bootstrap on a small synthetic
-panel) and encloses no stage range; a nested key-tree call opens one
-range; with the profiler off no range is made and no thread-local state
-is read; every output is bit-equal with the profiler on and off; a
+panel, the stress study's streamed pair) and encloses no stage range,
+and no streamed stage encloses or sits in another stage; a nested
+key-tree call opens one range; with the profiler off no range is made
+and no thread-local state is read; every output is bit-equal with the
+profiler on and off; a
 ``Tracer`` span is a profiler range too, and ``obs/trace.py`` imports
 without torch. The readers under ``portbench/layer_metrics/`` give their
 values on a hand-built timeline, and None without the ranges.
@@ -25,6 +28,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from dpcorr_torch import hrs, perf_hrs, sim
+from dpcorr_torch.models.estimators import streaming
 from dpcorr_torch.obs import trace as obs_trace
 from dpcorr_torch.ops import fused_ni
 from dpcorr_torch.utils import profiling, rng
@@ -38,7 +42,8 @@ from portbench import core, tracing  # noqa: E402
 N, RHO, EPS = 600, 0.5, (1.0, 1.0)
 NEW = ("keytree", "host_read", "pipeline_init", "hrs_wave",
        "hrs_standardize")
-OLD = set(sim.FUSED_STAGES + sim.GRID_STAGES + hrs.HRS_STAGES)
+STREAM = set(streaming.STREAM_STAGES)
+OLD = set(sim.FUSED_STAGES + sim.GRID_STAGES + hrs.HRS_STAGES) | STREAM
 
 
 @pytest.fixture(scope="module")
@@ -61,8 +66,16 @@ def plain_k1(monkeypatch):
 
 def _study(path, panel):
     """One study of a cell's path at a toy size: the pipeline built and
-    run once (as ``portbench/drivers/mc_pipeline.py`` does), or one
-    bootstrap; returns its outputs."""
+    run once (as ``portbench/drivers/mc_pipeline.py`` does), one
+    bootstrap, or one streamed stress study (as
+    ``portbench/drivers/sim_one.py`` runs it); returns its outputs."""
+    if path == "stream":
+        cfg = sim.SimConfig(n=1000, rho=RHO, eps1=EPS[0], eps2=EPS[1], b=3,
+                            dgp="bounded_factor", use_subg=True,
+                            stream_n_chunk=256, chunk_size=2)
+        res = sim.run_sim_one(cfg, key=rng.master_key(5, "cpu"),
+                              device="cpu")
+        return [res.detail[f] for f in sim.DETAIL_FIELDS]
     if path == "bootstrap":
         res = hrs.bootstrap(hrs.HrsConfig(seed=3), cols=panel, reps=8,
                             chunk=4, device="cpu")
@@ -93,7 +106,8 @@ WANT = {"fused": {"keytree", "host_read", "pipeline_init", "kernel_seeds",
                   "rep_keys"},
         "unfused": {"keytree", "host_read", "pipeline_init", "rep_keys"},
         "bootstrap": {"keytree", "host_read", "hrs_wave", "hrs_standardize",
-                      "hrs_resample", "hrs_ni", "hrs_int"}}
+                      "hrs_resample", "hrs_ni", "hrs_int"},
+        "stream": {"keytree", "host_read"} | STREAM}
 
 
 @pytest.mark.parametrize("path", sorted(WANT))
@@ -107,6 +121,9 @@ def test_new_ranges_on_the_cells_paths(path, panel, plain_k1):
             # no new range encloses a stage range, nor a keytree another
             assert not (outer[0] in NEW and inner[0] in OLD), (outer, inner)
             assert not (outer[0] == inner[0] == "keytree"), (outer, inner)
+            # a streamed stage neither holds nor sits in another stage
+            assert not (outer[0] in OLD and inner[0] in OLD
+                        and STREAM & {outer[0], inner[0]}), (outer, inner)
 
 
 def test_standardize_holds_its_draws_and_reads(panel):
@@ -196,7 +213,8 @@ def test_no_range_and_no_thread_state_while_the_profiler_is_off(
         pass
 
 
-@pytest.mark.parametrize("path", ["fused", "unfused", "bootstrap", "draws"])
+@pytest.mark.parametrize("path", ["fused", "unfused", "bootstrap", "stream",
+                                  "draws"])
 def test_outputs_bit_equal_with_the_profiler_on_and_off(path, panel,
                                                         plain_k1):
     def run():
@@ -294,6 +312,8 @@ READINGS = {
     "prep_idle_pct": 5.0,                  # [30, 35); [40, 45) is busy
     "stray_syncs_per_study": 1.0,          # at 50 and 85, over 2 studies
     "stray_syncs_per_study.unfused": 1.0,
+    "keytree_device_ms_per_krep.stream": 15e-3,
+    "stray_syncs_per_study.stream": 1.0,
 }
 
 
@@ -309,6 +329,67 @@ def test_the_benchmark_lists_the_readers():
     entries = {m["name"]: m for m in core.benchmark()["per_layer"]}
     for name in READINGS:
         assert entries[name]["source"] == "device_trace"
+        assert core.layer_metric_path(name).is_file()
+
+
+def _stream_timeline(with_ranges: bool = True):
+    """A 100-µs window of a streamed study: a chunk's generation (its
+    draws in a keytree range) launching 20 µs of kernels, its statistics
+    10 µs, the intervals 5 µs, and 10 µs launched outside them."""
+    events = [
+        _ev(tracing.WINDOW, "user_annotation", 0, 100),
+        _ev("stream_dgp", "user_annotation", 2, 10),
+        _ev("keytree", "user_annotation", 3, 5),
+        _ev("cudaLaunchKernel", "cuda_runtime", 4, 1, correlation=1),
+        _ev("subg_stats", "user_annotation", 14, 6),
+        _ev("cudaLaunchKernel", "cuda_runtime", 15, 1, correlation=2),
+        _ev("subg_interval", "user_annotation", 22, 4),
+        _ev("cudaLaunchKernel", "cuda_runtime", 23, 1, correlation=3),
+        _ev("cudaLaunchKernel", "cuda_runtime", 50, 1, correlation=4),
+        _ev("threefry_bits", "kernel", 10, 20, correlation=1),
+        _ev("reduce", "kernel", 30, 10, correlation=2),
+        _ev("mixquant", "kernel", 40, 5, correlation=3),
+        _ev("copy", "kernel", 60, 10, correlation=4),
+    ]
+    if not with_ranges:
+        events = [e for e in events if e["name"] not in STREAM]
+    return tracing.Trace(events)
+
+
+#: the stream's readers on that timeline, 1,000 replications at n =
+#: 1,000 in chunks of 256: 4 words a row of 4 chunks, 41 ALU operations a
+#: word at 64 a clock on 132 SMs at 1.98 GHz, over the 30 µs launched in
+#: stream_dgp and subg_stats
+STREAM_READINGS = {
+    "stream_dgp_ms_per_krep": 20e-3,
+    "subg_stats_ms_per_krep": 10e-3,
+    "stream_pass_roofline": 100.0 * (4 * 4 * 256 * 1000 * 41
+                                     / (64 * 132 * 1.98e9)) / 30e-6,
+}
+
+
+@pytest.mark.parametrize("name", sorted(STREAM_READINGS))
+def test_stream_reader_on_a_known_timeline(name):
+    run = core.Run("cell", {}, {"n": 1000, "stream_n_chunk": 256}, 0, "cpu",
+                   studies=1, reps=1000)
+    reader = core.layer_metric(name)
+    got = reader.read(_stream_timeline(), run)
+    assert got == pytest.approx(STREAM_READINGS[name])
+    assert reader.read(_stream_timeline(with_ranges=False), run) is None
+
+
+def test_the_benchmark_lists_the_stream_readers():
+    entries = {m["name"]: m for m in core.benchmark()["per_layer"]}
+    rate = {m["name"]: m for m in core.benchmark()["end_to_end"]}
+    assert "subg.stream_n1e6" in rate["reps_per_s"]["workloads"]
+    for name in list(STREAM_READINGS) + [
+            "device_idle_pct.stream", "launches_per_krep.stream",
+            "keytree_device_ms_per_krep.stream",
+            "stray_syncs_per_study.stream"]:
+        m = entries[name]
+        assert m["source"] == "device_trace" and m["workloads"] == [
+            "subg.stream_n1e6"], name
+        assert m["moves"] == "reps_per_s"
         assert core.layer_metric_path(name).is_file()
 
 
