@@ -398,16 +398,21 @@ north-star workload (n = 10⁴ Gaussian pair → NI sign-batch estimate + CI →
     around itself.
 23. the key-tree's threefry2x32 kernel (``ops/threefry.py`` →
     ``csrc/threefry.cu``), whose launches phases 4-5 count on the main
-    path (both entries must launch there):
+    path (the hash and the uniform entries must launch there, and every
+    ``uniform`` call take the kernel: ``rng.UNIFORM_CALLS["ops"]`` 0):
     (a) bits bit-equal to ``threefry_bits_plain`` on the same card keys
         at 2¹⁴ replication keys × 2·10⁴ words (the unfused block's
-        draw), and hash bit-equal to ``threefry_hash_plain`` on the
-        same card operands at the fused path's 2²⁰ folds (one key over
-        the replication indices), each call one launch;
-    (b) each entry's ms at those shapes against its bound (the
-        definition's rotations and xors, 41 a bits word and 40 a hash,
-        at the integer ALU's 64 a clock per SM; the int64 stores at
-        3.35 TB/s), its plain version's ms on the card, its ``ptxas``.
+        draw) and at 512 × 65,536 (a chunk draw of the stress study),
+        uniform bit-equal to ``threefry_uniform_plain`` at both shapes
+        (``normal``'s bounds and the bounded factor's), and hash
+        bit-equal to ``threefry_hash_plain`` on the same card operands
+        at the fused path's 2²⁰ folds (one key over the replication
+        indices), each call one launch;
+    (b) each case's ms at those shapes against its bound (the
+        definition's rotations and xors, 41 a bits or uniform word and
+        40 a hash, at the integer ALU's 64 a clock per SM; the int64 or
+        f32 stores at 3.35 TB/s), its plain version's ms on the card,
+        its ``ptxas``.
 
 Every failure raises. The last line is the device record; before it come
 the per-kernel JSON record and the card line. Run from the repository
@@ -5800,89 +5805,115 @@ def rbg_paths_phase(card: str, cols, x, y) -> dict:
 THREEFRY_KEYS = 1 << 14        # 23: the unfused block's keys
 THREEFRY_WORDS = 2 * N         # words a replication draws for its data
 THREEFRY_FOLDS = FUSED_BLOCK * FUSED_BLOCKS  # the fused path's rep keys
+#: 23: a chunk draw of the stress study (``subg.stream_n1e6``): 512
+#: resident replications × an n-chunk of 65,536 rows
+STRESS_KEYS, STRESS_WORDS = 512, 1 << 16
 #: int32 operations of the definition that only the integer ALU runs:
-#: the 20 rotations and 20 xors of the rounds, and bits' output xor
-THREEFRY_ALU_OPS = {"threefry_bits": 41, "threefry_hash": 40}
+#: the 20 rotations and 20 xors of the rounds, and bits' output xor (the
+#: uniform's map adds a shift and an or, left out of its bound)
+THREEFRY_ALU_OPS = {"threefry_bits": 41, "threefry_hash": 40,
+                    "threefry_uniform": 41}
+#: (minval, maxval) of the timed uniform draws: the bounded factor's
+#: U, E1, E2 at the stress shape, ``normal``'s at the unfused one
+STRESS_BOUNDS = (-1.0, 1.0)
+NORMAL_BOUNDS = (float(np.nextafter(np.float32(-1), np.float32(0))), 1.0)
 
 
 def threefry_cases():
-    """The main path's operands on the card: 2¹⁴ replication keys for
-    the bits entry, and the master key's words over 2²⁰ replication
-    indices for the hash entry (``rep_keys`` of the fused path)."""
+    """The main path's operands on the card, as ``{label: (entry, kernel
+    call, plain call, words, bytes moved)}``: 2¹⁴ replication keys × 2·10⁴
+    words for bits and for ``normal``'s uniforms (the unfused block's
+    draw), 512 keys × 65,536 words for bits and the bounded factor's
+    uniforms (a stress chunk draw), and the master key's words over 2²⁰
+    replication indices for the hash (``rep_keys`` of the fused path)."""
+    from dpcorr_torch.ops import threefry
     from dpcorr_torch.utils import rng
 
     key = rng.master_key(device="cuda")
     keys = rng.rep_keys(key, THREEFRY_KEYS).contiguous()
-    idx = torch.arange(THREEFRY_FOLDS, device="cuda")
-    return keys, (key[0], key[1], 0, idx)
+    stress = rng.rep_keys(rng.design_key(key, 24), STRESS_KEYS).contiguous()
+    hash_ops = (key[0], key[1], 0, torch.arange(THREEFRY_FOLDS,
+                                                device="cuda"))
+    words = THREEFRY_KEYS * THREEFRY_WORDS
+    stress_words = STRESS_KEYS * STRESS_WORDS
 
+    def rows(entry, k, n, *bounds):
+        kernel = getattr(threefry, entry)
+        plain = getattr(threefry, entry + "_plain")
+        return lambda: kernel(k, n, *bounds), lambda: plain(k, n, *bounds)
 
+    return {
+        "threefry_bits": (
+            "threefry_bits", *rows("threefry_bits", keys, THREEFRY_WORDS),
+            words, THREEFRY_KEYS * 16 + words * 8),
+        "threefry_hash": (
+            "threefry_hash", lambda: threefry.threefry_hash(*hash_ops),
+            lambda: threefry.threefry_hash_plain(*hash_ops),
+            THREEFRY_FOLDS, THREEFRY_FOLDS * (8 + 2 * 8)),
+        "threefry_uniform": (
+            "threefry_uniform",
+            *rows("threefry_uniform", stress, STRESS_WORDS, *STRESS_BOUNDS),
+            stress_words, STRESS_KEYS * 16 + stress_words * 4),
+        "threefry_uniform.unfused": (
+            "threefry_uniform",
+            *rows("threefry_uniform", keys, THREEFRY_WORDS, *NORMAL_BOUNDS),
+            words, THREEFRY_KEYS * 16 + words * 4),
+        "threefry_bits.stress": (
+            "threefry_bits", *rows("threefry_bits", stress, STRESS_WORDS),
+            stress_words, STRESS_KEYS * 16 + stress_words * 8),
+    }
 def threefry_against_plain(card: str) -> dict:
-    """Phase 23a: both entries bit-equal to their plain versions on the
-    same card operands, each call counted as one launch."""
+    """Phase 23a: every entry bit-equal to its plain version on the same
+    card operands at each case's shape, each call counted as one
+    launch."""
     from dpcorr_torch.ops import threefry
 
-    keys, hash_ops = threefry_cases()
     cases = {}
-    for name, kernel, plain in (
-            ("threefry_bits",
-             lambda: threefry.threefry_bits(keys, THREEFRY_WORDS),
-             lambda: threefry.threefry_bits_plain(keys, THREEFRY_WORDS)),
-            ("threefry_hash", lambda: threefry.threefry_hash(*hash_ops),
-             lambda: threefry.threefry_hash_plain(*hash_ops))):
+    for label, (name, kernel, plain, _, _) in threefry_cases().items():
         before = threefry.KERNEL_LAUNCHES[name]
         got = kernel()
         launched = threefry.KERNEL_LAUNCHES[name] - before
         want = plain()
+        if got.dtype == torch.float32:  # compare the f32 words' bits
+            got, want = got.view(torch.int32), want.view(torch.int32)
         # dpcorr-lint: ignore[sync-in-loop] — a check, case by case: the values are needed on the host
-        err = int((got - want).abs().max())
+        err = int((got != want).sum())
         del want
-        print(f"[{card}] 23a {name} {tuple(got.shape)}: card bit-equal to "
+        print(f"[{card}] 23a {label} {tuple(got.shape)}: card bit-equal to "
               f"plain {err == 0}; launches {launched}", flush=True)
         if err or launched != 1:
-            raise RuntimeError(f"23a: {name} disagrees with its plain "
-                               f"version by {err}, or launched {launched} "
-                               f"times for one call")
-        cases[name] = {"max_abs_err": err, "shape": list(got.shape)}
+            raise RuntimeError(f"23a: {label} disagrees with its plain "
+                               f"version in {err} words, or launched "
+                               f"{launched} times for one call")
+        cases[label] = {"words_differing": err, "shape": list(got.shape)}
     return cases
 
 
 def threefry_times(card: str) -> dict:
-    """Phase 23b: each entry's ms at 23a's shapes, its bound and its
-    plain version's ms on the card."""
+    """Phase 23b: each case's ms at 23a's shapes, its bound and its plain
+    version's ms on the card."""
     from dpcorr_torch.ops import _build, threefry
     from dpcorr_torch.utils.device import time_cuda
     from dpcorr_torch.utils.roofline import CLOCK_HZ, HBM_BYTES_PER_S, SMS
 
-    keys, hash_ops = threefry_cases()
-    calls = {
-        "threefry_bits": (
-            lambda: threefry.threefry_bits(keys, THREEFRY_WORDS),
-            lambda: threefry.threefry_bits_plain(keys, THREEFRY_WORDS),
-            THREEFRY_KEYS * THREEFRY_WORDS,
-            THREEFRY_KEYS * (2 + THREEFRY_WORDS) * 8),
-        "threefry_hash": (
-            lambda: threefry.threefry_hash(*hash_ops),
-            lambda: threefry.threefry_hash_plain(*hash_ops),
-            THREEFRY_FOLDS, THREEFRY_FOLDS * (8 + 2 * 8)),
-    }
     ptxas = _build.ptxas_report(_build.log_path("threefry").read_text())
     out = {"ptxas": list(ptxas.values())}
     before = dict(threefry.KERNEL_LAUNCHES)
-    for name, (kernel, plain, words, bytes_) in calls.items():
+    for label, (name, kernel, plain, words, bytes_) in (
+            threefry_cases().items()):
         ms = time_cuda(kernel, 20)
         plain_ms = time_cuda(plain, 3)
         alu_ms = 1e3 * words * THREEFRY_ALU_OPS[name] / (64 * SMS * CLOCK_HZ)
         bytes_ms = 1e3 * bytes_ / HBM_BYTES_PER_S
         bound = max(alu_ms, bytes_ms)
         by = "operations" if alu_ms >= bytes_ms else "bytes"
-        print(f"[{card}] 23b {name}, {words} words: {ms:.4f} ms "
+        print(f"[{card}] 23b {label}, {words} words: {ms:.4f} ms "
               f"({bound / ms:.1%} of its bound {bound:.4f} ms by {by}; "
               f"ALU {alu_ms:.4f} ms, bytes {bytes_ms:.4f} ms); plain "
               f"version {plain_ms:.4f} ms", flush=True)
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": by, "alu_bound_ms": alu_ms,
-                     "bytes_bound_ms": bytes_ms, "words": words}
+        out[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                      "bound_by": by, "alu_bound_ms": alu_ms,
+                      "bytes_bound_ms": bytes_ms, "words": words}
     threefry.KERNEL_LAUNCHES.update(before)  # timing launches do not count
     print(f"[{card}] 23b threefry ptxas {ptxas}", flush=True)
     return out
@@ -5956,7 +5987,8 @@ def main() -> int:
     # the ladder's and the key-tree's) is set to 0 just before and read
     # just after
     for counts in (fused_ni.KERNEL_LAUNCHES, ladder.KERNEL_LAUNCHES,
-                   rbg.KERNEL_LAUNCHES, threefry.KERNEL_LAUNCHES):
+                   rbg.KERNEL_LAUNCHES, threefry.KERNEL_LAUNCHES,
+                   rng.UNIFORM_CALLS):
         for name in counts:
             counts[name] = 0
     key = rng.master_key(device="cuda")
@@ -5976,17 +6008,23 @@ def main() -> int:
     ladder_main = dict(ladder.KERNEL_LAUNCHES)
     rbg_threefry = dict(rbg.KERNEL_LAUNCHES)
     tf_main = dict(threefry.KERNEL_LAUNCHES)
+    uniform_main = dict(rng.UNIFORM_CALLS)
     print(f"[{card}] fused pipeline: {json.dumps(fused)}", flush=True)
     # dpcorr-lint: ignore[sync-in-loop] — a check, case by case: the values are needed on the host
     d = {f: v.double().mean().item() for f, v in zip(DETAIL_FIELDS, detail)}
     print(f"[{card}] sim_detail_fused {DETAIL_REPS} reps in {detail_s:.3f} s:"
           f" {json.dumps(d)}", flush=True)
     print(f"launches in the main path's run: {launches}, the ladder "
-          f"{ladder_main}, rbg_bits {rbg_threefry}, threefry {tf_main}",
-          flush=True)
-    if not all(tf_main.values()):
+          f"{ladder_main}, rbg_bits {rbg_threefry}, threefry {tf_main}; "
+          f"uniform calls {uniform_main}", flush=True)
+    if not (tf_main["threefry_hash"] and tf_main["threefry_uniform"]):
         raise RuntimeError(f"the threefry main path launched the threefry "
-                           f"kernel {tf_main} times: both entries must run")
+                           f"kernel {tf_main} times: its folds and its "
+                           f"uniforms must run there")
+    if uniform_main["ops"] or not uniform_main["kernel"]:
+        raise RuntimeError(f"the threefry main path's uniforms took the "
+                           f"paths {uniform_main}: each must launch the "
+                           f"uniform entry")
     if rbg_threefry["rbg_bits"]:
         raise RuntimeError(f"the threefry main path launched rbg_bits "
                            f"{rbg_threefry} times")
@@ -6454,8 +6492,8 @@ def main() -> int:
         "launches": sum(tf_main.values()) + len(tf_parts["23a"]),
         "main_path_launches": sum(tf_main.values()),
         "main_path_launches_by_entry": tf_main,
-        "max_abs_err": max(v["max_abs_err"]
-                           for v in tf_parts["23a"].values()),
+        "words_differing": sum(v["words_differing"]
+                               for v in tf_parts["23a"].values()),
         "ms": tf_t["threefry_bits"]["ms"],
         "plain_ms": tf_t["threefry_bits"]["plain_ms"],
         "bound_ms": tf_t["threefry_bits"]["bound_ms"],
@@ -6463,6 +6501,11 @@ def main() -> int:
         "library_ms": None,
         "shape": [THREEFRY_KEYS, THREEFRY_WORDS],
         "hash": {**tf_t["threefry_hash"], "library_ms": None},
+        "uniform": {**tf_t["threefry_uniform"], "library_ms": None,
+                    "shape": [STRESS_KEYS, STRESS_WORDS],
+                    "unfused": tf_t["threefry_uniform.unfused"],
+                    "bits_at_this_shape": tf_t["threefry_bits.stress"]},
+        "main_path_uniform_calls": uniform_main,
         "ptxas": tf_t["ptxas"],
     }]}
     print(f"smoke: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -4,14 +4,18 @@ and its plain twin.
 Counterpart of the hash ``jax.random`` evaluates for every threefry2x32
 key (``threefry_2x32`` in jax/_src/prng.py, integer ops under XLA, not a
 Pallas kernel; no PyTorch call computes it): Random123's Threefry-2x32
-with 20 rounds. The kernel (``dpcorr_torch/csrc/threefry.cu``, CUDA C++
-for sm_90a) says what bounds it.
+with 20 rounds, and ``jax.random.uniform``'s map of its words to f32.
+The kernel (``dpcorr_torch/csrc/threefry.cu``, CUDA C++ for sm_90a) says
+what bounds it.
 
-Two entry points, one round function:
+Three entry points, one round function:
 
 - :func:`threefry_bits`: keys ``(K, 2)`` → ``(K, n_words)``; word i of
   key k is y0 ^ y1 of threefry(key_k, (i >> 32, i & 0xFFFFFFFF)), the
   partitionable counter layout of ``jax.random.bits``.
+- :func:`threefry_uniform`: the same words mapped to f32 uniforms in
+  [minval, maxval) as :func:`uniform_from_bits` maps them, in registers:
+  one launch and 4 bytes stored a word.
 - :func:`threefry_hash`: key words k0, k1 and counter words x0, x1 that
   broadcast to one shape (a tensor or a Python int each) → that shape
   plus a last axis of 2, y0 and y1 side by side: a two-word ``fold_in``
@@ -21,14 +25,16 @@ Words are int64 holding uint32 values, the key-tree's convention; only
 the low 32 bits of an input are read. A CPU tensor goes to the plain
 version, :func:`threefry_words` on int64 tensors with every add and shift
 masked back to 32 bits (the same function on host ints is
-``rng.fold_in_words``' arithmetic); a CUDA tensor launches the kernel or
-raises. There is no fallback from one to the other.
+``rng.fold_in_words``' arithmetic), then :func:`uniform_from_bits` for
+the uniforms; a CUDA tensor launches the kernel or raises. There is no
+fallback from one to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -37,7 +43,8 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _MAX_DIMS = 4
 
 #: launches of the kernel, counted where the wrapper launches it
-KERNEL_LAUNCHES = {"threefry_bits": 0, "threefry_hash": 0}
+KERNEL_LAUNCHES = {"threefry_bits": 0, "threefry_hash": 0,
+                   "threefry_uniform": 0}
 
 
 def _rotl(v, r: int):
@@ -69,6 +76,36 @@ def threefry_bits_plain(keys: torch.Tensor, n_words: int) -> torch.Tensor:
     return y0 ^ y1
 
 
+def uniform_bounds(minval: float, maxval: float) -> tuple[float, float]:
+    """``(lo, span)`` of the map to [minval, maxval): the bounds rounded
+    to f32 first, as ``jax.random.uniform`` rounds them, and their
+    difference in f32."""
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return float(lo), float(np.float32(hi - lo))
+
+
+def uniform_from_bits(bits: torch.Tensor, minval: float = 0.0,
+                      maxval: float = 1.0) -> torch.Tensor:
+    """uint32 words (int64) → f32 uniforms, ``jax.random.uniform``'s map:
+    f in [0, 1) from the top 23 bits under exponent 0, then
+    ``max(f·span + lo, lo)``. XLA fuses the multiply-add (one rounding);
+    here the product is exact in f64 and the sum is rounded to f32 from
+    there, which the tests hold bit-equal to JAX."""
+    lo, span = uniform_bounds(minval, maxval)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    u = (f.to(torch.float64) * span + lo).to(torch.float32)
+    return torch.clamp_min(u, lo)
+
+
+def threefry_uniform_plain(keys: torch.Tensor, n_words: int,
+                           minval: float = 0.0,
+                           maxval: float = 1.0) -> torch.Tensor:
+    """Plain PyTorch version of the uniform kernel: ``keys`` (K, 2) int64
+    → (K, n_words) f32."""
+    return uniform_from_bits(threefry_bits_plain(keys, n_words), minval,
+                             maxval)
+
+
 def threefry_hash_plain(k0, k1, x0, x1) -> torch.Tensor:
     """Plain PyTorch version of the hash kernel: y0 and y1 stacked on a
     new last axis."""
@@ -82,6 +119,11 @@ def _typed(lib: ctypes.CDLL) -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
             ctypes.c_longlong, ctypes.c_void_p]
         lib.threefry_bits_launch.restype = ctypes.c_int
+        lib.threefry_uniform_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_float, ctypes.c_float,
+            ctypes.c_void_p]
+        lib.threefry_uniform_launch.restype = ctypes.c_int
         lib.threefry_hash_launch.argtypes = [
             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -110,11 +152,9 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def threefry_bits(keys: torch.Tensor, n_words: int) -> torch.Tensor:
-    """(K, n_words) int64 words of ``jax.random.bits``' layout for each of
-    the K threefry2x32 keys ``(K, 2)`` int64 (uint32 words). On a CUDA
-    tensor the kernel is launched; on the CPU the plain version runs; any
-    other device raises."""
+def _row_keys(keys: torch.Tensor, n_words: int, name: str) -> int:
+    """Checks the operands of a per-key entry (``keys`` (K, 2) int64 on
+    the CPU or the card, ``n_words`` ≥ 0); returns ``n_words``."""
     if keys.dtype != torch.int64:
         raise TypeError(f"keys must be torch.int64, got {keys.dtype}")
     if keys.dim() != 2 or keys.shape[1] != 2:
@@ -123,25 +163,53 @@ def threefry_bits(keys: torch.Tensor, n_words: int) -> torch.Tensor:
     n_words = int(n_words)
     if n_words < 0:
         raise ValueError(f"n_words must be >= 0, got {n_words}")
+    if keys.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got "
+                         f"{keys.device}")
+    return n_words
+
+
+def threefry_bits(keys: torch.Tensor, n_words: int) -> torch.Tensor:
+    """(K, n_words) int64 words of ``jax.random.bits``' layout for each of
+    the K threefry2x32 keys ``(K, 2)`` int64 (uint32 words). On a CUDA
+    tensor the kernel is launched; on the CPU the plain version runs; any
+    other device raises."""
+    n_words = _row_keys(keys, n_words, "threefry_bits")
     if keys.device.type == "cpu":
         return threefry_bits_plain(keys, n_words)
-    if keys.device.type != "cuda":
-        raise ValueError(f"threefry_bits runs on cuda or cpu tensors, got "
-                         f"{keys.device}")
-    return _launch_bits(keys.contiguous(), n_words)
-
-
-def _launch_bits(keys: torch.Tensor, n_words: int) -> torch.Tensor:
     out = torch.empty(keys.shape[0], n_words, dtype=torch.int64,
                       device=keys.device)
+    return _launch_rows("threefry_bits", keys.contiguous(), out)
+
+
+def threefry_uniform(keys: torch.Tensor, n_words: int, minval: float = 0.0,
+                     maxval: float = 1.0) -> torch.Tensor:
+    """(K, n_words) f32 uniforms in [minval, maxval), ``jax.random.uniform``
+    on each of the K threefry2x32 keys ``(K, 2)`` int64: the words of
+    :func:`threefry_bits` mapped by :func:`uniform_from_bits`, bit for
+    bit. On a CUDA tensor the kernel is launched; on the CPU the plain
+    version runs; any other device raises."""
+    n_words = _row_keys(keys, n_words, "threefry_uniform")
+    if keys.device.type == "cpu":
+        return threefry_uniform_plain(keys, n_words, minval, maxval)
+    out = torch.empty(keys.shape[0], n_words, dtype=torch.float32,
+                      device=keys.device)
+    return _launch_rows("threefry_uniform", keys.contiguous(), out,
+                        *uniform_bounds(minval, maxval))
+
+
+def _launch_rows(name: str, keys: torch.Tensor, out: torch.Tensor,
+                 *args) -> torch.Tensor:
+    """Launches the per-key entry ``name`` into ``out`` (K, n_words);
+    ``args`` follow the word count in its C interface."""
     if out.numel() == 0:
         return out
     lib = _library()
     with torch.cuda.device(keys.device):
-        err = lib.threefry_bits_launch(keys.data_ptr(), out.data_ptr(),
-                                       keys.shape[0], n_words,
-                                       _stream(keys.device))
-    _check(lib, err, "threefry_bits")
+        err = getattr(lib, name + "_launch")(
+            keys.data_ptr(), out.data_ptr(), *out.shape, *args,
+            _stream(keys.device))
+    _check(lib, err, name)
     return out
 
 

@@ -65,10 +65,10 @@ uint32 words, shape ``(..., 2)`` or ``(..., 4)``. torch's uint32 coverage
 is thin, so the words live in int64. Threefry runs in
 ``dpcorr_torch.ops.threefry``: on the card its rounds run in registers in
 one launch (``csrc/threefry.cu``: a batch of folds, or a batch of keys'
-bits), on the CPU as int64 torch ops with every add and shift masked back
-to 32 bits. Every function is vectorised over the leading key axes, so a
-whole replication block's keys are derived on the device that holds
-them.
+bits or f32 uniforms), on the CPU as int64 torch ops with every add and
+shift masked back to 32 bits. Every function is vectorised over the
+leading key axes, so a whole replication block's keys are derived on the
+device that holds them.
 """
 
 from __future__ import annotations
@@ -82,7 +82,9 @@ import torch
 from dpcorr_torch.ops.threefry import (
     threefry_bits,
     threefry_hash,
+    threefry_uniform,
     threefry_words,
+    uniform_from_bits,
 )
 from dpcorr_torch.utils.profiling import outermost
 
@@ -94,6 +96,11 @@ MASTER_SEED: int = 2025
 KEYTREE = "keytree"
 
 _M32 = 0xFFFFFFFF
+
+#: :func:`uniform` calls by path: ``"kernel"``, a threefry2x32 key on the
+#: card (one ``threefry_uniform`` launch); ``"ops"``, an rbg-family key
+#: or a CPU tensor (the words mapped by torch ops)
+UNIFORM_CALLS = {"kernel": 0, "ops": 0}
 
 #: the PRNG implementations of the key-tree, by JAX's names, and the
 #: words of one key under each
@@ -407,25 +414,25 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
         tuple(key.shape[:-1]) + shape)
 
 
-def _bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
-    """uint32 bits → f32 in [0, 1): mantissa bits under exponent 0."""
-    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
-    return fbits.view(torch.float32) - 1.0
-
-
 @outermost(KEYTREE)
 def uniform(key: torch.Tensor, shape=(), minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` in f32: ``max(min, f·(max−min)+min)`` with
-    f from the top 23 bits, min and max rounded to f32 first. XLA fuses
-    the multiply-add (one rounding); here the product is exact in f64
-    and the sum is rounded to f32 from there, which the tests hold
-    bit-equal to JAX."""
-    f = _bits_to_unit(random_bits(key, shape))
-    lo, hi = np.float32(minval), np.float32(maxval)
-    span = float(np.float32(hi - lo))
-    u = (f.to(torch.float64) * span + float(lo)).to(torch.float32)
-    return torch.clamp_min(u, float(lo))
+    f from the top 23 bits, min and max rounded to f32 first
+    (``ops.threefry.uniform_from_bits``). A threefry2x32 key draws and
+    maps its words in one launch on the card
+    (``ops.threefry.threefry_uniform``); an rbg-family key maps
+    :func:`random_bits` with torch ops. :data:`UNIFORM_CALLS` counts the
+    calls by path."""
+    key = _as_key(key)
+    shape = tuple(int(s) for s in shape)
+    if key.shape[-1] == 4:
+        UNIFORM_CALLS["ops"] += 1
+        return uniform_from_bits(random_bits(key, shape), minval, maxval)
+    UNIFORM_CALLS["kernel" if key.device.type == "cuda" else "ops"] += 1
+    size = int(np.prod(shape, dtype=np.int64))
+    return threefry_uniform(key.reshape(-1, 2), size, minval,
+                            maxval).reshape(tuple(key.shape[:-1]) + shape)
 
 
 @outermost(KEYTREE)

@@ -1219,6 +1219,77 @@ def test_threefry_bits_kernel_bit_equal_to_plain(cuda, n_keys, n_words):
     assert torch.equal(got, want.to(cuda))
 
 
+#: the (minval, maxval) pairs the port draws uniforms with (as in
+#: tests/test_torch_rng.py): (0, 1), (−1, 1), (nextafter(−1, 0), 1)
+UNIFORM_BOUNDS = [(0.0, 1.0), (-1.0, 1.0),
+                  (float(np.nextafter(np.float32(-1), np.float32(0))), 1.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounds", UNIFORM_BOUNDS, ids=str)
+@pytest.mark.parametrize("n_keys,n_words", [
+    (512, 65_536), (2**14, 20_000), (1, 1), (3, 1029), (257, 13),
+    (70_000, 3), (2, 2**17 + 5)])
+def test_threefry_uniform_kernel_bit_equal_to_plain(cuda, bounds, n_keys,
+                                                    n_words):
+    """The uniform kernel equals its plain version bit for bit at the
+    stress cell's chunk draw (512 × 65,536), the unfused block's draw
+    (2¹⁴ × 2·10⁴), rows that do not divide a thread's words or a
+    block's, and more keys than the grid's y extent, one launch a call
+    (the plain version runs on the card at the large shapes)."""
+    from dpcorr_torch.ops import threefry
+
+    keys = _threefry_words((n_keys, 2), n_keys + n_words)
+    keys[-1] = torch.tensor([0x80000000, 0xFFFFFFFF])
+    before = threefry.KERNEL_LAUNCHES["threefry_uniform"]
+    got = threefry.threefry_uniform(keys.to(cuda), n_words, *bounds)
+    torch.cuda.synchronize()
+    assert threefry.KERNEL_LAUNCHES["threefry_uniform"] == before + 1
+    assert got.dtype == torch.float32
+    big = n_keys * n_words > 2**26
+    want = threefry.threefry_uniform_plain(keys.to(cuda) if big else keys,
+                                           n_words, *bounds)
+    assert torch.equal(got.view(torch.int32), want.to(cuda).view(
+        torch.int32))
+
+
+@pytest.mark.cuda
+def test_uniform_and_its_samplers_on_the_card_equal_the_cpu(cuda):
+    """``uniform``, ``bernoulli``, ``laplace`` and ``normal`` on threefry
+    keys on the card, each through one uniform launch, against the CPU on
+    the same keys: the uniforms and the decisions bit for bit; ``laplace``
+    and ``normal`` with the same signs and within ``normal``'s tolerance
+    against JAX (tests/test_torch_rng.py), since the card's ``log1p``
+    and ``erfinv`` may round their last bits otherwise than the CPU's."""
+    from dpcorr_torch.ops import threefry
+    from dpcorr_torch.ops.noise import laplace
+
+    cpu = rng.rep_keys(rng.design_key(rng.master_key(13), 2**31 + 9), 300)
+    card = cpu.to(cuda)
+    draws = {
+        "uniform": lambda k: rng.uniform(rng.stream(k, "dgp"), (3, 501),
+                                         -1.0, 1.0),
+        "bernoulli": lambda k: rng.bernoulli(rng.stream(k, "flips"),
+                                             0.7310586, (1001,)),
+        "laplace": lambda k: laplace(rng.stream(k, "noise"), (777,), 0.7),
+        "normal": lambda k: rng.normal(rng.stream(k, "z"), (2, 999)),
+    }
+    for name, draw in draws.items():
+        before = threefry.KERNEL_LAUNCHES["threefry_uniform"]
+        calls = dict(rng.UNIFORM_CALLS)
+        got = draw(card)
+        assert threefry.KERNEL_LAUNCHES["threefry_uniform"] == before + 1
+        assert rng.UNIFORM_CALLS["kernel"] == calls["kernel"] + 1, name
+        assert rng.UNIFORM_CALLS["ops"] == calls["ops"], name
+        want = draw(cpu)
+        if name in ("uniform", "bernoulli"):
+            assert torch.equal(got.cpu(), want), name
+        else:
+            assert torch.equal(torch.sign(got.cpu()), torch.sign(want))
+            torch.testing.assert_close(got.cpu(), want, rtol=2e-5,
+                                       atol=1e-6, msg=name)
+
+
 #: operand shapes (k0, k1, x0, x1) for the hash kernel: fold_in of one
 #: key over 2²⁰ indices, a key batch by a host scalar, rep streams of a
 #: key batch, rbg halves, counters with x0 ≠ 0 everywhere, a 0-d call
@@ -1264,6 +1335,8 @@ def test_threefry_kernels_zero_sizes_launch_nothing(cuda):
     assert threefry.threefry_bits(keys[:0], 9).shape == (0, 9)
     assert threefry.threefry_hash(keys[:0, 0], keys[:0, 1], 0,
                                   3).shape == (0, 2)
+    assert threefry.threefry_uniform(keys, 0).shape == (4, 0)
+    assert threefry.threefry_uniform(keys[:0], 9, -1.0, 1.0).shape == (0, 9)
     assert threefry.KERNEL_LAUNCHES == before
 
 
@@ -1304,5 +1377,6 @@ def test_threefry_key_tree_card_equals_cpu(cuda, impl, monkeypatch):
         assert torch.equal(got.cpu(), want), name
     assert threefry.KERNEL_LAUNCHES["threefry_hash"] > before[
         "threefry_hash"]
-    assert (threefry.KERNEL_LAUNCHES["threefry_bits"]
-            > before["threefry_bits"]) == (impl == "threefry2x32")
+    for entry in ("threefry_bits", "threefry_uniform"):
+        assert (threefry.KERNEL_LAUNCHES[entry]
+                > before[entry]) == (impl == "threefry2x32"), entry

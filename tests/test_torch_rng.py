@@ -325,9 +325,17 @@ def _i64(*shape):
      ValueError, "different devices"),
     (lambda t: t.threefry_hash(_i64(3).to("meta"), 0, 0, 1), ValueError,
      "cuda or cpu"),
+    (lambda t: t.threefry_uniform(_i64(3, 2).int(), 4), TypeError, "int64"),
+    (lambda t: t.threefry_uniform(_i64(3, 4), 4), ValueError, r"\(K, 2\)"),
+    (lambda t: t.threefry_uniform(_i64(2), 4), ValueError, r"\(K, 2\)"),
+    (lambda t: t.threefry_uniform(_i64(3, 2), -1), ValueError, ">= 0"),
+    (lambda t: t.threefry_uniform(_i64(3, 2).to("meta"), 4), ValueError,
+     "cuda or cpu"),
 ], ids=["bits-dtype", "bits-words", "bits-rank", "bits-negative",
         "bits-device", "hash-dtype", "hash-float", "hash-no-tensor",
-        "hash-broadcast", "hash-devices", "hash-device"])
+        "hash-broadcast", "hash-devices", "hash-device", "uniform-dtype",
+        "uniform-words", "uniform-rank", "uniform-negative",
+        "uniform-device"])
 def test_threefry_wrapper_refuses_what_the_kernel_does_not_take(call, err,
                                                                 match):
     from dpcorr_torch.ops import threefry
@@ -348,12 +356,81 @@ def test_threefry_on_the_cpu_launches_nothing_and_loads_no_library(
 
     monkeypatch.setattr(threefry, "_library", no_library)
     before = dict(threefry.KERNEL_LAUNCHES)
+    calls = dict(rng.UNIFORM_CALLS)
     keys = rng.rep_keys(rng.master_key(3), 5)
     rng.random_bits(keys, (7,))
     rng.uniform(rng.stream(keys, "dgp"), (4,))
     rng.permutation(keys[0], 9)
     rng.kernel_seeds(keys)
+    threefry.threefry_uniform(keys, 6, -1.0, 1.0)
     assert threefry.KERNEL_LAUNCHES == before
+    assert rng.UNIFORM_CALLS == {"kernel": calls["kernel"],
+                                 "ops": calls["ops"] + 1}
+
+
+def _old_uniform_map(bits, minval, maxval):
+    """The key-tree's map of words to f32 uniforms as it was written
+    before the kernel took it: mantissa bits under exponent 0, the
+    product exact in f64, the sum rounded to f32, then the clamp."""
+    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    f = fbits.view(torch.float32) - 1.0
+    lo, hi = np.float32(minval), np.float32(maxval)
+    span = float(np.float32(hi - lo))
+    u = (f.to(torch.float64) * span + float(lo)).to(torch.float32)
+    return torch.clamp_min(u, float(lo))
+
+
+#: the (minval, maxval) pairs the port draws with: ``uniform``'s default,
+#: the sign families' (−1, 1), and ``normal``'s and ``laplace``'s
+#: (nextafter(−1, 0), 1)
+UNIFORM_BOUNDS = [(0.0, 1.0), (-1.0, 1.0),
+                  (float(np.nextafter(np.float32(-1), np.float32(0))), 1.0)]
+
+
+@pytest.mark.parametrize("bounds", UNIFORM_BOUNDS, ids=str)
+@pytest.mark.parametrize("n_keys,n_words", [(1, 1), (7, 129), (3, 1029),
+                                            (40, 13), (5, 0), (0, 9)])
+def test_threefry_uniform_plain_is_the_old_map_bit_for_bit(bounds, n_keys,
+                                                           n_words):
+    """The uniform entry's plain twin draws the bits and maps them exactly
+    as the key-tree did before the kernel took the map, on words with
+    the top bit set and at rows that do not divide a thread's words."""
+    from dpcorr_torch.ops import threefry
+
+    g = torch.Generator().manual_seed(n_keys * 1000 + n_words)
+    keys = torch.randint(0, 2**32, (n_keys, 2), generator=g)
+    if n_keys:
+        keys[0] = torch.tensor([0xFFFFFFFF, 0x80000000])
+    got = threefry.threefry_uniform_plain(keys, n_words, *bounds)
+    want = _old_uniform_map(threefry.threefry_bits_plain(keys, n_words),
+                            *bounds)
+    assert got.dtype == torch.float32 and got.shape == (n_keys, n_words)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(threefry.threefry_uniform(keys, n_words, *bounds),
+                       got)
+
+
+def test_uniform_calls_count_the_ops_path_for_rbg_keys(monkeypatch):
+    """A four-word key's uniforms are mapped by torch ops, on any device:
+    :data:`rng.UNIFORM_CALLS` counts them under "ops", and the threefry
+    uniform entry is not asked for them."""
+    from dpcorr_torch.ops import threefry
+
+    monkeypatch.setenv("DPCORR_PRNG", "rbg")
+    key = rng.stream(rng.master_key(4), "dgp")
+    assert key.shape == (4,)
+
+    def no_entry(*args, **kwargs):
+        raise AssertionError("an rbg key reached threefry_uniform")
+
+    monkeypatch.setattr(rng, "threefry_uniform", no_entry)
+    calls = dict(rng.UNIFORM_CALLS)
+    u = rng.uniform(key, (3, 5), -1.0, 1.0)
+    assert u.shape == (3, 5) and u.dtype == torch.float32
+    assert torch.equal(u, threefry.uniform_from_bits(
+        rng.random_bits(key, (3, 5)), -1.0, 1.0))
+    assert rng.UNIFORM_CALLS == {"kernel": calls["kernel"],
+                                 "ops": calls["ops"] + 1}
 
 
 #: operand shapes as the key-tree hands them to the hash: fold_in of one
