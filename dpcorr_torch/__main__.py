@@ -2364,7 +2364,7 @@ def _add_doctor(sub) -> None:
         "doctor", help="environment health report: the cards nvidia-smi "
         "shows, nvcc and sm_90a, the build cache (dpcorr_torch/_build, "
         "stale libraries), stray worker processes of this checkout "
-        "holding a card (fan-out workers, chip_smoke.py, plan_ab.py; "
+        "holding a card (fan-out workers, chip_smoke.py; "
         "never a service). The JAX doctor's relay check and --queue-dir have no "
         "counterpart here: a card host has no tunnel relay and no TPU "
         "validation queue")

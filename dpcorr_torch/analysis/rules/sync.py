@@ -14,11 +14,11 @@ wrong. One rule:
 - ``sync-in-loop`` — a host-synchronizing call lexically inside a
   ``for``/``while`` body or a comprehension, in a hot-path module
   (``sim.py``, ``grid.py``, ``parallel/``, ``plan/``, the
-  ``perf_*.py`` measurement modules and ``chip_smoke.py``, the port's
-  counterparts of ``bench.py`` and ``benchmarks/``). The host syncs are
-  torch's counterparts of ``block_until_ready``, ``np.asarray`` and
-  ``jax.device_get``: the tensor methods ``.item()``, ``.tolist()``,
-  ``.cpu()`` and ``.numpy()``; any ``.synchronize()``
+  ``perf_*.py`` measurement modules and ``chip_smoke.py``'s kernel
+  table, the port's counterparts of ``bench.py`` and ``benchmarks/``).
+  The host syncs are torch's counterparts of ``block_until_ready``,
+  ``np.asarray`` and ``jax.device_get``: the tensor methods ``.item()``,
+  ``.tolist()``, ``.cpu()`` and ``.numpy()``; any ``.synchronize()``
   (``torch.cuda.synchronize``, an event's, a stream's); and
   ``numpy.asarray``/``numpy.array``, which copy a tensor to the host.
 

@@ -96,8 +96,9 @@ class GridConfig:
     build step (K1, the one kernel, is built once per process and the
     fused buckets were skipped there too), so a warm run would only do
     each bucket's work twice: on an H100 (80GB HBM3, 700 W) that took the
-    unfused v1 grid from 1.54 s to 9.38 s (``chip_smoke.py`` phase 17d,
-    PERF.md §5).
+    unfused v1 grid from 1.54 s to 9.38 s. Either way gives the same
+    bits (``test_precompile_off_and_on_bit_equal`` in
+    ``tests/test_torch_geometry.py`` holds that).
     """
 
     n_grid: Sequence[int] = (1000, 1500, 2500, 4000, 6000, 9000)
@@ -209,9 +210,10 @@ def _stamp(cfg: SimConfig) -> str:
     width stays literal, where the JAX package canonicalises every width
     ≥ 2 (bit-equal there): on the card a reduction over n runs in another
     order when another number of replications is resident, so the
-    unfused body's last bits depend on the width (``chip_smoke.py``
-    phase 17b, ``tests/test_torch_cuda.py``), and a cache of one width
-    must not load under another."""
+    unfused body's last bits depend on the width
+    (``test_chunk_width_changes_unfused_bits_on_the_card`` in
+    ``tests/test_torch_cuda.py``), and a cache of one width must not load
+    under another."""
     stamp = f"{cfg!r}|prng={rng.impl_tag()}"
     if cfg.mixquant_mode == "mc" and cfg.subg_variant == "real":
         stamp += "|mixquant_nsim=2000"

@@ -15,13 +15,14 @@ both batch engines of :class:`~dpcorr_torch.serve.kernels.KernelCache`
 call it.
 
 Lane contract (``tests/test_torch_serve.py`` on the CPU,
-``tests/test_torch_cuda.py`` and ``chip_smoke.py`` phase 12 on the card):
+``tests/test_torch_cuda.py`` on the card):
 
 - ``exact`` engine: the single call on each lane in turn, as the JAX
   package's ``lax.map`` does, so every lane is bit-equal to the direct
-  single call on the same device by construction (on the card: 1,152 of
-  1,152 requests at n = 10⁴ and 19,433 in each of two runs, phase 12a
-  and c).
+  single call on the same device by construction. On an NVIDIA H100
+  80GB HBM3 at 700 W, 1,152 of 1,152 requests at n = 10⁴ and 19,433
+  were bit-equal in each of two runs; the card test
+  ``test_serve_exact_lanes_bit_equal_on_the_card`` holds the property.
 - ``vector`` engine: one call over the lane axis. On the CPU every lane
   is bit-equal to the direct call at every width (all four families,
   n = 96, widths 2, 5 and 8 in the tests). On the card it is not: torch's
@@ -30,9 +31,10 @@ Lane contract (``tests/test_torch_serve.py`` on the CPU,
   for 5 rows than for 64. So on the card ρ̂ and the CI ends are held
   within 1e-5 absolute of the direct call, and a lane's answer within
   the same of that lane's at another width (a centered value within an
-  ulp of 0 may flip its sign: such lanes are allowed up to 1%). Measured
-  on an NVIDIA H100 80GB HBM3 at 700 W (``chip_smoke.py`` phase 12b,
-  1,024 ``ni_sign`` lanes at n = 10⁴, two runs): 578 and 594 lanes
+  ulp of 0 may flip its sign: such lanes are allowed up to 1%); the
+  card test ``test_serve_vector_lane_contract_on_the_card`` holds this
+  contract. Measured on an NVIDIA H100 80GB HBM3 at 700 W (1,024
+  ``ni_sign`` lanes at n = 10⁴, two runs): 578 and 594 lanes
   bit-equal to the direct call, ρ̂ on 727 and 757, the rest within
   1.8e-7 absolute (ρ̂ within 7 ulps); 3 of 5 lanes at width 5 bit-equal
   to the same lanes at width 64, the others within 1.2e-7. None needed

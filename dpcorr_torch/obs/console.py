@@ -18,7 +18,7 @@ refreshing frame:
 - top-ε principals — the parties spending budget fastest, from the
   ledger snapshot.
 
-``--once`` prints a single frame and exits (scripts, ``chip_smoke.py``);
+``--once`` prints a single frame and exits (scripts, the card tests);
 otherwise the frame redraws every ``--interval`` seconds until
 interrupted.
 

@@ -33,8 +33,8 @@ and without computing on any device:
   ``process_name`` metadata, so Perfetto shows the fleet side by side);
   :func:`fleet_replay` unions many audit spools into one fleet ε table
   that folds to the sum of per-instance ledgers —
-  :func:`conservation` is the binary-exact gate ``chip_smoke.py``
-  phase 15 asserts on.
+  :func:`conservation` is the binary-exact gate the fleet's failover
+  test on the card asserts on (``tests/test_torch_cuda.py``).
 - **the collector** — :class:`FleetCollector` scrapes N ``/metrics`` +
   ``/stats`` endpoints into a :class:`FleetSnapshot`; a dead instance
   becomes an ``error`` entry, never an exception (half a fleet view

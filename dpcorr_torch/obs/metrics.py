@@ -283,7 +283,7 @@ def default_registry() -> Registry:
 def parse_exposition(text: str) -> dict[str, float]:
     """Parse exposition text back to ``{"name{labels}": value}`` — the
     scrape side of the single-source-of-truth check in
-    the serving tests and ``chip_smoke.py`` (not a general
+    the serving tests on the CPU and the card (not a general
     Prometheus parser; handles exactly what :meth:`Registry.render`
     emits)."""
     out: dict[str, float] = {}

@@ -24,8 +24,7 @@ grid's buckets on one card.
 3. The reference's v1 sign grid (144 points, B = 250,
    bucketed) fused and unfused, and its subG grid (120 points) ε-merged
    and not, each split the same way per bucket, by the stages a fused
-   bucket marks (``sim.GRID_STAGES``). The grids' wall times in turns are
-   ``chip_smoke.py`` phase 9's.
+   bucket marks (``sim.GRID_STAGES``).
 
 Each result is one JSON line stamped with the card's name and power limit;
 the device is the card, never the CPU.

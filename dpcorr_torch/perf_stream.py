@@ -7,7 +7,8 @@ The counterpart of the JAX package's stream load arms
 (``benchmarks/stream_load.py``: the fixed two-shard batch plan over 2 s
 tumbling windows at ε = 0.4) and of its budget-directory drill
 (``benchmarks/serve_load.py`` ``run_users``), written for the port: the
-pieces ``chip_smoke.py`` phase 14 drives, and a script that measures them
+pieces the stream's card tests drive (``tests/test_torch_cuda.py``), and
+a script that measures them
 at full size. Run as a script, on the card only, it prints one JSON line
 per result, each stamped with the card's name and power limit:
 

@@ -27,7 +27,8 @@ read by both packages.
 
 Under the ``"replay"`` key layout a session is bit-equal to the port's
 monolithic estimator on the same master key and device
-(``tests/test_torch_protocol.py``, ``chip_smoke.py`` phase 13).
+(``tests/test_torch_protocol.py`` on the CPU, ``tests/test_torch_cuda.py``
+on the card).
 """
 
 # Exports resolve lazily (PEP 562): the party and runner layers reach the

@@ -1,8 +1,8 @@
 """The online DP-correlation server: admission → ledger → coalescer.
 
 Counterpart of ``dpcorr/serve/server.py``. :class:`DpcorrServer` is the
-in-process composition root the tests and ``chip_smoke.py`` drive
-directly; :func:`serve_http` wraps it in a stdlib threaded HTTP front end
+in-process composition root the tests drive directly;
+:func:`serve_http` wraps it in a stdlib threaded HTTP front end
 for ``python -m dpcorr_torch serve``:
 
 - ``POST /estimate`` — one request (JSON body; arrays as lists) →
@@ -706,9 +706,8 @@ class DpcorrServer:
 
 
 class InProcessClient:
-    """The client surface the tests and ``chip_smoke.py`` program
-    against — the same calls a network client would make, minus the
-    wire."""
+    """The client surface the tests program against — the same calls a
+    network client would make, minus the wire."""
 
     def __init__(self, server: DpcorrServer):
         self._server = server

@@ -3,8 +3,7 @@
 Counterpart of ``dpcorr/serve/stats.py``, with its metric names and its
 snapshot's key set. One :class:`ServeStats` instance is shared by the
 coalescer, kernel cache and server; ``snapshot()`` is the single JSON
-shape exposed by the ``/stats`` endpoint, ``chip_smoke.py`` and the
-tests.
+shape exposed by the ``/stats`` endpoint and the tests.
 
 The counters live in a :class:`dpcorr_torch.obs.metrics.Registry` (one
 per ServeStats, so concurrent in-process servers never

@@ -1,6 +1,7 @@
 """Device resolution for the port's entry points, the device kind the
 measuring layer keys on, and what the measuring scripts
-(``chip_smoke.py``, ``dpcorr_torch.perf_fused``) read from the card."""
+(``chip_smoke.py``'s kernel table, ``dpcorr_torch.perf_fused``) read
+from the card."""
 
 from __future__ import annotations
 

@@ -22,8 +22,8 @@ Checks:
   ``--sweep`` kills them. The JAX package's rule flags only its
   ``bench.py --worker`` processes; here the workers are the grid's
   fan-out workers (``-m dpcorr_torch.parallel.multihost``) and the root
-  scripts ``chip_smoke.py`` / ``plan_ab.py``, each only when it belongs
-  to this checkout. The services (``serve``, ``stream``, ``fleet``,
+  script ``chip_smoke.py``, each only when it belongs to this
+  checkout. The services (``serve``, ``stream``, ``fleet``,
   ``party``, ``federation``) are never strays: started detached, their
   parent is init by design;
 - **device_probe** (``--probe`` only): initialise CUDA in a subprocess of
@@ -47,8 +47,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 #: the grid's fan-out worker, which exists to serve the grid that started it
 _WORKER_MODULE = "dpcorr_torch.parallel.multihost"
-#: the root scripts that drive the card for a caller
-_ROOT_SCRIPTS = ("chip_smoke.py", "plan_ab.py")
+#: the root script that drives the card for a caller
+_ROOT_SCRIPTS = ("chip_smoke.py",)
 
 
 def _nvidia_smi(*query: str, timeout: float = 30.0) -> list[str] | None:
@@ -166,9 +166,9 @@ def _under(path: str, root: str) -> bool:
 def is_checkout_worker(info: dict, root: str = ROOT) -> bool:
     """A worker process of the checkout at ``root``: the grid's fan-out
     worker (``<python> -m dpcorr_torch.parallel.multihost``, with
-    ``root`` on its ``PYTHONPATH`` or as its working directory), or a
-    root script (``chip_smoke.py``, ``plan_ab.py``) whose path lies at
-    ``root``. A service command is none of these."""
+    ``root`` on its ``PYTHONPATH`` or as its working directory), or the
+    root script ``chip_smoke.py`` whose path lies at ``root``. A service
+    command is none of these."""
     argv, cwd = info["argv"], info["cwd"]
     if argv[1:3] == ["-m", _WORKER_MODULE]:
         paths = [p for p in info["pythonpath"].split(os.pathsep) if p]

@@ -21,8 +21,11 @@ Device kinds are ``utils.device.device_kind``'s: ``"cpu"`` or the card's
 (``"cuda-h100"``). The ladder floors at chunk 2 as the JAX package's
 does (width 1 lowers differently there). On the card widths ≥ 2 do not
 all give the same bits: at n = 10⁴ the unfused NI fields differ at width
-2 from widths 64-16384, by up to 1.2e-7 (``chip_smoke.py`` phase 17b,
-PERF.md §5), so the grid's stamp keeps the width (``grid._stamp``).
+2 from widths 64-16384, by up to 1.2e-7 on an H100 (80GB HBM3, 700 W),
+so the grid's stamp keeps the width (``grid._stamp``). That the width
+moves the bits is held on the card by
+``test_chunk_width_changes_unfused_bits_on_the_card`` in
+``tests/test_torch_cuda.py``.
 
 The ``dtype`` cache axis folds in the port's f32/f64 geometry-band
 detector (``models.estimators.common.f32_geometry_band``), as the JAX
@@ -56,7 +59,7 @@ CHUNK_FLOOR = 2
 #: 0.5 µs with 2¹⁴ replications per launch, and a chunk of 2¹⁴ unfused
 #: replications holds ~1.3 GB per (n, 2) f32 table. With 2¹⁴ and 2¹⁶
 #: blocks one (family, n = 10⁴) probe took 7.13 s unfused and 0.22 s
-#: fused on an H100 (``chip_smoke.py`` phase 17c).
+#: fused on an H100.
 LADDERS: dict[str, tuple[tuple[int, ...], tuple[int, ...]]] = {
     "cpu": ((2, 4, 16, 64), (2048, 4096, 8192)),
     "cuda-h100": ((2048, 4096, 16384), (1 << 14, 1 << 16)),

@@ -14,7 +14,8 @@ Counterpart of ``dpcorr/utils/roofline.py``: a measured reps/s becomes
 - **K1's per-pipe work model** (:func:`fused_pipe_ops`,
   :func:`least_time_ms`): the operations one replication of the fused
   function needs, by pipe, and the least time the card needs for them
-  at sm_90's per-SM rates; ``chip_smoke.py`` bounds K1 with it, each
+  at sm_90's per-SM rates; ``chip_smoke.py``'s kernel table bounds K1
+  with it, each
   level of K1's stage ladder (:func:`ladder_pipe_ops`) and the rbg-family
   bit generator (:func:`rbg_bits_ops`, :func:`rbg_bits_bytes`) the same
   way.

@@ -851,3 +851,14 @@ def test_replicas_opening_one_directory_at_once_all_boot(tmp_path):
         for p in procs:
             p.join(60)
         assert [p.exitcode for p in procs] == [0] * 6, f"round {r}"
+
+
+def test_users_drill_gates_hold():
+    """benchmarks/serve_load.py's directory drill through the port
+    (``perf_stream.users_drill``) at 4,096 users over 8 shards of 64
+    resident: every gate exact, evictions and rehydrations above 0."""
+    from dpcorr_torch.perf_stream import users_drill
+
+    out = users_drill(4096, 8, 64)
+    assert out["ok"], out["gates"]
+    assert out["evictions"] > 0 and out["rehydrations"] > 0

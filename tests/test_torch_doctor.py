@@ -130,7 +130,8 @@ def _fake_proc(base, pid, argv, ppid, cwd=None, pythonpath=None):
 def test_stray_rule_on_a_faked_process_list(tmp_path, monkeypatch):
     """One faked /proc, read by both rules. The JAX rule flags only its
     ``bench.py --worker`` orphans; the port's only its own workers (the
-    fan-out worker, the root scripts) of this checkout. Neither flags a
+    fan-out worker, the root script, by path or from its directory) of
+    this checkout. Neither flags a
     service whose parent is init, another checkout's worker, a worker
     with a live parent, or this process."""
     proc, root, other = tmp_path / "proc", tmp_path / "repo", tmp_path / "b"
@@ -152,8 +153,7 @@ def test_stray_rule_on_a_faked_process_list(tmp_path, monkeypatch):
     _fake_proc(proc, 22, worker, 4242, cwd=str(root), pythonpath=str(root))
     _fake_proc(proc, 23, worker, 1, cwd=str(other), pythonpath=str(other))
     _fake_proc(proc, 24, ["python3", "chip_smoke.py"], 1, cwd=str(root))
-    _fake_proc(proc, 25, ["python3", f"{root}/plan_ab.py", "--sketch"], 1,
-               cwd="/")
+    _fake_proc(proc, 25, ["python3", f"{root}/chip_smoke.py"], 1, cwd="/")
     _fake_proc(proc, 26, ["python3", f"{other}/chip_smoke.py"], 1,
                cwd=str(root))
     _fake_proc(proc, 27, ["python3", "chip_smoke.py"], 1, cwd=str(other))

@@ -6,8 +6,9 @@ release journal, the crash-exact release sequence and the HTTP front end.
   and reclosed skips as JAX's on the scripted sequences of
   ``tests/test_stream.py``.
 - Sketches: ``window_key`` bit-equal to JAX's; per-chunk stats and
-  releases within the card-against-CPU tolerance of ``chip_smoke.py``
-  phase 14 (atol 1e-5, subG also rtol 2.5e-7); every shard partition
+  releases within the card-against-CPU tolerance of
+  ``tests/test_torch_cuda.py::test_stream_release_card_agrees_with_cpu``
+  (atol 1e-5, subG also rtol 2.5e-7); every shard partition
   byte-equal to the port's own monolith.
 - Durability: the WAL and the journal write JAX's bytes, each package
   replays the other's files, and a workdir written by either service is
